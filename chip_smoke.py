@@ -5,19 +5,28 @@ Run from the repository root on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+It imports fqsqueezer_tpu_torch and nothing of the reference package or of
+JAX, and fails if its run pulled either in.
 Phases, one line each; any failure raises and the script exits non-zero:
   1. device  — needs CUDA; prints the card's name and power limit.
-  2. build   — compiles the kernels from csrc/ (nvcc, sm_90a).
-  3. k1      — kernel K1 against its plain torch version on the card, exact,
-               at the main path's shape and the tests' shapes; times both.
+  2. build   — compiles the kernels from csrc/ (nvcc, sm_90a) and prints
+               their registers and shared memory.
+  3. k1      — kernel K1 against its plain torch version on the card, exact:
+               the tests' shapes, the main path's shape, an adversarial grid
+               (edge freqs and edge starting states), a group-sized grid,
+               and the flush's three-stream launch against the plain walk
+               of each stream and against three single walks. Then
+               times at the main path's shape: the walk alone, the plain
+               walk, the whole group encode (walk + compaction), and one
+               three-stream launch against three single launches.
   4. digest  — compresses 20,000 bench reads through the port's CLI with
-               the bench primary row's flags (BENCH_ROW); the archive's
-               sha256 must equal the reference package's (DIGEST_20K) and
-               K1 must have run.
+               the bench primary row's flags (BENCH_ROW) and no --device, so
+               on the card; the archive's sha256 must equal the reference
+               package's (DIGEST_20K) and K1 must have run.
   5. full    — the 100,000-read bench corpus through
                pipeline.compress_file, warm-up + timed run; prints reads/s,
-               bits/base, wall time and peak CUDA memory, and holds the
-               archive to DIGEST_100K.
+               bits/base, wall time and peak CUDA memory, holds the archive
+               to DIGEST_100K and K1 to at least one launch a group flush.
 The last two lines are the kernels' JSON record and the result line.
 
 The digests are sha256 sums of fqsqueezer_tpu.pipeline.compress_file's
@@ -40,17 +49,26 @@ DIGEST_READS = 20_000
 FULL_READS = 100_000
 DIGEST_20K = "0e4aff75f6a6b6c5d1035bd0693fc91718168abab10e2e6ecc2e9e73e701c918"
 DIGEST_100K = "d64f884abc5bed9f7ab66b9c535ccc7fd0ef8b9e0ebbd8704d05d3b6fafa4cd6"
-# (T, N) of the K1 checks: the tests' grids and the bench group's dna/qual
-# stream (25 batches x 2 read rows x 104 columns, padded to 512 rows)
-K1_SHAPES = ((40, 256), (256, 256), (300, 256), (5120, 2048), (97, 8))
+# (T, N) of the K1 checks: the tests' grids, the bench group's dna/qual
+# stream (25 batches x 2 read rows x 104 columns, padded to 512 rows), and a
+# group of the most batches a flush can hold (64 x 208 rows)
+K1_SHAPES = ((40, 256), (256, 256), (300, 256), (5120, 2048), (97, 8),
+             (13312, 2048))
+K1_ADVERSARIAL = (300, 256)
 K1_TIMED = (5120, 2048)
+# the bench group's three streams: meta, dna, quality
+K1_FLUSH = ((512, 2048), (5120, 2048), (5120, 2048))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate, for the ops bound
+K1_OPS_PER_SLOT = 12       # compare, shift, select, mulhi, 3 mul-adds, ...
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5")
 
 
 def bench_params():
     """bench.py's primary row: e -s -om o -qm 8 -im n -gs 5, 2048 lanes
     (the Params the CLI makes of BENCH_ROW)."""
-    from fqsqueezer_tpu.params import DnaMode, IdMode, Params, QualityMode
+    from fqsqueezer_tpu_torch.params import (DnaMode, IdMode, Params,
+                                             QualityMode)
 
     p = Params()
     p.genome_size = 5
@@ -61,23 +79,6 @@ def bench_params():
     p.verbosity = 0
     p.auto_tune_lanes()
     return p
-
-
-def _grid(rng, T, N):
-    """(freq, cum) int32 grids of random legit cdfs, ~15% masked no-ops."""
-    import numpy as np
-
-    raw = rng.integers(1, 50, size=(T, N, 5)).astype(np.int64)
-    cum = np.cumsum(raw, axis=-1)
-    cdf = np.concatenate([np.zeros_like(cum[..., :1]), cum], axis=-1)
-    cdf = (cdf << SB) // cum[..., -1:]
-    syms = rng.integers(0, 5, size=(T, N))
-    f = np.take_along_axis(cdf, syms[..., None] + 1, axis=-1)[..., 0] - \
-        np.take_along_axis(cdf, syms[..., None], axis=-1)[..., 0]
-    c = np.take_along_axis(cdf, syms[..., None], axis=-1)[..., 0]
-    mask = rng.random((T, N)) < 0.85
-    return (np.where(mask, f, 1 << SB).astype(np.int32),
-            np.where(mask, c, 0).astype(np.int32))
 
 
 def _ms(fn, reps):
@@ -124,52 +125,119 @@ def phase_build():
     print(f"[build] {os.path.relpath(so, REPO)} in {time.time() - t0:.2f} s")
 
 
+def _cuda_grid(seed, T, N):
+    import torch
+
+    from fqsqueezer_tpu_torch.utils.rans_grids import random_grid
+
+    f, c = random_grid(seed, T, N, SB)
+    return torch.from_numpy(f).cuda(), torch.from_numpy(c).cuda()
+
+
+def _err(got, want):
+    """Max abs difference over the (words, emits, states) of one walk."""
+    import torch
+
+    return max((int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                for g, w in zip(got, want) if g.numel()), default=0)
+
+
+def _bound_ms(T, N):
+    """(ms, 'bytes' | 'operations'): the least time the card could take for
+    one walk of an int32 [T, N] grid pair — f and c read once, u16 words and
+    u8 emit flags written once, the states (u32 carried in int64) in and
+    out."""
+    nbytes = T * N * (4 + 4 + 2 + 1) + N * (8 + 8)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = T * N * K1_OPS_PER_SLOT / INT_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
 def phase_k1():
-    """K1 == its plain version, exact, on every shape; (max_abs_err, ms,
-    plain_ms)."""
+    """K1 == its plain version, exact, on every shape; returns the numbers
+    of the kernels line."""
     import numpy as np
     import torch
 
     from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.utils.rans_grids import adversarial_grid
 
     worst = 0
     for T, N in K1_SHAPES:
-        f, c = _grid(np.random.default_rng(T * 7 + N), T, N)
-        fd, cd = torch.from_numpy(f).cuda(), torch.from_numpy(c).cuda()
+        fd, cd = _cuda_grid(T * 7 + N, T, N)
         init = rans.rans_initial_states(N, "cuda")
         got = rans.rans_encode_walk(fd, cd, SB, init)
-        want = rans.rans_encode_walk_plain(fd, cd, SB, init)
-        for g, w in zip(got, want):
-            worst = max(worst, int((g.long() - w.long()).abs().max()))
+        torch.cuda.synchronize()
+        worst = max(worst, _err(got, rans.rans_encode_walk_plain(
+            fd, cd, SB, init)))
         # the group encode (kernel + compaction) against the CPU path
         bounds = np.linspace(0, T, 5).astype(np.int64)
         rb = np.full((rans.GROUP_MAX_BATCHES + 1,), T, np.int64)
         rb[:bounds.size] = bounds
-        gw, gn, gs = rans.rans_encode_group(fd, cd, SB,
-                                            torch.from_numpy(rb).cuda())
-        pw, pn, ps = rans.rans_encode_group(torch.from_numpy(f),
-                                            torch.from_numpy(c), SB,
-                                            torch.from_numpy(rb))
-        n = int(pn.sum())
-        for g, w in ((gw[:n], pw[:n]), (gn, pn), (gs, ps)):
-            worst = max(worst, int((g.cpu() - w).abs().max()))
+        rb = torch.from_numpy(rb)
+        gw, gn, gs = rans.rans_encode_group(fd, cd, SB, rb.cuda())
+        pw, pn, ps = rans.rans_encode_group(fd.cpu(), cd.cpu(), SB, rb)
+        if gw.shape != pw.shape:
+            raise RuntimeError(f"K1 group encode at T={T} N={N}: "
+                               f"{gw.numel()} words, plain {pw.numel()}")
+        worst = max(worst, _err((gw.cpu(), gn.cpu(), gs.cpu()),
+                                (pw, pn, ps)))
         if worst != 0:
             raise RuntimeError(f"K1 disagrees with its plain version at "
                                f"T={T} N={N}: max abs err {worst}")
+    fa, ca, ia = (torch.from_numpy(a).cuda()
+                  for a in adversarial_grid(7, *K1_ADVERSARIAL, SB))
+    worst = max(worst, _err(rans.rans_encode_walk(fa, ca, SB, ia),
+                            rans.rans_encode_walk_plain(fa, ca, SB, ia)))
+    if worst != 0:
+        raise RuntimeError(f"K1 disagrees with its plain version on the "
+                           f"adversarial grid: max abs err {worst}")
+    # the flush as the main path launches it: one launch for its three
+    # streams == the plain walk of each == three single walks
+    flush = [_cuda_grid(11 + i, T, N) for i, (T, N) in enumerate(K1_FLUSH)]
+    before = rans.K1_LAUNCHES
+    multi = rans.rans_encode_walks(flush, SB)
+    if rans.K1_LAUNCHES != before + 1:
+        raise RuntimeError("the three-stream walk did not take one launch")
+    for (f, c), got in zip(flush, multi):
+        init = rans.rans_initial_states(f.shape[1], "cuda")
+        worst = max(worst,
+                    _err(got, rans.rans_encode_walk_plain(f, c, SB, init)),
+                    _err(got, rans.rans_encode_walk(f, c, SB, init)))
+    if worst != 0:
+        raise RuntimeError(f"the three-stream launch disagrees with the "
+                           f"plain walks or with three single walks: max "
+                           f"abs err {worst}")
+
     T, N = K1_TIMED
-    f, c = _grid(np.random.default_rng(1), T, N)
-    fd, cd = torch.from_numpy(f).cuda(), torch.from_numpy(c).cuda()
+    fd, cd = flush[1]
     init = rans.rans_initial_states(N, "cuda")
+    rb = torch.full((rans.GROUP_MAX_BATCHES + 1,), T, dtype=torch.int64,
+                    device="cuda")
+    rb[0] = 0
     ms = _ms(lambda: rans.rans_encode_walk(fd, cd, SB, init), 20)
     plain_ms = _ms(lambda: rans.rans_encode_walk_plain(fd, cd, SB, init), 3)
-    print(f"[k1] exact on {len(K1_SHAPES)} shapes (walk + group encode); "
-          f"T={T} N={N}: kernel {ms:.4f} ms, plain torch {plain_ms:.2f} ms")
-    return worst, ms, plain_ms
+    group_ms = _ms(lambda: rans.rans_encode_group(fd, cd, SB, rb), 20)
+    multi_ms = _ms(lambda: rans.rans_encode_walks(flush, SB), 20)
+    singles_ms = _ms(lambda: [rans.rans_encode_walks([g], SB)
+                              for g in flush], 20)
+    bound_ms, bound_by = _bound_ms(T, N)
+    print(f"[k1] exact on {len(K1_SHAPES)} shapes (walk + group encode), "
+          f"the adversarial grid and the three-stream launch; T={T} N={N}: "
+          f"walk {ms:.4f} ms ({ms / T * 1e6:.1f} ns a row), plain torch "
+          f"{plain_ms:.2f} ms, group encode (walk + compaction) "
+          f"{group_ms:.4f} ms, byte bound {bound_ms:.4f} ms; three streams "
+          f"{K1_FLUSH}: one launch {multi_ms:.4f} ms, three launches "
+          f"{singles_ms:.4f} ms")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "group_encode_ms": group_ms,
+            "three_stream_ms": multi_ms, "three_launches_ms": singles_ms}
 
 
 def _corpus(n_reads):
     """(bench corpus path, archive path) for n_reads reads."""
-    from fqsqueezer_tpu.utils.corpus import write_fastq_corpus
+    from fqsqueezer_tpu_torch.utils.corpus import write_fastq_corpus
 
     src = os.path.join(WORK, f"bench_{n_reads}.fastq")
     if not os.path.exists(src):
@@ -182,31 +250,46 @@ def _sha256(path):
         return hashlib.sha256(fh.read()).hexdigest()
 
 
+def _n_groups(arc, n_lanes):
+    """Group flushes an archive holds (the port's own reader)."""
+    from fqsqueezer_tpu_torch.archive import ArchiveReader
+
+    rd = ArchiveReader(arc)
+    n = 0
+    try:
+        while rd.read_group(n_lanes) is not None:
+            n += 1
+    finally:
+        rd.close()
+    return n
+
+
 def _compress(n_reads):
-    """(stats, sha256, seconds, K1 launches) of one compress_file on the
-    card, the input parsed beforehand."""
+    """(stats, sha256, seconds, K1 launches, group flushes) of one
+    compress_file on the card (no device named: the default), the input
+    parsed beforehand."""
     import torch
 
-    from fqsqueezer_tpu.io import fastq
     from fqsqueezer_tpu_torch import pipeline
+    from fqsqueezer_tpu_torch.io import fastq
     from fqsqueezer_tpu_torch.ops import rans
 
     src, arc = _corpus(n_reads)
     data = fastq.read_fastq(src)
+    p = bench_params()
     torch.cuda.synchronize()
     rans.K1_LAUNCHES = 0
     t0 = time.time()
-    stats = pipeline.compress_file(bench_params(), src, arc, data=data,
-                                   device="cuda")
+    stats = pipeline.compress_file(p, src, arc, data=data)
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = rans.K1_LAUNCHES
-    return stats, _sha256(arc), dt, launches
+    return stats, _sha256(arc), dt, launches, _n_groups(arc, p.n_lanes)
 
 
 def phase_digest():
-    """The 20k corpus through the CLI, as a user runs it (the CLI picks the
-    card and prints it at -v 1)."""
+    """The 20k corpus through the CLI, as a user runs it (no --device: the
+    CLI takes the card and prints it at -v 1)."""
     import torch
 
     from fqsqueezer_tpu_torch import cli
@@ -221,16 +304,17 @@ def phase_digest():
     launches = rans.K1_LAUNCHES
     if rc != 0:
         raise RuntimeError(f"the CLI returned {rc}")
-    if launches < 3:
-        raise RuntimeError(f"K1 launched {launches} times in the compress "
-                           f"(want >= 3, one per stream)")
+    groups = _n_groups(arc, bench_params().n_lanes)
+    if launches < groups or launches < 1:
+        raise RuntimeError(f"K1 launched {launches} times in a compress of "
+                           f"{groups} group flushes (want one a flush)")
     sha = _sha256(arc)
     if sha != DIGEST_20K:
         raise RuntimeError(f"20k archive sha256 {sha} != reference "
                            f"{DIGEST_20K}")
     print(f"[digest] {DIGEST_READS} reads through the CLI: sha256 {sha} == "
-          f"reference; {os.path.getsize(arc)} B, K1 launches {launches}, "
-          f"{dt:.2f} s")
+          f"reference; {os.path.getsize(arc)} B, K1 launches {launches} in "
+          f"{groups} flush(es), {dt:.2f} s")
 
 
 def phase_full():
@@ -238,17 +322,19 @@ def phase_full():
 
     _compress(FULL_READS)                          # warm-up
     torch.cuda.reset_peak_memory_stats()
-    stats, sha, dt, launches = _compress(FULL_READS)
+    stats, sha, dt, launches, groups = _compress(FULL_READS)
     peak = torch.cuda.max_memory_allocated()
     if sha != DIGEST_100K:
         raise RuntimeError(f"100k archive sha256 {sha} != reference "
                            f"{DIGEST_100K}")
-    if launches < 3:
-        raise RuntimeError(f"K1 launched {launches} times in the main path")
+    if launches < groups or launches < 1:
+        raise RuntimeError(f"K1 launched {launches} times in the main "
+                           f"path's {groups} group flushes")
     print(f"[full] {stats['n_reads']} reads: {stats['n_reads'] / dt:.1f} "
           f"reads/s, {stats['bits_per_base']:.4f} bits/base, wall "
           f"{dt:.3f} s, peak CUDA memory {peak / 2**30:.3f} GiB, "
-          f"sha256 == reference, K1 launches {launches}")
+          f"sha256 == reference, K1 launches {launches} in {groups} "
+          f"flush(es)")
     return launches
 
 
@@ -264,15 +350,18 @@ def main() -> int:
     phase_device()
     os.makedirs(WORK, exist_ok=True)
     phase_build()
-    err, ms, plain_ms = phase_k1()
+    k1 = phase_k1()
     phase_digest()
     launches = phase_full()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "fqsqueezer_tpu"))
+    if foreign:
+        raise RuntimeError(f"the port's run imported {foreign[:5]}")
     print(json.dumps({"kernels": [{
         "name": "rans_encode_walk (K1)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
         "replaces": "fqsqueezer_tpu/ops/rans.py:100",
-        "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "launches": launches, **k1}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

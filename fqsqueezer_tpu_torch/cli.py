@@ -1,12 +1,30 @@
-"""Command line interface of the port, with the reference package's flag
-surface (fqsqueezer_tpu.cli.parse_args is reused as is).
+"""Command line interface of the port.
+
+The flag surface, the usage text and the one-line errors are the reference
+CLI's (fqsqueezer_tpu/cli.py; `parse_args` here is the port's own copy of
+it), plus one option of the port's own:
+
+  fqsqueezer_tpu_torch e|d [options] <in> [<in2>]
+  -s / -p            single-end / paired-end
+  -t <n>             accepted for reference-CLI parity; ignored
+  -gs <mbp>          genome size -> k-mer length auto-tuning
+  -om o|s            original / sorted read order
+  -qm o|8|4|2|n      quality mode
+  -qt <n>            binary-quality threshold
+  -im o|i|n          id mode
+  -out / -out2       output path(s)
+  -tmp               temp path prefix
+  -v <n>             verbosity
+  @list_file         read input names from a file (one per line)
+  --device <d>       cuda (the default), cuda:N or cpu
 
     python -m fqsqueezer_tpu_torch.cli e -s -om o -qm 8 -im n -gs 5 \\
         -out X.fqst in.fastq
 
 Only `e` for single-end original order with Illumina-8 quality and no ids
-is ported. Every other mode exits 1 with one line naming it. The device is
-the first CUDA card when there is one, the CPU otherwise.
+is ported. Every other mode exits 1 with one line naming it. The work runs
+on the first CUDA card; a machine without a visible card exits 1 with one
+line unless `--device cpu` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -16,11 +34,130 @@ import time
 
 import torch
 
-from fqsqueezer_tpu.cli import parse_args
-from fqsqueezer_tpu.params import WorkMode
+from .params import DnaMode, IdMode, Params, QualityMode, WorkMode
+
+_USAGE = """fqsqueezer_tpu <mode> [options] <in.fastq> [<in2.fastq>]
+mode: e (compress) | d (decompress)
+options:
+  -s | -p        single-end (default) | paired-end
+  -t <n>         accepted for parity; ignored
+  -gs <mbp>      genome size estimate in Mbp (default 3100)
+  -om <o|s>      read order: original | sorted (default s)
+  -qm <o|8|4|2|n> quality: lossless|illumina8|illumina4|binary|none (default 8)
+  -qt <n>        quality threshold for -qm 2 (default 20)
+  -im <o|i|n>    ids: lossless|instrument|none (default i)
+  -out <path>    output path
+  -out2 <path>   second output path (PE decompress)
+  -dp <n> -tp <n>  multi-chip mesh: data-parallel / table shards (SE only)
+  -tmp <path>    temporary file prefix
+  -v <n>         verbosity 0-2
+"""
 
 # inputs above this total size are block-streamed by the reference CLI
 STREAM_THRESHOLD = 256 << 20
+
+
+def parse_args(argv) -> Params:
+    if len(argv) < 2:
+        raise SystemExit(_USAGE)
+    p = Params()
+    mode = argv[0]
+    if mode == "e":
+        p.work_mode = WorkMode.COMPRESS
+    elif mode == "d":
+        p.work_mode = WorkMode.DECOMPRESS
+    else:
+        raise SystemExit(_USAGE)
+
+    i = 1
+    pe = False
+    order_sorted = True
+    files = []
+    while i < len(argv):
+        a = argv[i]
+        if a == "-s":
+            pe = False
+        elif a == "-p":
+            pe = True
+        elif a == "-t":
+            i += 1
+            p.no_threads = max(1, min(64, int(argv[i])))
+        elif a == "-gs":
+            i += 1
+            p.genome_size = int(argv[i])
+        elif a == "-om":
+            i += 1
+            order_sorted = argv[i] == "s"
+        elif a == "-qm":
+            i += 1
+            qm = {"o": QualityMode.LOSSLESS, "8": QualityMode.ILLUMINA_8,
+                  "4": QualityMode.ILLUMINA_4, "2": QualityMode.BINARY,
+                  "n": QualityMode.NONE}.get(argv[i])
+            if qm is None:
+                raise SystemExit(f"invalid -qm value '{argv[i]}' (use o|8|4|2|n)")
+            p.quality_mode = qm
+        elif a == "-qt":
+            i += 1
+            p.quality_thr = int(argv[i])
+        elif a == "-im":
+            i += 1
+            im = {"o": IdMode.LOSSLESS, "i": IdMode.INSTRUMENT,
+                  "n": IdMode.NONE}.get(argv[i])
+            if im is None:
+                raise SystemExit(f"invalid -im value '{argv[i]}' (use o|i|n)")
+            p.id_mode = im
+        elif a == "-dp":
+            i += 1
+            p.mesh_dp = int(argv[i])
+        elif a == "-tp":
+            i += 1
+            p.mesh_tp = int(argv[i])
+        elif a == "-out":
+            i += 1
+            p.out_path = argv[i]
+        elif a == "-out2":
+            i += 1
+            p.out_path2 = argv[i]
+        elif a == "-tmp":
+            i += 1
+            p.tmp_path = argv[i]
+        elif a == "-v":
+            i += 1
+            p.verbosity = int(argv[i])
+        elif a.startswith("@"):
+            with open(a[1:]) as f:
+                files.extend(ln.strip() for ln in f if ln.strip())
+        else:
+            files.append(a)
+        i += 1
+
+    if pe:
+        p.dna_mode = DnaMode.PE_SORTED if order_sorted else DnaMode.PE_ORIGINAL
+    else:
+        p.dna_mode = DnaMode.SE_SORTED if order_sorted else DnaMode.SE_ORIGINAL
+    p.file_names = files
+    if p.work_mode == WorkMode.COMPRESS:
+        p.adjust_kmer_sizes()
+        p.auto_tune_lanes()
+    return p
+
+
+def take_device(argv):
+    """Split the port-only `--device cpu|cuda|cuda:N` (default cuda) off the
+    argv: (device string, the argv parse_args sees)."""
+    argv = list(argv)
+    device = "cuda"
+    while "--device" in argv:
+        at = argv.index("--device")
+        if at + 1 >= len(argv):
+            raise SystemExit("--device needs a value (cpu|cuda|cuda:N)")
+        device = argv[at + 1]
+        del argv[at:at + 2]
+    if device != "cpu" and device != "cuda" and not (
+            device.startswith("cuda:") and device[5:].isdigit()):
+        raise SystemExit(f"invalid --device value '{device}' "
+                         f"(use cpu|cuda|cuda:N)")
+    return device, argv
 
 
 def _not_ported(what: str):
@@ -29,6 +166,7 @@ def _not_ported(what: str):
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    device, argv = take_device(argv)
     p = parse_args(argv)
     if p.work_mode != WorkMode.COMPRESS:
         raise _not_ported("decompression (d)")
@@ -44,7 +182,10 @@ def main(argv=None) -> int:
     if total > STREAM_THRESHOLD:
         raise _not_ported(f"streamed input above {STREAM_THRESHOLD >> 20} "
                           f"MiB")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    try:
+        device = pipeline.resolve_device(device)
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}")
     if p.verbosity >= 1:
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "host CPU")

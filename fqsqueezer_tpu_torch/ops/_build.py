@@ -67,8 +67,10 @@ def kernels() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.fqtz_rans_encode_walk.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                  p]
+            # (n_streams, f[], c[], init[], w[], e[], fin[], T[], N[], sb,
+            # stream): the arrays are host arrays, one entry a stream
+            lib.fqtz_rans_encode_walk.argtypes = [i, p, p, p, p, p, p, p, p,
+                                                  i, p]
             lib.fqtz_rans_encode_walk.restype = i
             _lib = lib
         return _lib

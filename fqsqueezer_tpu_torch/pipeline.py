@@ -3,12 +3,16 @@
 Port of fqsqueezer_tpu/pipeline.py's SE path. Batches are modeled forward on
 the device (tables and models evolve), their (freq, cum) grids are kept on
 the device, and at each group flush every stream's grids are entropy-coded
-as one reverse rANS walk (kernel K1 on a CUDA device), so lane states chain
-across the group and one state block per stream is stored. The header,
-container, batch geometry and group boundaries are the reference package's,
-so the archives are byte-identical to fqsqueezer_tpu.pipeline.compress_file's.
+as one reverse rANS walk each — all streams in one launch of kernel K1 on a
+CUDA device — so lane states chain across the group and one state block per
+stream is stored. The header, container, batch geometry and group boundaries
+are the reference package's (through this package's own copies of params,
+archive and io.fastq), so the archives are byte-identical to
+fqsqueezer_tpu.pipeline.compress_file's.
 
-Every function that creates state takes an explicit `device`.
+Every function that creates state takes an explicit `device`. The entry
+point compress_file runs on the first CUDA card unless the caller names
+another device; it never falls back to the CPU.
 """
 from __future__ import annotations
 
@@ -19,11 +23,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from fqsqueezer_tpu import archive
-from fqsqueezer_tpu.io import fastq
-from fqsqueezer_tpu.params import DnaMode, IdMode, Params, QualityMode
-
+from . import archive
+from .io import fastq
 from .ops import models, rans, tables
+from .params import DnaMode, IdMode, Params, QualityMode
 from .streams import common, dna, meta, quality
 
 
@@ -139,10 +142,10 @@ def _model_batch(dcfg, qcfg, mcfg, state: CodecState, codes: torch.Tensor,
     return grids, CodecState(dna=d_state, meta=m_model, qual=q_model)
 
 
-def _rans_group_stream(fcs, scale_bits: int, n_lanes: int):
-    """Concatenate one stream's per-batch (f, c) grids in batch order, pad
-    the rows to GROUP_PAD_ROWS with exact no-ops, and run the group encode.
-    Returns (words, n_per, states) on the grids' device."""
+def _group_grid(fcs, scale_bits: int, n_lanes: int):
+    """One stream's group grid: its per-batch (f, c) grids concatenated in
+    batch order, the rows padded to GROUP_PAD_ROWS with exact no-ops.
+    Returns ((f, c), row_bounds) on the grids' device."""
     rows = [int(f.shape[0]) for f, _ in fcs]
     bounds = np.concatenate([[0], np.cumsum(rows)]).astype(np.int64)
     T = int(bounds[-1])
@@ -156,8 +159,7 @@ def _rans_group_stream(fcs, scale_bits: int, n_lanes: int):
     c = torch.cat([c for _, c in fcs] + pad_c, dim=0)
     rb = np.full((rans.GROUP_MAX_BATCHES + 1,), T, np.int64)
     rb[:len(bounds)] = bounds
-    return rans.rans_encode_group(f, c, scale_bits,
-                                  torch.from_numpy(rb).to(dev))
+    return (f, c), torch.from_numpy(rb).to(dev)
 
 
 GROW_MAX_DOUBLINGS = 4     # growth bits available in cell tags
@@ -255,17 +257,35 @@ def _pad_batch(arr: np.ndarray, padded: int):
     return np.concatenate([arr, np.zeros(pad_shape, arr.dtype)], axis=0)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device`, or the first CUDA card
+    when the caller names none. Raises RuntimeError when a CUDA device is
+    asked for and none is visible — there is no fallback to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is visible to torch; pass device=\"cpu\" "
+                "(--device cpu on the command line) to ask for the CPU")
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"{dev} asked for, but torch sees "
+                f"{torch.cuda.device_count()} CUDA device(s)")
+    return dev
+
+
 def compress_file(p: Params, in_path: str, out_path: str,
                   data: Optional[fastq.FastqData] = None,
                   group_mem_bytes: int = 512 << 20, device=None) -> dict:
     """SE original-order compression of an in-RAM input (`data`, or the
-    parsed `in_path`) into `out_path`, on `device` (default: the CPU).
-    Returns the same stats dict as the reference package."""
+    parsed `in_path`) into `out_path`, on `device` (default: the first CUDA
+    card; see resolve_device). Returns the same stats dict as the reference
+    package."""
     missing = unported_modes(p)
     if missing:
         raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
                          + ", ".join(missing))
-    device = torch.device(device if device is not None else "cpu")
+    device = resolve_device(device)
     in_paths = list(in_path) if isinstance(in_path, (list, tuple)) else [
         in_path]
     if data is None:
@@ -291,13 +311,16 @@ def compress_file(p: Params, in_path: str, out_path: str,
         if not group_meta:
             return
         K = len(group_meta)
+        # every stream's walk in one launch, compaction after it, then the
+        # pulls: no pull waits between two streams' walks
+        grids, bounds = zip(*(
+            _group_grid([group_fc[k][si] for k in range(K)], p.scale_bits,
+                        p.n_lanes) for si in range(n_streams)))
+        encoded = rans.rans_encode_groups(grids, p.scale_bits, bounds)
         states_out, per_batch = [], [[None] * n_streams for _ in range(K)]
-        for si in range(n_streams):
-            words, n_per, st = _rans_group_stream(
-                [group_fc[k][si] for k in range(K)], p.scale_bits,
-                p.n_lanes)
+        for si, (words, n_per, st) in enumerate(encoded):
             ns = n_per[:K].cpu().numpy()
-            host = words[:int(ns.sum())].cpu().numpy()
+            host = words.cpu().numpy()
             states_out.append(st.cpu().numpy())
             off = 0
             for k in range(K):

@@ -1,15 +1,17 @@
 """Kernel K1 on a CUDA card: it launches, equals its plain torch version
 exactly, and refuses what it does not take instead of falling back. Imports
-no JAX, so it runs on a machine with a card and no JAX:
+no JAX and nothing of the reference package, so it runs on a machine with a
+card and neither of them:
 
     python -m pytest tests/test_torch_cuda.py -q
 
 Without a card every test skips (the kernel has no CPU mode)."""
-import numpy as np
 import pytest
 import torch
 
 from fqsqueezer_tpu_torch.ops import rans
+from fqsqueezer_tpu_torch.utils.rans_grids import (adversarial_grid,
+                                                   random_grid)
 
 SB = 14
 
@@ -20,22 +22,17 @@ def _card():
 
 
 def _grid(seed, T, N):
-    """Random legit (freq, cum) int32 grids, ~15% masked no-op slots."""
-    rng = np.random.default_rng(seed)
-    raw = rng.integers(1, 50, size=(T, N, 5))
-    cdf = np.concatenate([np.zeros((T, N, 1), np.int64),
-                          np.cumsum(raw, axis=-1)], axis=-1)
-    cdf = (cdf << SB) // cdf[..., -1:]
-    s = rng.integers(0, 5, size=(T, N, 1))
-    c = np.take_along_axis(cdf, s, axis=-1)[..., 0]
-    f = np.take_along_axis(cdf, s + 1, axis=-1)[..., 0] - c
-    mask = rng.random((T, N)) < 0.85
-    return (torch.from_numpy(np.where(mask, f, 1 << SB).astype(np.int32)),
-            torch.from_numpy(np.where(mask, c, 0).astype(np.int32)))
+    return tuple(torch.from_numpy(a) for a in random_grid(seed, T, N, SB))
+
+
+def _same(got, want):
+    return all(g.device.type == "cuda" and g.dtype == w.dtype
+               and torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,N", [(40, 256), (300, 256), (97, 8), (1, 3)])
+@pytest.mark.parametrize("T,N", [(40, 256), (300, 256), (97, 8), (1, 3),
+                                 (65, 100), (64, 32), (200, 37)])
 def test_k1_equals_plain_walk(T, N):
     _card()
     f, c = (t.cuda() for t in _grid(T + N, T, N))
@@ -43,9 +40,35 @@ def test_k1_equals_plain_walk(T, N):
     before = rans.K1_LAUNCHES
     got = rans.rans_encode_walk(f, c, SB, init)
     assert rans.K1_LAUNCHES == before + 1
-    want = rans.rans_encode_walk_plain(f, c, SB, init)
-    for g, w in zip(got, want):
-        assert g.device.type == "cuda" and torch.equal(g, w)
+    assert _same(got, rans.rans_encode_walk_plain(f, c, SB, init))
+
+
+@pytest.mark.cuda
+def test_k1_equals_plain_walk_on_adversarial_grid():
+    """Edge freqs (1, 2, 3, 2^SB - 1, the no-op 2^SB) and edge starting
+    states (2^16, 2^32 - 1, around the emit threshold)."""
+    _card()
+    f, c, init = (torch.from_numpy(a).cuda()
+                  for a in adversarial_grid(7, 300, 256, SB))
+    assert _same(rans.rans_encode_walk(f, c, SB, init),
+                 rans.rans_encode_walk_plain(f, c, SB, init))
+
+
+@pytest.mark.cuda
+def test_k1_multi_stream_launch_equals_single_walks():
+    """Grids of unequal T and N in one launch."""
+    _card()
+    shapes = [(512, 64), (130, 256), (1, 3), (300, 37), (0, 8)]
+    grids = [tuple(t.cuda() for t in _grid(i, T, N))
+             for i, (T, N) in enumerate(shapes)]
+    inits = [torch.randint(1 << 16, 1 << 32, (N,), device="cuda")
+             for _, N in shapes]
+    before = rans.K1_LAUNCHES
+    multi = rans.rans_encode_walks(grids, SB, inits)
+    assert rans.K1_LAUNCHES == before + 1
+    for (f, c), init, got in zip(grids, inits, multi):
+        assert _same(got, rans.rans_encode_walk(f, c, SB, init))
+        assert _same(got, rans.rans_encode_walk_plain(f, c, SB, init))
 
 
 @pytest.mark.cuda
@@ -57,10 +80,8 @@ def test_k1_group_encode_equals_cpu_path():
     rb[:4] = torch.tensor([0, 150, 151, 420])
     got = rans.rans_encode_group(f.cuda(), c.cuda(), SB, rb.cuda())
     want = rans.rans_encode_group(f, c, SB, rb)
-    n = int(want[1].sum())
-    assert torch.equal(got[0][:n].cpu(), want[0][:n])
-    assert torch.equal(got[1].cpu(), want[1])
-    assert torch.equal(got[2].cpu(), want[2])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
@@ -74,4 +95,6 @@ def test_k1_refuses_instead_of_falling_back():
                  (f, c, SB, init.cpu())):                  # wrong device
         with pytest.raises(ValueError):
             rans.rans_encode_walk(*args)
+    with pytest.raises(ValueError):          # more grids than a launch takes
+        rans.rans_encode_walks([(f, c)] * (rans.K1_MAX_STREAMS + 1), SB)
     assert rans.K1_LAUNCHES == before

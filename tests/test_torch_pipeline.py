@@ -3,8 +3,11 @@
 On a tiny multi-group geometry (several groups, table growth and an SIV
 prune), fqsqueezer_tpu_torch.pipeline.compress_file must write the same
 bytes as fqsqueezer_tpu.pipeline.compress_file, and the reference decoder
-must give the reads back. Also: the port's compress path imports no JAX, and
-the CLI refuses every mode it does not have with one line.
+must give the reads back. Each package gets its own Params, built the same
+way from its own params module. Also: the port's compress path imports no
+JAX and nothing of the reference package, and the CLI refuses every mode it
+does not have with one line. Everything here asks for the CPU
+(`device="cpu"`, `--device cpu`).
 """
 import contextlib
 import hashlib
@@ -18,22 +21,24 @@ import textwrap
 import numpy as np
 import pytest
 
+from fqsqueezer_tpu import params as jparams
 from fqsqueezer_tpu import pipeline as jp
 from fqsqueezer_tpu.io import fastq
-from fqsqueezer_tpu.params import DnaMode, IdMode, Params, QualityMode
 from fqsqueezer_tpu.streams.quality import qual_maps
 from fqsqueezer_tpu.utils.corpus import write_fastq_corpus
 from fqsqueezer_tpu_torch import cli
+from fqsqueezer_tpu_torch import params as tparams
 from fqsqueezer_tpu_torch import pipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUP_MEM = 30_000   # a few tiny batches per group
 
 
-def tiny_params():
+def tiny_params(mod):
     """Tiny geometry with undersized s/b tables (2^8 buckets) and SIV (cap
-    7), so the tables grow and the SIV gets pruned."""
-    p = Params()
+    7), so the tables grow and the SIV gets pruned. mod: the params module
+    of the package the Params are for."""
+    p = mod.Params()
     p.genome_size = 1
     p.adjust_kmer_sizes()
     p.n_lanes = 8
@@ -41,9 +46,9 @@ def tiny_params():
     p.smer_log2_buckets = 8
     p.bmer_log2_buckets = 8
     p.dna_siv_cap = 7
-    p.dna_mode = DnaMode.SE_ORIGINAL
-    p.quality_mode = QualityMode.ILLUMINA_8
-    p.id_mode = IdMode.NONE
+    p.dna_mode = mod.DnaMode.SE_ORIGINAL
+    p.quality_mode = mod.QualityMode.ILLUMINA_8
+    p.id_mode = mod.IdMode.NONE
     p.verbosity = 1
     return p
 
@@ -54,12 +59,13 @@ def archives(tmp_path_factory):
     src = str(d / "in.fastq")
     write_fastq_corpus(src, 600, 40, 60_000, seed=5)
     jarc, tarc = str(d / "jax.fqst"), str(d / "torch.fqst")
-    jstats = jp.compress_file(tiny_params(), src, jarc,
+    jstats = jp.compress_file(tiny_params(jparams), src, jarc,
                               group_mem_bytes=GROUP_MEM)
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        tstats = pipeline.compress_file(tiny_params(), src, tarc,
-                                        group_mem_bytes=GROUP_MEM)
+        tstats = pipeline.compress_file(tiny_params(tparams), src, tarc,
+                                        group_mem_bytes=GROUP_MEM,
+                                        device="cpu")
     return src, jarc, tarc, jstats, tstats, log.getvalue(), d
 
 
@@ -93,11 +99,12 @@ def test_reference_decodes_port_archive(tmp_path):
     few (each new table size or batch shape compiles its decode scan)."""
     src, arc, out = (str(tmp_path / n) for n in ("in.fq", "a.fqst", "o.fq"))
     write_fastq_corpus(src, 160, 40, 60_000, seed=6)
-    p = tiny_params()
+    p = tiny_params(tparams)
     p.max_batch_reads = 8
     p.smer_log2_buckets = p.bmer_log2_buckets = 14
-    pipeline.compress_file(p, src, arc, group_mem_bytes=GROUP_MEM)
-    jp.decompress_file(Params(), arc, out)
+    pipeline.compress_file(p, src, arc, group_mem_bytes=GROUP_MEM,
+                           device="cpu")
+    jp.decompress_file(jparams.Params(), arc, out)
     a, b = fastq.read_fastq(src), fastq.read_fastq(out)
     np.testing.assert_array_equal(b.lengths, a.lengths)
     np.testing.assert_array_equal(b.codes, a.codes)
@@ -113,7 +120,7 @@ def test_compress_path_imports_no_jax(tmp_path):
     code = textwrap.dedent(f"""
         import sys
         import fqsqueezer_tpu_torch.cli
-        from fqsqueezer_tpu.params import Params, DnaMode, IdMode
+        from fqsqueezer_tpu_torch.params import Params, DnaMode, IdMode
         from fqsqueezer_tpu_torch import pipeline
         p = Params()
         p.genome_size = 1
@@ -121,9 +128,11 @@ def test_compress_path_imports_no_jax(tmp_path):
         p.n_lanes, p.max_batch_reads, p.dna_siv_cap = 8, 64, 7
         p.smer_log2_buckets = p.bmer_log2_buckets = 8
         p.dna_mode, p.id_mode = DnaMode.SE_ORIGINAL, IdMode.NONE
-        st = pipeline.compress_file(p, {src!r}, {str(tmp_path / "o.fqst")!r})
+        st = pipeline.compress_file(p, {src!r}, {str(tmp_path / "o.fqst")!r},
+                                    device="cpu")
         assert st["n_reads"] == 80
-        bad = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "fqsqueezer_tpu"))
         assert not bad, bad
         print("no jax")
     """)
@@ -164,7 +173,7 @@ def test_cli_refuses_streamed_input(tmp_path):
         f.truncate((256 << 20) + 1)        # sparse: no data written
     res = subprocess.run(
         [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "e", *_SE,
-         "-out", str(tmp_path / "o.fqst"), str(big)],
+         "--device", "cpu", "-out", str(tmp_path / "o.fqst"), str(big)],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 1
     lines = res.stderr.strip().splitlines()
@@ -195,6 +204,8 @@ def test_bench_geometry_reference_digest(tmp_path):
     cs = _chip_smoke()
     src, arc = str(tmp_path / "in.fastq"), str(tmp_path / "o.fqst")
     write_fastq_corpus(src, cs.DIGEST_READS, 100, 4_600_000, seed=42)
-    jp.compress_file(cs.bench_params(), src, arc)
+    p = jparams.Params.load_params(cs.bench_params().store_params())
+    p.verbosity = 0
+    jp.compress_file(p, src, arc)
     with open(arc, "rb") as f:
         assert hashlib.sha256(f.read()).hexdigest() == cs.DIGEST_20K

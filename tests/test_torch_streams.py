@@ -17,6 +17,7 @@ from fqsqueezer_tpu.params import DnaMode, IdMode, Params, QualityMode
 from fqsqueezer_tpu.streams import dna as jdna
 from fqsqueezer_tpu.streams import quality as jq
 from fqsqueezer_tpu.utils.corpus import make_genome, sample_reads
+from fqsqueezer_tpu_torch import params as tparams
 from fqsqueezer_tpu_torch import pipeline
 from fqsqueezer_tpu_torch.ops import tables
 from fqsqueezer_tpu_torch.state import state_from_numpy, state_to_numpy
@@ -41,6 +42,12 @@ def tiny_params(siv_cap=8):
     p.quality_mode = QualityMode.ILLUMINA_8
     p.id_mode = IdMode.NONE
     return p
+
+
+def port_params(p):
+    """The port's own Params for the reference Params p: the archive header
+    of one loads into the other."""
+    return tparams.Params.load_params(p.store_params())
 
 
 def _batches(seed, n=4):
@@ -90,7 +97,7 @@ def runs(request):
     ramp (prefix_len 9 < siv_len - 2)."""
     p = tiny_params(request.param)
     jcfgs = jp.make_configs(p)
-    tcfgs = pipeline.make_configs(p)
+    tcfgs = pipeline.make_configs(port_params(p))
     assert jcfgs[3] is None
     qfwd = jq.qual_maps(jcfgs[1].mode, jcfgs[1].qt)[0]
     batches = _batches(request.param)
@@ -197,7 +204,7 @@ def test_dna_helpers_off_the_encode_path(runs):
     """_base_of_rank, _popcount4 and the static-prefix ramp read (all used
     by the decoder) agree with the reference too."""
     p, start, _ = runs
-    dcfg = pipeline.make_configs(p)[0]
+    dcfg = pipeline.make_configs(port_params(p))[0]
     jdcfg = jp.make_configs(p)[0]
     rng = np.random.default_rng(7)
     counts = rng.integers(0, 4, (64, 4)) * rng.integers(0, 3, (64, 1))
