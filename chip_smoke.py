@@ -27,11 +27,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
                pipeline.compress_file, warm-up + timed run; prints reads/s,
                bits/base, wall time and peak CUDA memory, holds the archive
                to DIGEST_100K and K1 to at least one launch a group flush.
+  6. k3      — kernel K3 (the quality decode scan) against its plain torch
+               version on the card, exact (symbols, final states, words
+               consumed): N in {8, 256, 2048} x L in {40, 104} x r_pl in
+               {1, 2} on random batches whose lengths include 0, 1 and L,
+               and the main path's second batch (4096 reads, 2 read rows,
+               104 columns) of the 20k archive, with the quality model the
+               first batch left. Then K3 and the plain scan timed on that
+               batch, and its bound.
+  7. decode  — the 20k archive through the port's CLI `d` with no
+               --device, and the 100k archive through
+               pipeline.decompress_file (warm-up + timed run); the decoded
+               FASTQs' sha256 must equal the reference decoder's
+               (DIGEST_D20K, DIGEST_D100K) and K3 must have launched at
+               least once a batch. Prints decode reads/s, wall time, peak
+               CUDA memory and K3's launches.
 The last two lines are the kernels' JSON record and the result line.
 
-The digests are sha256 sums of fqsqueezer_tpu.pipeline.compress_file's
-archive of write_fastq_corpus(path, n, 100, 4_600_000, seed=42) at
-bench_params(), computed with the reference package on a CPU.
+The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
+compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
+seed=42) at bench_params(); the decode digests are sha256 sums of
+fqsqueezer_tpu.pipeline.decompress_file's FASTQ output for those archives.
+Both were computed with the reference package on a CPU.
 """
 from __future__ import annotations
 
@@ -49,6 +66,8 @@ DIGEST_READS = 20_000
 FULL_READS = 100_000
 DIGEST_20K = "0e4aff75f6a6b6c5d1035bd0693fc91718168abab10e2e6ecc2e9e73e701c918"
 DIGEST_100K = "d64f884abc5bed9f7ab66b9c535ccc7fd0ef8b9e0ebbd8704d05d3b6fafa4cd6"
+DIGEST_D20K = "ea7c1942f71dfd492a10d527c271e8a2ea52519e07f3de75ecfd4a52d3c12fcb"
+DIGEST_D100K = "a00dacd9b85ce07c6092b65118fbb9a490edd14d31739630fb5f9d17a1ab999a"
 # (T, N) of the K1 checks: the tests' grids, the bench group's dna/qual
 # stream (25 batches x 2 read rows x 104 columns, padded to 512 rows), and a
 # group of the most batches a flush can hold (64 x 208 rows)
@@ -62,6 +81,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate, for the ops bound
 K1_OPS_PER_SLOT = 12       # compare, shift, select, mulhi, 3 mul-adds, ...
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5")
+# (N, r_pl, L) of the K3 checks on random batches
+K3_SHAPES = tuple((n, r, l) for n in (8, 256, 2048) for l in (40, 104)
+                  for r in (1, 2))
+K3_OPS_PER_POS = 120   # an active lane-step: the row's loads and 8 adds,
+                       # a divide, 8 x (mulhi, correction, compare,
+                       # selects), the state update, its share of the scan
 
 
 def bench_params():
@@ -338,6 +363,163 @@ def phase_full():
     return launches
 
 
+def _k3_check(cfg, model, lengths, words, init, L, what):
+    """K3 == the plain scan on the card, exactly; returns K3's outputs."""
+    import torch
+
+    from fqsqueezer_tpu_torch.streams import quality
+
+    got = quality.qual_decode_scan(cfg, model, lengths, words, init, L)
+    want = quality.qual_decode_scan_plain(cfg, model, lengths, words, init,
+                                          L)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("symbols", "final states", "ptr")):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+            raise RuntimeError(f"K3 disagrees with the plain scan on "
+                               f"{what}: {name}, max abs err {err}")
+    return got
+
+
+def _k3_bound_ms(cfg, model, lengths, syms, words_used, L):
+    """(ms, 'bytes' | 'operations'): the least time the card could take for
+    one batch's scan — the model rows it reads (each distinct row once),
+    lengths, the consumed words and the states in, u8 symbols, states and
+    the pointer out; operations K3_OPS_PER_POS an active position."""
+    import torch
+
+    from fqsqueezer_tpu_torch.streams import quality
+
+    R = lengths.shape[0]
+    pos = torch.arange(L, device=syms.device)[None, :]
+    active = pos < lengths[:, None].to(torch.int64)
+    ctx = quality.qual_ctx_plane(cfg, syms.to(torch.int64))[active]
+    rows = int(torch.unique(ctx).numel())
+    N = cfg.n_lanes
+    nbytes = (rows * cfg.n_sym * 4 + R * 4 + words_used * 4 + N * 8
+              + R * L + N * 8 + 8)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = int(active.sum()) * K3_OPS_PER_POS / INT_OPS_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def phase_k3():
+    """K3 == its plain version, exact, on every shape and on the main
+    path's real batch; returns the numbers of the kernels line."""
+    import torch
+
+    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.tools.k3_compare import real_quality_batch
+    from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
+
+    for N, r_pl, L in K3_SHAPES:
+        cfg = quality.QualConfig(n_lanes=N)
+        arrs = quality_batch(N * 7 + L + r_pl, N, r_pl, L, cfg.n_ctx,
+                             cfg.n_sym, N * r_pl * L // 2)
+        _k3_check(cfg, *(torch.from_numpy(a).cuda() for a in arrs), L,
+                  f"N={N} r_pl={r_pl} L={L}")
+    _, arc = _corpus(DIGEST_READS)
+    cfg, model, lengths, words, init, L = real_quality_batch(arc)
+    syms, _, ptr = _k3_check(cfg, model, lengths, words, init, L,
+                             "the main path's batch")
+    args = (cfg, model, lengths, words, init, L)
+    ms = _ms(lambda: quality.qual_decode_scan(*args), 20)
+    plain_ms = _ms(lambda: quality.qual_decode_scan_plain(*args), 2)
+    bound_ms, bound_by = _k3_bound_ms(cfg, model, lengths, syms, int(ptr),
+                                      L)
+    R = lengths.shape[0]
+    print(f"[k3] exact on {len(K3_SHAPES)} random shapes and the main "
+          f"path's batch (N={cfg.n_lanes}, r_pl={R // cfg.n_lanes}, L={L}, "
+          f"{int(ptr)} words): K3 {ms:.4f} ms "
+          f"({ms / (R // cfg.n_lanes * L) * 1e3:.2f} us a step), plain "
+          f"torch {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _n_batches(arc, n_lanes):
+    """Batches an archive holds (the port's own reader)."""
+    from fqsqueezer_tpu_torch.archive import ArchiveReader
+
+    rd = ArchiveReader(arc)
+    n = 0
+    try:
+        while (g := rd.read_group(n_lanes)) is not None:
+            n += len(g[1])
+    finally:
+        rd.close()
+    return n
+
+
+def _decompress(n_reads):
+    """(sha256 of the FASTQ, seconds, K3 launches, batches, n_reads) of one
+    pipeline.decompress_file on the card (no device named: the default)."""
+    import torch
+
+    from fqsqueezer_tpu_torch import pipeline
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.streams import quality
+
+    _, arc = _corpus(n_reads)
+    out = os.path.join(WORK, f"bench_{n_reads}.dec.fastq")
+    torch.cuda.synchronize()
+    quality.K3_LAUNCHES = 0
+    t0 = time.time()
+    stats = pipeline.decompress_file(Params(), arc, out)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = quality.K3_LAUNCHES
+    return (_sha256(out), dt, launches,
+            _n_batches(arc, bench_params().n_lanes), stats["n_reads"])
+
+
+def phase_decode():
+    """The 20k archive through the CLI's d (no --device: the card), the
+    100k one through pipeline.decompress_file, warm-up + timed run."""
+    import torch
+
+    from fqsqueezer_tpu_torch import cli
+    from fqsqueezer_tpu_torch.streams import quality
+
+    _, arc = _corpus(DIGEST_READS)
+    out = os.path.join(WORK, f"bench_{DIGEST_READS}.dec.fastq")
+    quality.K3_LAUNCHES = 0
+    t0 = time.time()
+    rc = cli.main(["d", "-v", "1", "-out", out, arc])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = quality.K3_LAUNCHES
+    batches = _n_batches(arc, bench_params().n_lanes)
+    if rc != 0:
+        raise RuntimeError(f"the CLI's d returned {rc}")
+    sha = _sha256(out)
+    if sha != DIGEST_D20K:
+        raise RuntimeError(f"decoded 20k FASTQ sha256 {sha} != reference "
+                           f"decoder's {DIGEST_D20K}")
+    if launches < batches:
+        raise RuntimeError(f"K3 launched {launches} times for {batches} "
+                           f"batches")
+    print(f"[decode] {DIGEST_READS} reads through the CLI's d: sha256 "
+          f"{sha} == reference decoder; K3 launches {launches} for "
+          f"{batches} batches, {dt:.2f} s")
+
+    _decompress(FULL_READS)                        # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    sha, dt, launches, batches, n = _decompress(FULL_READS)
+    peak = torch.cuda.max_memory_allocated()
+    if sha != DIGEST_D100K:
+        raise RuntimeError(f"decoded 100k FASTQ sha256 {sha} != reference "
+                           f"decoder's {DIGEST_D100K}")
+    if launches < batches or n != FULL_READS:
+        raise RuntimeError(f"K3 launched {launches} times for {batches} "
+                           f"batches; {n} reads decoded")
+    print(f"[decode] {n} reads: {n / dt:.1f} reads/s, wall {dt:.3f} s, "
+          f"peak CUDA memory {peak / 2**30:.3f} GiB, sha256 == reference "
+          f"decoder, K3 launches {launches} for {batches} batches")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     try:
@@ -353,6 +535,8 @@ def main() -> int:
     k1 = phase_k1()
     phase_digest()
     launches = phase_full()
+    k3 = phase_k3()
+    k3_launches = phase_decode()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "fqsqueezer_tpu"))
     if foreign:
@@ -361,7 +545,11 @@ def main() -> int:
         "name": "rans_encode_walk (K1)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
         "replaces": "fqsqueezer_tpu/ops/rans.py:100",
-        "launches": launches, **k1}]}))
+        "launches": launches, **k1}, {
+        "name": "qual_decode_scan (K3)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/quality.py:171",
+        "launches": k3_launches, **k3}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,10 +21,13 @@ it), plus one option of the port's own:
     python -m fqsqueezer_tpu_torch.cli e -s -om o -qm 8 -im n -gs 5 \\
         -out X.fqst in.fastq
 
-Only `e` for single-end original order with Illumina-8 quality and no ids
-is ported. Every other mode exits 1 with one line naming it. The work runs
-on the first CUDA card; a machine without a visible card exits 1 with one
-line unless `--device cpu` asks for the CPU.
+    python -m fqsqueezer_tpu_torch.cli d -out X.fastq X.fqst
+
+Single-end original order with Illumina-8 quality and no ids is ported, for
+`e` and for `d` (whose modes come from the archive's header). Every other
+mode exits 1 with one line naming it, as does a file that is not an
+archive. The work runs on the first CUDA card; a machine without a visible
+card exits 1 with one line unless `--device cpu` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -164,24 +167,41 @@ def _not_ported(what: str):
     return SystemExit(f"error: {what} not yet ported to fqsqueezer_tpu_torch")
 
 
+def _archive_header(path: str) -> Params:
+    """The Params an archive's header holds; one line on failure."""
+    from .archive import ArchiveReader
+
+    try:
+        rd = ArchiveReader(path)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"error: {path}: {e}")
+    try:
+        return Params.load_params(rd.header_blob)
+    except Exception as e:    # a damaged header: any parse error
+        raise SystemExit(f"error: {path}: unreadable archive header ({e})")
+    finally:
+        rd.close()
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     device, argv = take_device(argv)
     p = parse_args(argv)
-    if p.work_mode != WorkMode.COMPRESS:
-        raise _not_ported("decompression (d)")
+    compress = p.work_mode == WorkMode.COMPRESS
     if not p.file_names:
-        raise SystemExit("no input files")
+        raise SystemExit("no input files" if compress else "no input archive")
     from . import pipeline
 
-    missing = pipeline.unported_modes(p)
+    if compress:
+        missing = pipeline.unported_modes(p)
+        total = sum(os.path.getsize(f) for f in p.file_names
+                    if os.path.exists(f))
+        if not missing and total > STREAM_THRESHOLD:
+            missing = [f"streamed input above {STREAM_THRESHOLD >> 20} MiB"]
+    else:
+        missing = pipeline.unported_archive(_archive_header(p.file_names[0]))
     if missing:
         raise _not_ported(", ".join(missing))
-    total = sum(os.path.getsize(f) for f in p.file_names
-                if os.path.exists(f))
-    if total > STREAM_THRESHOLD:
-        raise _not_ported(f"streamed input above {STREAM_THRESHOLD >> 20} "
-                          f"MiB")
     try:
         device = pipeline.resolve_device(device)
     except RuntimeError as e:
@@ -191,12 +211,22 @@ def main(argv=None) -> int:
                 else "host CPU")
         print(f"device: {device} ({name})")
     t0 = time.time()
-    src = p.file_names if len(p.file_names) > 1 else p.file_names[0]
-    stats = pipeline.compress_file(p, src, p.out_path, device=device)
+    if compress:
+        src = p.file_names if len(p.file_names) > 1 else p.file_names[0]
+        stats = pipeline.compress_file(p, src, p.out_path, device=device)
+        if p.verbosity >= 1:
+            print(f"reads: {stats['n_reads']}  in: {stats['in_bytes']}  "
+                  f"out: {stats['out_bytes']}  ratio: {stats['ratio']:.3f}  "
+                  f"bits/base: {stats['bits_per_base']:.4f}")
+    else:
+        try:
+            stats = pipeline.decompress_file(p, p.file_names[0], p.out_path,
+                                             device=device)
+        except ValueError as e:
+            raise SystemExit(f"error: {e}")
+        if p.verbosity >= 1:
+            print(f"reads: {stats['n_reads']}")
     if p.verbosity >= 1:
-        print(f"reads: {stats['n_reads']}  in: {stats['in_bytes']}  "
-              f"out: {stats['out_bytes']}  ratio: {stats['ratio']:.3f}  "
-              f"bits/base: {stats['bits_per_base']:.4f}")
         print(f"time: {time.time() - t0:.2f}s")
     return 0
 

@@ -1,0 +1,213 @@
+// K3: the quality decode scan of one batch — every read row, every
+// position, every lane — in one launch.
+//
+// Replaces the XLA scan of fqsqueezer_tpu/streams/quality.py:
+// qual_decode_batch (a lax.scan over read rows around a lax.scan over
+// positions; the JAX package has no Pallas kernel on the decode side).
+// Same values, step by step for every lane n, position i of row rd:
+//   ctx   = hist | pos_bucket(i) << (hist_bits * n_hist)
+//   cdf   = floor(cum_k << SB / total) over the model row ctx + ALPHA
+//   sym, f, c = cdf_lookup(cdf, x & (2^SB - 1))   (f = 2^SB, c = 0 masked)
+//   x     = f * (x >> SB) + slot - c;  renormalize from the shared stream
+//   hist  = (hist << hist_bits | sym) & hist_mask  (sym = 0 masked)
+// and the lanes that renormalize take consecutive words of ONE stream in
+// lane order: an exclusive scan over all N lanes at every step.
+//
+// What bounds it on an H100: neither bytes nor operations over the card.
+// The bytes it must move (the model rows it reads, the words it consumes,
+// u8 symbols out) take microseconds at 3.35 TB/s; the time is the chain of
+// dependent steps, R / N * L of them a batch, each done by ONE SM for all
+// lanes: two dependent loads (the model row depends on the previous
+// symbol, the word on the block-wide scan's pointer), one block barrier,
+// and every lane's cdf arithmetic issued by that SM's four schedulers. The
+// design keeps each step short:
+//  * One block owns every lane (N <= 2048; two lanes a thread, up to 1024
+//    threads), since every step couples every lane through the scan.
+//  * The scan is two warp ballots (one for each of a thread's two lanes,
+//    so lane order is thread order), a popc for the in-warp prefix, and
+//    one pass over the warp totals in shared memory: one warp-shuffle scan
+//    of at most 32 values. The totals are double-buffered by step parity,
+//    so one __syncthreads a step suffices.
+//  * A model row (8 int32 cells, Illumina-8's symbols) is two 16-byte
+//    loads: the load unit pays per row a warp touches, and eight 4-byte
+//    loads took about a third more time a batch than two 16-byte ones.
+//  * cdf boundaries come from one reciprocal of the row total a lane and
+//    step, q' = umulhi(num, floor((2^32-1)/total)), exact after one
+//    correction (as K1's divide); the lookup is the reference's masked
+//    max/min over the 8 boundaries, so zero-width steps resolve as there.
+//  * Masked positions read no model row. A read past the stream's end
+//    clamps to its last word, as the reference's gather does.
+// Preconditions: the model is 16-byte aligned (the wrapper checks), and
+// total << SB fits 32 bits (models.model_update keeps smoothed row totals
+// at most 2^13).
+// Later work: the model is frozen for the batch, so a wide kernel could
+// build every row's cdf once and the scan would read 8 u16 boundaries
+// with no divide; or a cluster of blocks could share the lanes and the
+// scan through distributed shared memory, so that one SM no longer issues
+// every lane's work.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxLanes = 2048;      // K3_MAX_LANES in streams/quality.py
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kSym = 8;              // K3_SYM in streams/quality.py
+constexpr uint32_t kRansL = 1u << 16;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__device__ __forceinline__ uint32_t pos_bucket(int i) {
+  const int b = i < 8 ? i : 8 + (i - 8) / 24;
+  return static_cast<uint32_t>(b < 15 ? b : 15);
+}
+
+// One lane's symbol lookup and state update before renormalization.
+// Returns the symbol (0 when masked); x becomes the pre-renorm state. The
+// row's 8 cells arrive as two 16-byte loads: a warp-wide load of 32
+// scattered rows costs the SM's load unit per row touched, so fewer,
+// wider loads are cheaper than eight 4-byte ones.
+__device__ __forceinline__ uint32_t lane_step(
+    const int32_t* __restrict__ model, uint32_t ctx, bool active,
+    uint32_t& x, int sb) {
+  const uint32_t slot = x & ((1u << sb) - 1u);
+  uint32_t f = 1u << sb, c = 0, sym = 0;
+  if (active) {
+    const int4* row = reinterpret_cast<const int4*>(model) + 2 * ctx;
+    const int4 lo = __ldg(row);
+    const int4 hi = __ldg(row + 1);
+    const int v[kSym] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    uint32_t total = 0;
+#pragma unroll
+    for (int k = 0; k < kSym; ++k) total += static_cast<uint32_t>(v[k]) + 1u;
+    const uint32_t m = kFull / total;
+    uint32_t run = 0, cum = 0, nxt = static_cast<uint32_t>(kSym + 1) << 16;
+#pragma unroll
+    for (int k = 0; k < kSym; ++k) {
+      run += static_cast<uint32_t>(v[k]) + 1u;
+      const uint32_t num = run << sb;
+      uint32_t q = __umulhi(num, m);
+      q += (num - q * total) >= total ? 1u : 0u;     // boundary k + 1
+      const bool le = q <= slot;
+      sym += le ? 1u : 0u;
+      cum = le && q > cum ? q : cum;
+      nxt = !le && q < nxt ? q : nxt;
+    }
+    f = nxt - cum;
+    c = cum;
+  }
+  x = f * (x >> sb) + slot - c;
+  return active ? sym : 0u;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+    qual_decode_kernel(const int32_t* __restrict__ model, int hist_bits,
+                       int n_hist,
+                       const int32_t* __restrict__ lengths, int r_pl, int L,
+                       const int32_t* __restrict__ words, int n_words,
+                       const int64_t* __restrict__ init, int N, int sb,
+                       uint8_t* __restrict__ syms, int64_t* __restrict__ fin,
+                       int64_t* __restrict__ ptr_out) {
+  __shared__ int warp_tot[2][kMaxWarps];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wl = tid & 31;
+  const int n_warps = blockDim.x >> 5;
+  const unsigned lt = (1u << wl) - 1u;
+  const int pos_shift = hist_bits * n_hist;
+  const uint32_t hist_mask = (1u << pos_shift) - 1u;
+
+  int lane[2];
+  bool live[2];
+  uint32_t x[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    lane[j] = 2 * tid + j;
+    live[j] = lane[j] < N;
+    x[j] = live[j] ? static_cast<uint32_t>(init[lane[j]]) : kRansL;
+  }
+  int ptr = 0;
+  int parity = 0;
+  for (int rd = 0; rd < r_pl; ++rd) {
+    int len[2];
+    uint32_t hist[2];
+    uint8_t* out[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const size_t read = static_cast<size_t>(lane[j]) * r_pl + rd;
+      len[j] = live[j] ? lengths[read] : 0;
+      hist[j] = hist_mask;
+      out[j] = syms + read * L;
+    }
+    for (int i = 0; i < L; ++i) {
+      const uint32_t pb = pos_bucket(i) << pos_shift;
+      bool take[2];
+      uint32_t sym[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sym[j] = lane_step(model, hist[j] | pb, i < len[j], x[j], sb);
+        take[j] = live[j] && x[j] < kRansL;
+      }
+      // exclusive scan of the renormalizing lanes, in lane order
+      const unsigned b0 = __ballot_sync(kFull, take[0]);
+      const unsigned b1 = __ballot_sync(kFull, take[1]);
+      if (wl == 0) warp_tot[parity][warp] = __popc(b0) + __popc(b1);
+      __syncthreads();
+      int incl = wl < n_warps ? warp_tot[parity][wl] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, d);
+        if (wl >= d) incl += v;
+      }
+      const int before = __shfl_sync(kFull, incl, warp) -
+                         warp_tot[parity][warp];
+      const int total = __shfl_sync(kFull, incl, n_warps - 1);
+      parity ^= 1;
+      int off = ptr + before + __popc(b0 & lt) + __popc(b1 & lt);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        if (take[j]) {
+          const int at = off < n_words ? off : n_words - 1;
+          x[j] = (x[j] << 16) | static_cast<uint32_t>(__ldg(words + at));
+          ++off;
+        }
+        if (live[j]) {
+          out[j][i] = static_cast<uint8_t>(sym[j]);
+          hist[j] = ((hist[j] << hist_bits) | sym[j]) & hist_mask;
+        }
+      }
+      ptr += total;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    if (live[j]) fin[lane[j]] = static_cast<int64_t>(x[j]);
+  if (tid == 0) ptr_out[0] = ptr;
+}
+
+}  // namespace
+
+// Launches K3 on `stream` for one batch of R = N * r_pl reads: model int32
+// [n_ctx, 8] (16-byte aligned), lengths int32 [R] (read r = lane * r_pl + row), words int32
+// [n_words] (u16 values), init int64 [N] (u32 states); writes syms u8
+// [R, L], fin int64 [N] and ptr_out int64 [1] (words consumed). Returns the
+// cudaError of the launch (0 = launched).
+extern "C" int fqtz_qual_decode(const void* model, int A, int hist_bits,
+                                int n_hist, const void* lengths, int r_pl,
+                                int L, const void* words, int n_words,
+                                const void* init, int N, int sb, void* syms,
+                                void* fin, void* ptr_out, void* stream) {
+  if (N < 1 || N > kMaxLanes || A != kSym || sb < 1 || sb > 16 ||
+      n_words < 1 || r_pl < 0 || L < 0 || hist_bits < 1 || n_hist < 1 ||
+      hist_bits * n_hist > 26 ||
+      (reinterpret_cast<uintptr_t>(model) & 15u) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = ((N + 1) / 2 + 31) / 32 * 32;
+  qual_decode_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(model), hist_bits, n_hist,
+      static_cast<const int32_t*>(lengths), r_pl, L,
+      static_cast<const int32_t*>(words), n_words,
+      static_cast<const int64_t*>(init), N, sb, static_cast<uint8_t*>(syms),
+      static_cast<int64_t*>(fin), static_cast<int64_t*>(ptr_out));
+  return static_cast<int>(cudaGetLastError());
+}

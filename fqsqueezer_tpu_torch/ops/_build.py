@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by nvcc for sm_90a into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds). The
+Every `csrc/*.cu` file is compiled by its own nvcc process for sm_90a, all
+of them at once, and the objects are linked into one shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in `build/kernels/<source hash>/` at the repository root, a
 git-ignored directory, so a fresh checkout builds it on its first CUDA call
 and a changed source gets a new directory instead of a stale library.
@@ -20,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -48,14 +49,31 @@ def build(verbose: bool = False) -> str:
         return so
     os.makedirs(out_dir, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    procs = []
+    for src in sources:
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for obj, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{err}")
+        elif verbose and err:
+            print(err.strip())
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                          *(obj for obj, _ in procs)],
+                         capture_output=True, text=True)
+    for obj, _ in procs:
+        os.remove(obj)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    if verbose and res.stderr:
-        print(res.stderr.strip())
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
     os.replace(tmp, so)
     return so
 
@@ -72,5 +90,10 @@ def kernels() -> ctypes.CDLL:
             lib.fqtz_rans_encode_walk.argtypes = [i, p, p, p, p, p, p, p, p,
                                                   i, p]
             lib.fqtz_rans_encode_walk.restype = i
+            # (model, A, hist_bits, n_hist, lengths, r_pl, L, words,
+            # n_words, init, N, sb, syms, fin, ptr_out, stream)
+            lib.fqtz_qual_decode.argtypes = [p, i, i, i, p, i, i, p, i, p,
+                                             i, i, p, p, p, p]
+            lib.fqtz_qual_decode.restype = i
             _lib = lib
         return _lib

@@ -121,4 +121,6 @@ def model_update(freqs: torch.Tensor, ctx: torch.Tensor, sym: torch.Tensor,
     nshift = torch.clamp(expo - RAW_CAP_BITS, min=0)
     nshift = nshift + ((total >> nshift) > (1 << RAW_CAP_BITS)).to(
         torch.int64)
-    return (freqs >> nshift[:, None]).to(freqs.dtype)
+    # in the cells' own type: every shift is below 32, since a row of at
+    # most 256 int32 cells sums below 2^39
+    return freqs >> nshift[:, None].to(freqs.dtype)

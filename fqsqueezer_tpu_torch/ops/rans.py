@@ -1,4 +1,4 @@
-"""Interleaved vectorized rANS entropy coder — encode side.
+"""Interleaved vectorized rANS entropy coder.
 
 Port of fqsqueezer_tpu/ops/rans.py (see its docstring for the format: N lanes
 share one word stream, u32 states in [2^16, 2^32), u16 words, masked slots
@@ -12,6 +12,9 @@ Each encode entry point has two parts:
   * the compaction — the emitted words selected in row-major (t, lane)
     order, and per-batch word counts from the emit plane's row sums. These
     stay torch ops.
+The decode side (rans_decode_slots, rans_decode_advance, cdf_lookup) is
+torch ops, one step for all lanes; the decode scans that run these steps
+(streams/quality.py's K3 and streams/dna.py's scan) call them or repeat them.
 The walk's planes are narrow: words as int16 bit patterns of the u16 values
 (torch indexes no uint16 on CUDA; words_to_i32 gives the values), emit flags
 as uint8. u32 states are carried in int64 (see _u32.py).
@@ -232,3 +235,50 @@ def rans_encode_group(freq: torch.Tensor, cum: torch.Tensor, scale_bits: int,
                       row_bounds: torch.Tensor):
     """One stream's group encode (see rans_encode_groups)."""
     return rans_encode_groups([(freq, cum)], scale_bits, [row_bounds])[0]
+
+
+# --- decode steps -------------------------------------------------------------
+
+def rans_decode_slots(states: torch.Tensor, scale_bits: int) -> torch.Tensor:
+    """Current slot (low SB bits) of each lane's state: the value the symbol
+    lookup inverts through the cdf."""
+    return states & ((1 << scale_bits) - 1)
+
+
+def rans_decode_advance(states: torch.Tensor, ptr: torch.Tensor,
+                        words: torch.Tensor, freq: torch.Tensor,
+                        cum: torch.Tensor, scale_bits: int):
+    """Advance all lanes one symbol after the caller resolved (freq, cum)
+    (freq = 2^SB, cum = 0 for masked lanes).
+
+    states: [N] int64 holding u32; ptr: 0-d int64 read cursor into words;
+    words: [W] integer tensor of u16 values in decode order. The lanes that
+    renormalize take consecutive words in lane order (an exclusive cumsum
+    over all N lanes), so every step couples every lane. A read past the
+    end clamps to the last word, as the reference's gather does. Returns
+    (new_states, new_ptr)."""
+    slot = states & ((1 << scale_bits) - 1)
+    x = (freq.to(torch.int64) * (states >> scale_bits) + slot
+         - cum.to(torch.int64)) & MASK32
+    consume = x < RANS_L
+    ci = consume.to(torch.int64)
+    off = torch.cumsum(ci, 0) - ci
+    idx = torch.clamp(ptr + off, max=words.numel() - 1)
+    w = words[idx].to(torch.int64)
+    x = torch.where(consume, ((x << WORD_BITS) | w) & MASK32, x)
+    return x, ptr + ci.sum()
+
+
+def cdf_lookup(cdf: torch.Tensor, slots: torch.Tensor):
+    """Map rANS slots to symbols through per-lane cdf rows [N, A+1]
+    (cdf[:, 0] = 0, cdf[:, A] = 2^SB). Returns (sym, freq, cum), each [N]
+    int64. The reference's masked reductions, kept as they are: sym counts
+    the boundaries <= slot, cum is the largest of them (0 if none), and
+    freq runs to the smallest boundary above the slot — so a zero-width
+    step resolves exactly as there, whatever its position."""
+    bnd = cdf[:, 1:]
+    le = bnd <= slots[:, None]
+    sym = le.sum(dim=1)
+    cum = torch.where(le, bnd, 0).amax(dim=1)
+    nxt = torch.where(le, cdf.shape[1] << 16, bnd).amin(dim=1)
+    return sym, nxt - cum, cum

@@ -1,18 +1,22 @@
-"""Compress orchestration — single-end original-order compression.
+"""Compress and decompress orchestration — single-end original order.
 
 Port of fqsqueezer_tpu/pipeline.py's SE path. Batches are modeled forward on
 the device (tables and models evolve), their (freq, cum) grids are kept on
 the device, and at each group flush every stream's grids are entropy-coded
 as one reverse rANS walk each — all streams in one launch of kernel K1 on a
 CUDA device — so lane states chain across the group and one state block per
-stream is stored. The header, container, batch geometry and group boundaries
-are the reference package's (through this package's own copies of params,
+stream is stored. Decompression replays it batch by batch: each batch's
+words are decoded forward from the lane states the previous batch left
+(meta, then DNA, then quality — K3 on a CUDA device), the state evolves as
+the encoder's did, and the group end replays the encoder's table growth.
+The header, container, batch geometry and group boundaries are the
+reference package's (through this package's own copies of params,
 archive and io.fastq), so the archives are byte-identical to
 fqsqueezer_tpu.pipeline.compress_file's.
 
 Every function that creates state takes an explicit `device`. The entry
-point compress_file runs on the first CUDA card unless the caller names
-another device; it never falls back to the CPU.
+points compress_file and decompress_file run on the first CUDA card unless
+the caller names another device; they never fall back to the CPU.
 """
 from __future__ import annotations
 
@@ -140,6 +144,25 @@ def _model_batch(dcfg, qcfg, mcfg, state: CodecState, codes: torch.Tensor,
             q_act.reshape(-1))
         grids.append((grid(q_f, qcfg.n_lanes), grid(q_c, qcfg.n_lanes)))
     return grids, CodecState(dna=d_state, meta=m_model, qual=q_model)
+
+
+def _decode_batch(dcfg, qcfg, mcfg, R: int, L: int, state: CodecState,
+                  m_words, m_states, d_words, d_states, q_words, q_states):
+    """Decode one padded batch of R reads and L columns. Returns (lengths
+    [R] int64, codes [R, L] uint8, qsyms [R, L] uint8, new state, (meta,
+    dna, qual) final lane states) — the last chain into the group's next
+    batch."""
+    lengths, m_model, m_x, _ = meta.meta_decode_batch(
+        mcfg, state.meta, R, m_words, m_states)
+    lengths = torch.clamp(lengths, max=L)
+    codes, d_state, d_x, _, _ = dna.dna_decode_batch(
+        dcfg, state.dna, lengths, d_words, d_states, L)
+    qsyms, q_model, q_x, _ = quality.qual_decode_batch(
+        qcfg, state.qual, lengths, q_words, q_states, L)
+    # u8 planes keep the device-to-host pull at about a byte a base
+    return (lengths, codes.to(torch.uint8), qsyms.to(torch.uint8),
+            CodecState(dna=d_state, meta=m_model, qual=q_model),
+            (m_x, d_x, q_x))
 
 
 def _group_grid(fcs, scale_bits: int, n_lanes: int):
@@ -383,3 +406,123 @@ def compress_file(p: Params, in_path: str, out_path: str,
         "ratio": in_bytes / max(1, out_bytes),
         "stream_bytes": stream_bytes,
     }
+
+
+def unported_archive(p: Params) -> list:
+    """What a loaded archive header asks for that this package cannot
+    decode: unported_modes, plus header knobs whose code paths the port
+    lacks (dna.check_supported)."""
+    missing = unported_modes(p)
+    try:
+        dna.check_supported(make_configs(p)[0])
+    except NotImplementedError as e:
+        missing.append(str(e).split(": ", 1)[-1])
+    return missing
+
+
+def decompress_file(p_cli: Params, in_path: str, out_path: str,
+                    device=None) -> dict:
+    """Decode an archive into a FASTQ file at `out_path`, on `device`
+    (default: the first CUDA card; see resolve_device). The modes come from
+    the archive's header; one the port lacks, or a file that is not an
+    archive, is a ValueError. Each group's payload checksum is held to the
+    decoded reads. Returns {"n_reads": ...}."""
+    reader = archive.ArchiveReader(in_path)
+    try:
+        p = Params.load_params(reader.header_blob, base=p_cli)
+        missing = unported_archive(p)
+        if missing:
+            raise ValueError("archive needs what is not yet ported to "
+                             "fqsqueezer_tpu_torch: " + ", ".join(missing))
+        device = resolve_device(device)
+        writer = fastq.FastqWriter(out_path)
+        try:
+            _decode_groups(p, reader, writer, device)
+        finally:
+            writer.close()
+        return {"n_reads": writer.n_reads}
+    finally:
+        reader.close()
+
+
+def fit_words(words: np.ndarray, cap: int, device) -> torch.Tensor:
+    """A batch's stream words as an int32 [cap] tensor on `device`, zeros
+    after them: the reference decoder's fixed-size word plane (padded *
+    n_per_read for meta, padded * max(L, 2) for DNA and quality)."""
+    w = np.zeros((cap,), np.int32)
+    w[:words.shape[0]] = words
+    return torch.from_numpy(w).to(device)
+
+
+def _decode_groups(p: Params, reader, writer, device) -> None:
+    dcfg, qcfg, mcfg = make_configs(p)
+    state = state_create(dcfg, qcfg, device)
+    qrev = quality.qual_maps(qcfg.mode, qcfg.qt)[1]
+    first = _first_batch(p.n_lanes, p.max_batch_reads, 0, p.n_lanes)
+    cuda = device.type == "cuda"
+
+    def pull(t):
+        """Start the device-to-host copy of a batch output; the host reads
+        it only after the batch's event (see drain)."""
+        return t.to("cpu", non_blocking=cuda)
+
+    gi = -1
+    while True:
+        rec = reader.read_group(p.n_lanes)
+        if rec is None:
+            break
+        gi += 1
+        gstates, batches, want_crc = rec
+        got_crc = 0
+        cur = [torch.from_numpy(st.astype(np.int64)).to(device)
+               for st in gstates]
+        pending = None
+
+        def drain(pend):
+            """Render one decoded batch; runs while the device works on
+            the next (one-batch lookahead)."""
+            nonlocal got_crc
+            take, done, lengths, codes, qsyms = pend
+            if done is not None:
+                done.synchronize()
+            lengths = lengths.numpy()
+            codes = codes.numpy()
+            # mask the padding columns like the encoder's input matrices
+            poscols = np.arange(codes.shape[1])[None, :]
+            codes = np.where(poscols < lengths[:, None], codes, 0).astype(
+                np.uint8)
+            got_crc = payload_crc(got_crc, codes, lengths)
+            writer.write_batch(codes, qrev[qsyms.numpy()].astype(np.uint8),
+                               lengths)
+
+        for take, L, streams in batches:
+            padded = canonical_padded(take, first, p.max_batch_reads,
+                                      p.n_lanes)
+            cap = padded * max(L, 2)
+            (m_words, _), (d_words, _), (q_words, _) = streams
+            (lengths, codes, qsyms, state, cur) = _decode_batch(
+                dcfg, qcfg, mcfg, padded, L, state,
+                fit_words(m_words, mcfg.n_per_read * padded, device), cur[0],
+                fit_words(d_words, cap, device), cur[1],
+                fit_words(q_words, cap, device), cur[2])
+            out = (pull(lengths[:take].to(torch.int32)), pull(codes[:take]),
+                   pull(qsyms[:take]))
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+            # the device starts on this batch while the host drains the last
+            if pending is not None:
+                drain(pending)
+            pending = (take, done) + out
+        # the fill statistics are queued before the last drain, so their
+        # pull waits on no more than it must
+        fills = fill_stats_device(dcfg, state.dna)
+        if pending is not None:
+            drain(pending)
+        if got_crc != want_crc:
+            raise ValueError(f"payload checksum mismatch in group {gi} "
+                             f"(archive corrupt or decoder divergence)")
+        # replay the encoder's group-boundary growth and SIV prune
+        state = state._replace(dna=grow_tables(
+            dcfg, state.dna, p.verbosity, stats=fills.cpu().numpy()))

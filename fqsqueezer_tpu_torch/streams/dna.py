@@ -1,4 +1,4 @@
-"""DNA stream codec, encode side: k-mer-statistics modeling.
+"""DNA stream codec: k-mer-statistics modeling, encode and decode.
 
 Port of fqsqueezer_tpu/streams/dna.py, the row-global encode path of the
 header defaults (canonical K2 s/b tables, rough 1-substitution rescue, ctx
@@ -13,8 +13,15 @@ of every lane): per row, greedy repair against the row-fresh tables, the
 cascade, contexts and (freq, cum), then the row's s/b insert events — the
 order the decoder replays. Every op inside a row is [N, L]-wide.
 
-Not ported yet: decode (dna_decode_batch), sorted-mode LCP, paired-end
-anchors, the legacy (non-row-global, non-canonical, u16-cell) paths.
+Decode (dna_decode_batch) replays that order one position at a time for
+all lanes: per read row a scan over the L positions, each step the cascade,
+the context and cdf, one rANS step, repair and the register rolls; then the
+row's s/b insert events. It is torch ops on the lanes' [N] tensors, as the
+reference runs it through XLA (not Pallas); a hand kernel (K2) is to replace
+it, with this scan as its plain version.
+
+Not ported yet: sorted-mode LCP, paired-end anchors, the legacy
+(non-row-global, non-canonical, u16-cell) paths.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import kmers, models, tables
+from ..ops import kmers, models, rans, tables
 from . import common
 
 A_SYM = 5                 # alphabet: 4 ranks/bases + N
@@ -44,6 +51,8 @@ def _n_model_ctx(cfg) -> int:
 
 
 LET_SENTINEL = 5          # "before start of read" letter history filler
+LH_MASK = (1 << 15) - 1
+LH_RESET = 0b101_101_101_101_101  # five sentinel-5 slots
 
 # count quantization thresholds
 _Q0 = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16, 24, 32, 48, 64, 128)   # 4 bits
@@ -157,11 +166,23 @@ def dna_state_create(cfg: DnaConfig, device=None) -> DnaState:
 # shared modeling math (shape-agnostic)
 # ---------------------------------------------------------------------------
 
+_CONSTS = {}
+
+
+def _const(values, device) -> torch.Tensor:
+    """A small int64 constant tensor, made once for each device."""
+    key = (values, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(values, dtype=torch.int64,
+                                        device=device)
+    return t
+
+
 def _quant(v, thresholds):
-    q = torch.zeros_like(v)
-    for t in thresholds:
-        q = q + (v >= t).to(v.dtype)
-    return q
+    """Number of (ascending) thresholds <= v."""
+    return torch.searchsorted(_const(thresholds, v.device), v.contiguous(),
+                              right=True)
 
 
 def _pos_bucket(i, length):
@@ -248,24 +269,23 @@ def _rough_counts(cfg, be, s_tc, lo, hi, rlo, rhi, age, valid):
     d2h = torch.where(d2 >= 32, d2 - 32, 0)
     fwd_lo = a2 < 32
     rc_lo = d2 < 32
-    three = torch.full_like(lo, 3)
     orig = torch.where(fwd_lo, lo >> a2l, hi >> a2h) & 3
-    acc = lo.new_zeros(lo.shape + (4,))
 
     def put(x, v, sh):
-        return (x & ~(three << sh)) | ((v << sh) & 0xFFFFFFFF)
+        return (x & ~(3 << sh)) | ((v << sh) & 0xFFFFFFFF)
 
-    for k in range(3):
-        ju = k + (orig <= k).to(torch.int64)
-        cj = 3 - ju
-        lo_j = torch.where(fwd_lo, put(lo, ju, a2l), lo)
-        hi_j = torch.where(fwd_lo, hi, put(hi, ju, a2h))
-        rlo_j = torch.where(rc_lo, put(rlo, cj, d2l), rlo)
-        rhi_j = torch.where(rc_lo, rhi, put(rhi, cj, d2h))
-        q = _canon_query(lo_j, hi_j, rlo_j, rhi_j, cfg.smer_len,
-                         cfg.smer_log2_buckets)
-        c, _ = be.ktable_find(s_tc, q[0], q[1], cfg.smer_log2_buckets)
-        acc = acc + c
+    # the three substitutes of the original base, as one leading axis of 3
+    k = _const((0, 1, 2), lo.device).reshape((3,) + (1,) * lo.dim())
+    ju = k + (orig <= k).to(torch.int64)
+    cj = 3 - ju
+    lo_j = torch.where(fwd_lo, put(lo, ju, a2l), lo)
+    hi_j = torch.where(fwd_lo, hi, put(hi, ju, a2h))
+    rlo_j = torch.where(rc_lo, put(rlo, cj, d2l), rlo)
+    rhi_j = torch.where(rc_lo, rhi, put(rhi, cj, d2h))
+    q = _canon_query(lo_j, hi_j, rlo_j, rhi_j, cfg.smer_len,
+                     cfg.smer_log2_buckets)
+    c, _ = be.ktable_find(s_tc, q[0], q[1], cfg.smer_log2_buckets)
+    acc = c.sum(dim=0)
     return torch.clamp(torch.where(valid[..., None], acc, 0), max=255)
 
 
@@ -289,8 +309,8 @@ def _rank_all(counts):
     c = counts
     gt = (c[..., None, :] > c[..., :, None]).to(torch.int64)
     eq = (c[..., None, :] == c[..., :, None]).to(torch.int64)
-    lower = torch.tril(torch.ones((4, 4), dtype=torch.int64,
-                                  device=c.device), diagonal=-1)
+    lower = _const(((0, 0, 0, 0), (1, 0, 0, 0), (1, 1, 0, 0), (1, 1, 1, 0)),
+                   c.device)
     return (gt + eq * lower).sum(dim=-1)
 
 
@@ -352,7 +372,7 @@ def _best_base(counts):
     """Rank-0 base: count desc, base asc. Returns (best_base, best_count)."""
     b4 = torch.arange(4, dtype=torch.int64, device=counts.device)
     best = torch.argmax((counts << 2) + (3 - b4), dim=-1)
-    return best, counts.max(dim=-1).values
+    return best, counts.amax(dim=-1)
 
 
 def _repair_trigger(counts, level, base):
@@ -482,6 +502,18 @@ def _dna_cdf(cfg, mv, ctx, sb):
             mp, A_SYM, coarse, ctx, _coarse_ctx(cfg, ctx), sb, cfg.mix_w,
             cfg.mix_b)
     return models.model_cdf_packed(mp, A_SYM, ctx, sb)
+
+
+def _dna_cdf_raw(cfg, model, ctx, sb):
+    """_dna_cdf read from the raw model array (fine and letters rows, then
+    the coarse family): the same cdf values without the packed view, whose
+    pass over every model row a batch the decoder's per-position reads of
+    N rows do not repay."""
+    if cfg.mix_w > 0:
+        return models.model_cdf_mix(model, ctx,
+                                    _n_model_ctx(cfg) + _coarse_ctx(cfg, ctx),
+                                    sb, cfg.mix_w, cfg.mix_b)
+    return models.model_cdf(model, ctx, sb)
 
 
 def dna_effective_kcodes(cfg, state, codes, kcodes, lengths,
@@ -675,3 +707,183 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
         state.siv, torch.cat([siv_f.reshape(-1), siv_r.reshape(-1)]),
         torch.cat([v_siv, v_siv]))
     return state._replace(siv=siv, model=model)
+
+
+# ---------------------------------------------------------------------------
+# decoder: the per-position scan
+# ---------------------------------------------------------------------------
+
+def _decode_segments(cfg: DnaConfig, L: int):
+    """Static segmentation of a row's L positions, as the reference
+    compiles it: a plain scan below the prefix ramp, one step per ramp
+    column (its exact-width SIV range read), a plain scan after it; with
+    rough evidence on, scans split at the s window (s_w) so that only steps
+    at i >= s_w run the probes. Returns [(i, ramp_q or None, rough_on)]."""
+    s_w = cfg.smer_len - 1
+    ramp = [q for q in _ramp_cols(cfg) if q < L] if cfg.prefix_ramp else []
+    segs = []
+    if ramp:
+        if ramp[0] > 0:
+            segs.append(("scan", 0, ramp[0]))
+        segs += [("ramp", q) for q in ramp]
+        if ramp[-1] + 1 < L:
+            segs.append(("scan", ramp[-1] + 1, L))
+    else:
+        segs.append(("scan", 0, L))
+    if cfg.rough:
+        split = []
+        for sg in segs:
+            if sg[0] == "scan" and sg[1] < s_w < sg[2]:
+                split += [("scan", sg[1], s_w), ("scan", s_w, sg[2])]
+            else:
+                split.append(sg)
+        segs = split
+    steps = []
+    for sg in segs:
+        if sg[0] == "ramp":
+            steps.append((sg[1], sg[1], sg[1] >= s_w))
+        else:
+            steps += [(i, None, sg[2] > s_w) for i in range(sg[1], sg[2])]
+    return steps
+
+
+def _key_mask(width_bases: int):
+    bits = 2 * width_bases
+    return (0xFFFFFFFF if bits >= 32 else (1 << bits) - 1,
+            0 if bits <= 32 else (1 << (bits - 32)) - 1)
+
+
+def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
+                     init_states, L: int, be=tables.LOCAL):
+    """Decode a batch — the reference's dna_decode_batch for single-end,
+    original order, row-global canonical tables (no LCP, no PE, no local
+    tables). lengths: [R] int64 (R a multiple of n_lanes); words: [W]
+    integer tensor of u16 values; init_states: [N] int64 (the encoder's
+    final states).
+
+    A loop over the read rows; each row runs its static steps
+    (_decode_segments) against the carried s/b tables, then applies the
+    row's s/b insert events; dna_collect_updates (model and SIV) runs once
+    after the batch. Returns (codes [R, L] int64, new_state, final_states,
+    n_words_consumed, (eff, ctx_all, sym, code_active))."""
+    check_supported(cfg)
+    N = cfg.n_lanes
+    R = lengths.shape[0]
+    dev = init_states.device
+    len_grid = common.to_read_grid(lengths.to(torch.int64), N)  # [N, r_pl]
+    sb = cfg.scale_bits
+    pm_mask = 4 ** (cfg.siv_len - 1) - 1
+    s_w, b_w = cfg.smer_len - 1, cfg.bmer_len - 1
+    s_mlo, s_mhi = _key_mask(s_w)
+    b_mlo, b_mhi = _key_mask(b_w)
+    let_base = 1 << _ctx_bits(cfg)
+    steps = _decode_segments(cfg, L)
+
+    zeros = torch.zeros((N,), dtype=torch.int64, device=dev)
+    x = init_states
+    ptr = torch.zeros((), dtype=torch.int64, device=dev)
+    pkey = slo = shi = blo = bhi = zeros
+    rslo = rshi = rblo = rbhi = zeros
+    s_tc, b_tc = state.s_tc, state.b_tc
+    rows = []
+    for rd in range(R // N):
+        # the cascade and repair read the CARRIED s/b tables, fresh with
+        # every earlier row's events
+        st_row = state._replace(s_tc=s_tc, b_tc=b_tc)
+        length = len_grid[:, rd]
+        lh = torch.full((N,), LH_RESET, dtype=torch.int64, device=dev)
+        rh = rep_cnt = prevc = srun = zeros
+        ys = []
+        for i, ramp_q, rough_on in steps:
+            active = i < length
+            vp_i = i >= cfg.siv_len - 1
+            if cfg.pmer_gate > 0:
+                vp_i = vp_i and i < cfg.pmer_gate
+            vp = active & vp_i
+            vs = active & (i >= s_w)
+            vb = active & (i >= b_w)
+            s_lo, s_hi = slo & s_mlo, shi & s_mhi
+            s_q = _canon_query(s_lo, s_hi, rslo, rshi, cfg.smer_len,
+                               cfg.smer_log2_buckets)
+            b_q = _canon_query(blo & b_mlo, bhi & b_mhi, rblo, rbhi,
+                               cfg.bmer_len, cfg.bmer_log2_buckets)
+            parts = _cascade_parts_k(st_row, pkey & pm_mask, s_q, b_q, vp, vs,
+                                     vb, be, cfg.smer_log2_buckets,
+                                     cfg.bmer_log2_buckets)
+            if ramp_q is not None:
+                # partial-prefix SIV evidence: pkey's low 2q bits are this
+                # row's decoded prefix (repair never rewrites them)
+                cq = _prefix_ramp_counts_static(
+                    cfg, be, state.siv, pkey & (4 ** ramp_q - 1), ramp_q)
+                ok = active & (cq.sum(dim=-1) > 0)
+                cp_, cs_, cb_, fp_, fs_, fb_ = parts
+                parts = (torch.where(ok[:, None], cq, cp_), cs_, cb_,
+                         fp_ | ok, fs_, fb_)
+            counts_g, level_g = _cascade_combine(*parts)
+            counts, level = counts_g, level_g
+            if cfg.rough and rough_on:
+                # suspect-tracked 1-sub rescue; srun counts this lane's
+                # consecutive s/b misses
+                miss = vs & ~parts[4] & ~parts[5]
+                srun = torch.where(miss, srun + 1, 0)
+                age = srun - 1
+                ok_r = miss & (age <= s_w - 1)
+                cr = _rough_counts(cfg, be, st_row.s_tc, s_lo, s_hi, rslo,
+                                   rshi, torch.clamp(age, 0, s_w - 1), ok_r)
+                fr = ok_r & (cr.sum(dim=-1) > 0)
+                counts, level = _combine_rough(counts, level, cr, fr)
+
+            use_code = (level > LEVEL_NONE) & (i >= cfg.prefix_len)
+            pb = _pos_bucket(torch.full_like(level, i), length)
+            nz = _popcount4(rh)
+            if cfg.ctx_v >= 2:
+                code_ctx = _code_ctx(level, counts, pb, nz, prevc,
+                                     rough=cfg.rough > 0)
+            else:
+                code_ctx = _code_ctx(level, counts, pb, nz)
+            let_ctx = (lh & LH_MASK) | (_let_pb(cfg, pb) << 15)
+            ctx_all = torch.where(use_code, code_ctx, let_base + let_ctx)
+
+            cdf = _dna_cdf_raw(cfg, state.model, ctx_all, sb)
+            sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
+            f = torch.where(active, f, 1 << sb)
+            c = torch.where(active, c, 0)
+            x, ptr = rans.rans_decode_advance(x, ptr, words, f, c, sb)
+
+            base = torch.where(use_code, _base_of_rank(counts, sym), sym)
+            base = torch.where(active, base, 0)
+            # repair triggers on the cascade's counts, before rough evidence
+            trig, best = _repair_trigger(counts_g, level_g, base)
+            do_rep = trig & active & (rep_cnt < cfg.repair_iters)
+            rep_cnt = rep_cnt + do_rep.to(torch.int64)
+            kc = torch.where(do_rep, best, torch.where(base >= 4, 0, base))
+
+            pkey = ((pkey << 2) | kc) & pm_mask
+            shi = ((shi << 2) | (slo >> 30)) & s_mhi
+            slo = ((slo << 2) | kc) & s_mlo
+            bhi = ((bhi << 2) | (blo >> 30)) & b_mhi
+            blo = ((blo << 2) | kc) & b_mlo
+            comp = 3 - kc
+            rslo, rshi = kmers.or_top_base(*kmers.shr2(rslo, rshi), comp,
+                                           s_w)
+            rblo, rbhi = kmers.or_top_base(*kmers.shr2(rblo, rbhi), comp,
+                                           b_w)
+            lh = ((lh << 3) | base) & LH_MASK
+            rbit = (use_code & (sym > 0) & active).to(torch.int64)
+            rh = ((rh << 1) | rbit) & 0xF
+            prevc = _level_class(cfg, level, use_code)
+            ys.append((base, kc, ctx_all, sym))
+        base_r, eff_r, ctx_r, sym_r = (torch.stack(y, dim=1)
+                                       for y in zip(*ys))      # [N, L]
+        act_r = torch.arange(L, device=dev)[None, :] < length[:, None]
+        s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, eff_r, act_r)
+        rows.append((base_r, eff_r, ctx_r, sym_r))
+
+    codes, eff, ctx_all, sym = (common.from_row_blocks(torch.stack(r))
+                                for r in zip(*rows))
+    pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
+    code_active = pos < lengths[:, None]
+    new_state = dna_collect_updates(
+        cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
+        ctx_all, sym, code_active, be)
+    return codes, new_state, x, ptr, (eff, ctx_all, sym, code_active)

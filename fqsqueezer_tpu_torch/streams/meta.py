@@ -1,13 +1,15 @@
 """META stream: read lengths as two byte symbols (lo, hi) under two adaptive
 contexts. Port of fqsqueezer_tpu/streams/meta.py without the sorted-mode LCP
-byte (that comes with sorted order)."""
+byte (that comes with sorted order). Decode is a scan of W * r_pl steps
+(4 a batch at the bench geometry), so plain torch ops do."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from ..ops import models
+from ..ops import models, rans
+from . import common
 
 N_SYM = 256
 N_CTX = 3  # 0: len lo byte, 1: len hi byte, 2: lcp byte
@@ -45,3 +47,35 @@ def meta_modeling(cfg: MetaConfig, model: torch.Tensor, lengths: torch.Tensor):
     cdf = models.model_cdf(model, ctx, cfg.scale_bits)
     f, c = models.cdf_encode_lookup(cdf, syms)
     return ctx, syms, f, c
+
+
+def meta_decode_batch(cfg: MetaConfig, model: torch.Tensor, R: int,
+                      words: torch.Tensor, init_states: torch.Tensor):
+    """Decode the read lengths of R reads. Returns (lengths [R] int64,
+    new_model, final_states, n_words_consumed) — the reference's
+    meta_decode_batch without its LCP output."""
+    if cfg.with_lcp:
+        raise NotImplementedError("sorted-mode LCP meta is not ported yet")
+    N = cfg.n_lanes
+    W = cfg.n_per_read
+    sb = cfg.scale_bits
+    dev = init_states.device
+    cdfs = [models.model_cdf(model, torch.full((N,), k, dtype=torch.int64,
+                                               device=dev), sb)
+            for k in range(W)]
+    x = init_states
+    ptr = torch.zeros((), dtype=torch.int64, device=dev)
+    ys = []
+    for t in range(W * (R // N)):
+        sym, f, c = rans.cdf_lookup(cdfs[t % W],
+                                    rans.rans_decode_slots(x, sb))
+        x, ptr = rans.rans_decode_advance(x, ptr, words, f, c, sb)
+        ys.append(sym)
+    syms = common.from_grid(torch.stack(ys), N, W)             # [R, W]
+    lengths = syms[:, 0] | (syms[:, 1] << 8)
+    ctx = torch.arange(W, dtype=torch.int64, device=dev)[None, :].expand_as(
+        syms)
+    new_model = models.model_update(
+        model, ctx.reshape(-1), syms.reshape(-1),
+        torch.ones(ctx.numel(), dtype=torch.bool, device=dev))
+    return lengths, new_model, x, ptr

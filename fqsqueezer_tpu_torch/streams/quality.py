@@ -1,18 +1,26 @@
-"""QUALITY stream codec, encode side.
+"""QUALITY stream codec.
 
 Port of fqsqueezer_tpu/streams/quality.py: per-mode quantization maps and a
 dense [n_ctx, n_sym] model indexed by a packed (history, position-bucket)
 context. In-batch local model deltas (QualConfig.with_local, off by default)
 are not ported.
+
+Decode is a scan over the positions of each read row, all lanes in step:
+each step builds the context from the lane's last n_hist symbols, looks the
+slot up in the frozen model's cdf row and advances the rANS state. On CUDA
+tensors the scan is kernel K3 (csrc/qual_decode.cu), one launch a batch; on
+CPU tensors it is qual_decode_scan_plain, the same scan as torch ops.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from ..ops import models
+from ..ops import models, rans
+from . import common
 
 POS_BITS = 4
 
@@ -120,3 +128,153 @@ def qual_modeling(cfg: QualConfig, model: torch.Tensor, qsyms: torch.Tensor,
     f = torch.where(active, f, 1 << cfg.scale_bits)
     c = torch.where(active, c, 0)
     return ctx, f, c, active
+
+
+# ---------------------------------------------------------------------------
+# decode scan: kernel K3 and its plain version
+# ---------------------------------------------------------------------------
+
+# Launches of K3 (the CUDA quality decode scan) in this process; the plain
+# scan never counts.
+K3_LAUNCHES = 0
+K3_MAX_LANES = 2048   # one block holds every lane (kMaxLanes in the source)
+K3_SYM = 8            # symbols a model row: Illumina-8 (kSym in the source)
+
+
+def qual_decode_scan_plain(cfg: QualConfig, model: torch.Tensor,
+                           lengths: torch.Tensor, words: torch.Tensor,
+                           init_states: torch.Tensor, L: int,
+                           with_ctx: bool = False):
+    """K3's plain torch version, on any device: the reference's
+    qual_decode_batch scan without local deltas. Returns (syms [R, L]
+    uint8, final states [N] int64, words consumed 0-d int64), and with
+    with_ctx the [R, L] int64 contexts the scan read as well."""
+    N = cfg.n_lanes
+    r_pl = lengths.shape[0] // N
+    len_grid = common.to_read_grid(lengths.to(torch.int64), N)   # [N, r_pl]
+    sb, b = cfg.scale_bits, cfg.hist_bits
+    dev = init_states.device
+    pos_ctx = [v << (b * cfg.n_hist)
+               for v in _pos_bucket(torch.arange(L)).tolist()]
+    x = init_states
+    ptr = torch.zeros((), dtype=torch.int64, device=dev)
+    sym_rows, ctx_rows = [], []
+    for rd in range(r_pl):
+        length = len_grid[:, rd]
+        hist = torch.full((N,), cfg.hist_mask, dtype=torch.int64, device=dev)
+        syms, ctxs = [], []
+        for i in range(L):
+            active = i < length
+            ctx = hist | pos_ctx[i]
+            cdf = models.model_cdf(model, ctx, sb)
+            sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
+            f = torch.where(active, f, 1 << sb)
+            c = torch.where(active, c, 0)
+            x, ptr = rans.rans_decode_advance(x, ptr, words, f, c, sb)
+            sym = torch.where(active, sym, 0)
+            hist = ((hist << b) | sym) & cfg.hist_mask
+            syms.append(sym)
+            ctxs.append(ctx)
+        sym_rows.append(torch.stack(syms, dim=1))
+        ctx_rows.append(torch.stack(ctxs, dim=1))
+    qsyms = common.from_row_blocks(torch.stack(sym_rows)).to(torch.uint8)
+    if with_ctx:
+        return qsyms, x, ptr, common.from_row_blocks(torch.stack(ctx_rows))
+    return qsyms, x, ptr
+
+
+def _check_k3(cfg, model, lengths, words, init_states, L):
+    N = cfg.n_lanes
+    dev = model.device
+    if not 1 <= N <= K3_MAX_LANES:
+        raise ValueError(f"K3: {N} lanes, one block takes 1..{K3_MAX_LANES}")
+    if cfg.n_sym != K3_SYM:
+        raise ValueError(f"K3: quality mode {cfg.mode} is not taken (it "
+                         f"takes {K3_SYM}-symbol models)")
+    want = (("model", model, torch.int32, (cfg.n_ctx, cfg.n_sym)),
+            ("lengths", lengths, torch.int32, None),
+            ("words", words, torch.int32, None),
+            ("init_states", init_states, torch.int64, (N,)))
+    for name, t, dt, shape in want:
+        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
+                or t.dim() != (1 if shape is None else len(shape))
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"K3: {name} must be a contiguous {dt} tensor "
+                             f"on {dev}" + ("" if shape is None else
+                                            f" of shape {shape}")
+                             + f", got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    if model.data_ptr() % 16:
+        raise ValueError("K3: the model's rows must be 16-byte aligned")
+    R = lengths.shape[0]
+    if R % N or words.numel() < 1 or L < 0 or R * max(L, 1) >= 1 << 31:
+        raise ValueError(f"K3: {R} reads over {N} lanes, {words.numel()} "
+                         f"words, L = {L}")
+    if not 1 <= cfg.scale_bits <= 16:
+        raise ValueError(f"K3: scale_bits {cfg.scale_bits} outside [1, 16]")
+
+
+def _qual_decode_scan_cuda(cfg, model, lengths, words, init_states, L):
+    """One K3 launch for the whole batch. Checks everything before it
+    builds or launches."""
+    global K3_LAUNCHES
+    _check_k3(cfg, model, lengths, words, init_states, L)
+    from ..ops import _build
+
+    dev = model.device
+    N = cfg.n_lanes
+    R = lengths.shape[0]
+    syms = torch.empty((R, L), dtype=torch.uint8, device=dev)
+    fin = torch.empty((N,), dtype=torch.int64, device=dev)
+    ptr = torch.empty((1,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.kernels().fqtz_qual_decode(
+            model.data_ptr(), cfg.n_sym, cfg.hist_bits, cfg.n_hist,
+            lengths.data_ptr(), R // N, L, words.data_ptr(), words.numel(),
+            init_states.data_ptr(), N, cfg.scale_bits, syms.data_ptr(),
+            fin.data_ptr(), ptr.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K3 launch failed: cudaError {rc}")
+    K3_LAUNCHES += 1
+    return syms, fin, ptr[0]
+
+
+def qual_decode_scan(cfg: QualConfig, model: torch.Tensor,
+                     lengths: torch.Tensor, words: torch.Tensor,
+                     init_states: torch.Tensor, L: int):
+    """The quality decode scan of one batch: on a CUDA model kernel K3 (a
+    failed build or launch raises; nothing falls back to the plain scan),
+    on a CPU model the plain scan. model: int32 [n_ctx, n_sym]; lengths:
+    int32 [R]; words: int32 [W] u16 values; init_states: int64 [N]. Returns
+    (syms [R, L] uint8, final states [N] int64, words consumed 0-d int64)."""
+    if cfg.with_local:
+        raise NotImplementedError("in-batch quality deltas are not ported")
+    kind = model.device.type
+    if kind == "cuda":
+        return _qual_decode_scan_cuda(cfg, model, lengths, words,
+                                      init_states, L)
+    if kind == "cpu":
+        return qual_decode_scan_plain(cfg, model, lengths, words,
+                                      init_states, L)
+    raise ValueError(f"qual_decode_scan: no scan for device {model.device}")
+
+
+def qual_decode_batch(cfg: QualConfig, model: torch.Tensor,
+                      lengths: torch.Tensor, words: torch.Tensor,
+                      init_states: torch.Tensor, L: int):
+    """Returns (qsyms [R, L] int64, new_model, final_states, n_words) — the
+    reference's qual_decode_batch. The model update reads the contexts from
+    qual_ctx_plane of the decoded symbols: the scan's history is that plane
+    (masked positions decode as 0 on both sides; the tests hold the two
+    equal)."""
+    syms, x, ptr = qual_decode_scan(
+        cfg, model, lengths.to(torch.int32).contiguous(),
+        words.to(torch.int32).contiguous(), init_states, L)
+    qsyms = syms.to(torch.int64)
+    pos = torch.arange(L, dtype=torch.int64, device=qsyms.device)[None, :]
+    active = pos < lengths[:, None]
+    new_model = models.model_update(
+        model, qual_ctx_plane(cfg, qsyms).reshape(-1), qsyms.reshape(-1),
+        active.reshape(-1))
+    return qsyms, new_model, x, ptr

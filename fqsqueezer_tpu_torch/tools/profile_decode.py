@@ -1,0 +1,148 @@
+"""Where a decompress spends its time, on one card.
+
+    python3 -m fqsqueezer_tpu_torch.tools.profile_decode [--reads 100000]
+
+Compresses the bench corpus (chip_smoke.py's: 100 bp reads of a 4.6 Mbp
+genome, seed 42, the bench primary row's Params), then decompresses it
+warm: once without timers, once with a `torch.cuda.synchronize()` timer
+around each function of the decode, and prints seconds, calls and the
+share of the timed wall for each (nested rows are part of the row above
+them; the timers serialize the device, so the untimed wall stands beside
+the timed one). Then one full batch (4096 reads) is decoded again under
+`torch.profiler` with CUDA activity: its wall, the device time of its
+kernels, the device's busy and idle shares, and the kernels launched a
+DNA decode position. Prints the card's name and power limit first. Needs
+a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import tempfile
+import time
+
+import torch
+
+from .. import cli, pipeline
+from ..io import fastq
+from ..params import Params
+from ..streams import dna, meta, quality
+from ..utils.corpus import write_fastq_corpus
+
+# the bench primary row, as chip_smoke.py gives it to the CLI
+BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
+
+TIMED = ((pipeline, "_decode_batch"), (meta, "meta_decode_batch"),
+         (dna, "dna_decode_batch"), (dna, "_apply_sb_updates"),
+         (dna, "dna_collect_updates"), (quality, "qual_decode_batch"),
+         (quality, "qual_decode_scan"), (pipeline, "payload_crc"),
+         (fastq.FastqWriter, "write_batch"),
+         (pipeline, "fill_stats_device"), (pipeline, "grow_tables"))
+
+
+def _timed(fn, acc):
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc[0] += time.perf_counter() - t0
+        acc[1] += 1
+        return out
+    return wrapper
+
+
+def _device_us(prof) -> float:
+    """Summed device time (us) of the kernels a profile recorded."""
+    total = 0.0
+    for e in prof.key_averages():
+        total += getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+    return total
+
+
+def _profile_one_batch(arc, out):
+    """Decode the archive with the profiler on around its third batch (the
+    first full 4096-read one). Returns (wall s, device s, kernels, L)."""
+    seen = [0]
+    got = {}
+    real = pipeline._decode_batch
+
+    def probe(dcfg, qcfg, mcfg, R, L, *rest):
+        seen[0] += 1
+        if seen[0] != 3:
+            return real(dcfg, qcfg, mcfg, R, L, *rest)
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            res = real(dcfg, qcfg, mcfg, R, L, *rest)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got["batch"] = (wall, _device_us(prof) * 1e-6,
+                        sum(e.count for e in prof.key_averages()),
+                        R // dcfg.n_lanes, L)
+        return res
+
+    pipeline._decode_batch = probe
+    try:
+        pipeline.decompress_file(Params(), arc, out)
+    finally:
+        pipeline._decode_batch = real
+    return got["batch"]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reads", type=int, default=100_000)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_decode: no CUDA device is visible")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    with tempfile.TemporaryDirectory() as d:
+        src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
+        out = os.path.join(d, "o.fastq")
+        write_fastq_corpus(src, args.reads, 100, 4_600_000, seed=42)
+        pipeline.compress_file(cli.parse_args(["e", *BENCH_ROW, src]), src,
+                               arc)
+
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipeline.decompress_file(Params(), arc, out)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        run()                                        # warm-up
+        plain = run()
+        accs = {}
+        saved = [(o, n, getattr(o, n)) for o, n in TIMED]
+        try:
+            for o, n, fn in saved:
+                accs[n] = [0.0, 0]
+                setattr(o, n, _timed(fn, accs[n]))
+            timed = run()
+        finally:
+            for o, n, fn in saved:
+                setattr(o, n, fn)
+        wall, dev_s, kernels, rows, L = _profile_one_batch(arc, out)
+    print(f"{args.reads} reads, warm decompress: {plain:.4f} s without "
+          f"timers ({args.reads / plain:.1f} reads/s), {timed:.4f} s with "
+          f"them")
+    print("function | s | calls | share of the timed wall")
+    for n, (s, calls) in accs.items():
+        print(f"{n} | {s:.4f} | {calls} | {100 * s / timed:.2f}%")
+    print(f"one batch ({rows} read rows x {L} positions) under the "
+          f"profiler: wall {wall:.4f} s, device busy {dev_s:.4f} s "
+          f"({100 * dev_s / wall:.2f}% busy, {100 - 100 * dev_s / wall:.2f}"
+          f"% idle), {kernels} device records, {kernels / (rows * L):.1f} "
+          f"a position")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

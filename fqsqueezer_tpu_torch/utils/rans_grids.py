@@ -1,6 +1,7 @@
-"""(freq, cum) grids for checking and timing the rANS encode walk.
+"""Inputs for checking and timing the rANS kernels: (freq, cum) grids for
+the encode walk (K1) and quality decode batches for the decode scan (K3).
 
-Made with numpy from a seed, so the same grid reaches the kernel, its plain
+Made with numpy from a seed, so the same input reaches the kernel, its plain
 version and the reference package. Used by chip_smoke.py, the K1 timing
 script and the tests.
 """
@@ -54,3 +55,25 @@ def adversarial_grid(seed: int, T: int, N: int, scale_bits: int = 14):
          np.clip(thr, lo, hi), np.clip(thr + 1, lo, hi)],
         rng.integers(lo, hi + 1, N))
     return f.astype(np.int32), c.astype(np.int32), init.astype(np.int64)
+
+
+def quality_batch(seed: int, n_lanes: int, r_pl: int, L: int, n_ctx: int,
+                  n_sym: int, n_words: int):
+    """(model int32 [n_ctx, n_sym], lengths int32 [n_lanes * r_pl], words
+    int32 [n_words], init states int64 [n_lanes]) for the quality decode
+    scan. The model's rows are random counts that model_update could have
+    left (smoothed totals at most 2^13), a quarter of them all zero; the
+    lengths cycle through 0, 1 and L and are random otherwise; words and
+    states are random, so a short word array runs out and the reads past
+    its end clamp."""
+    rng = np.random.default_rng(seed)
+    model = rng.integers(0, (1 << 13) // n_sym, (n_ctx, n_sym))
+    model[rng.random(n_ctx) < 0.25] = 0
+    R = n_lanes * r_pl
+    lengths = rng.integers(0, L + 1, R)
+    lengths[:3 * (R // 4)] = np.resize(np.array([0, 1, L]), 3 * (R // 4))
+    rng.shuffle(lengths)
+    words = rng.integers(0, 1 << 16, n_words)
+    init = rng.integers(1 << 16, 1 << 32, n_lanes)
+    return (model.astype(np.int32), lengths.astype(np.int32),
+            words.astype(np.int32), init.astype(np.int64))

@@ -98,3 +98,69 @@ def test_k1_refuses_instead_of_falling_back():
     with pytest.raises(ValueError):          # more grids than a launch takes
         rans.rans_encode_walks([(f, c)] * (rans.K1_MAX_STREAMS + 1), SB)
     assert rans.K1_LAUNCHES == before
+
+
+# --- K3: the quality decode scan ----------------------------------------------
+
+def _k3_inputs(seed, N, r_pl, L, n_words):
+    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
+
+    cfg = quality.QualConfig(n_lanes=N)
+    arrs = quality_batch(seed, N, r_pl, L, cfg.n_ctx, cfg.n_sym, n_words)
+    return cfg, [torch.from_numpy(a).cuda() for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,r_pl,L,n_words", [
+    (8, 1, 40, 400), (8, 2, 104, 5), (100, 2, 40, 8000), (256, 1, 104, 30),
+    (1024, 2, 40, 90_000), (2048, 2, 104, 400_000), (2047, 1, 1, 10)])
+def test_k3_equals_plain_scan(N, r_pl, L, n_words):
+    """Symbols, final states and words consumed, exactly; lengths 0, 1 and
+    L among them, and short word arrays whose reads clamp."""
+    from fqsqueezer_tpu_torch.streams import quality
+
+    _card()
+    cfg, (model, lengths, words, init) = _k3_inputs(N + L, N, r_pl, L,
+                                                    n_words)
+    before = quality.K3_LAUNCHES
+    got = quality.qual_decode_scan(cfg, model, lengths, words, init, L)
+    assert quality.K3_LAUNCHES == before + 1
+    want = quality.qual_decode_scan_plain(cfg, model, lengths, words, init,
+                                          L)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_instead_of_falling_back():
+    from fqsqueezer_tpu_torch.streams import quality
+
+    _card()
+    cfg, (model, lengths, words, init) = _k3_inputs(1, 8, 2, 16, 50)
+    before = quality.K3_LAUNCHES
+    for args in ((model.long(), lengths, words, init),      # wrong dtype
+                 (model, lengths.long(), words, init),
+                 (model, lengths, words[:0], init),          # no words
+                 (model, lengths, words.cpu(), init),        # wrong device
+                 (model, lengths[:7], words, init),          # R % N != 0
+                 (model.t(), lengths, words, init)):         # wrong shape
+        with pytest.raises(ValueError):
+            quality.qual_decode_scan(cfg, *args, 16)
+    unaligned = torch.empty(model.numel() + 1, dtype=torch.int32,
+                            device="cuda")[1:].view(model.shape)
+    with pytest.raises(ValueError):                # 4-byte aligned rows
+        quality.qual_decode_scan(cfg, unaligned, lengths, words, init, 16)
+    with pytest.raises(ValueError):                # 4 symbols, not 8
+        quality.qual_decode_scan(
+            quality.QualConfig(mode="illumina_4", n_lanes=8),
+            torch.zeros((1 << 18, 4), dtype=torch.int32, device="cuda"),
+            lengths, words, init, 16)
+    big = quality.QualConfig(n_lanes=4096)
+    with pytest.raises(ValueError):
+        quality.qual_decode_scan(
+            big, model, lengths.repeat(512), words,
+            init.repeat(512), 16)
+    assert quality.K3_LAUNCHES == before

@@ -1,0 +1,312 @@
+"""The port's decode side against the reference package, exact.
+
+The rANS decode steps (ops/rans.py) on random states, words and cdf rows;
+then one batch of the three stream decoders (meta_decode_batch,
+qual_decode_batch, dna_decode_batch) against the reference's on the same
+words and the same state. The state is the one the reference reaches over
+two batches of a tiny corpus, carried across with state_from_numpy; the
+words are the port's encode of a third batch (its grids are held to the
+reference's in test_torch_streams.py). The geometry is the tiny one of
+test_torch_streams.py with SIV cap 12, so the prefix ramp and the rough
+rescue are on: 8 lanes, 16 reads (two read rows), ragged lengths with
+0, 1 and the full width among them. Tolerance 0: the codec is
+integer-only. Everything of the port runs on the CPU (the plain versions
+of its kernels).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fqsqueezer_tpu import pipeline as jp
+from fqsqueezer_tpu.ops import rans as jrans
+from fqsqueezer_tpu.params import DnaMode, IdMode, Params, QualityMode
+from fqsqueezer_tpu.streams import dna as jdna
+from fqsqueezer_tpu.streams import meta as jmeta
+from fqsqueezer_tpu.streams import quality as jq
+from fqsqueezer_tpu.utils.corpus import make_genome, sample_reads
+from fqsqueezer_tpu_torch import params as tparams
+from fqsqueezer_tpu_torch import pipeline
+from fqsqueezer_tpu_torch.ops import rans
+from fqsqueezer_tpu_torch.state import state_from_numpy, state_to_numpy
+from fqsqueezer_tpu_torch.streams import dna, meta, quality
+
+SB = 14
+L = 44            # read width; the batch's columns are L8 = 48
+R_WARM = 64       # reads of each warm-up batch
+R_DEC = 16        # reads of the decoded batch: 2 read rows over 8 lanes
+
+
+# --- rANS decode steps --------------------------------------------------------
+
+def _cdf_rows(rng, n, A):
+    """[n, A+1] cdf rows with 0 and 2^SB at the ends and zero-width steps
+    (repeated boundaries) inside."""
+    inner = np.sort(rng.integers(0, 1 << SB, (n, A - 1)), axis=1)
+    dup = rng.random((n, A - 1)) < 0.3
+    inner[:, 1:] = np.where(dup[:, 1:], inner[:, :-1], inner[:, 1:])
+    inner[:, 0] = np.where(dup[:, 0], 0, inner[:, 0])
+    return np.concatenate([np.zeros((n, 1), np.int64), inner,
+                           np.full((n, 1), 1 << SB, np.int64)], axis=1)
+
+
+@pytest.mark.parametrize("A", [2, 5, 8, 256])
+def test_cdf_lookup_matches_reference(A):
+    rng = np.random.default_rng(A)
+    cdf = _cdf_rows(rng, 512, A)
+    slots = rng.integers(0, 1 << SB, 512)
+    slots[:64] = cdf[:64, rng.integers(1, A, 64)].diagonal()  # on a boundary
+    got = rans.cdf_lookup(torch.from_numpy(cdf), torch.from_numpy(slots))
+    want = jrans.cdf_lookup(jnp.asarray(cdf, jnp.int32),
+                            jnp.asarray(slots, jnp.int32))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        rans.rans_decode_slots(torch.from_numpy(slots + (77 << SB)), SB),
+        jrans.rans_decode_slots(jnp.asarray(slots + (77 << SB), jnp.uint32),
+                                SB))
+
+
+@pytest.mark.parametrize("n_words", [3, 40, 4000])
+def test_decode_advance_matches_reference(n_words):
+    """Ten steps of 256 lanes: masked lanes, lanes whose state sits below
+    2^16 + a few (they consume even when masked), and a stream that runs
+    out (the reads past its end clamp to its last word)."""
+    rng = np.random.default_rng(n_words)
+    N = 256
+    words = rng.integers(0, 1 << 16, n_words)
+    x = rng.integers(1 << 16, 1 << 32, N)
+    x[:16] = (1 << 16) + rng.integers(0, 4, 16)
+    xt, pt = torch.from_numpy(x), torch.zeros((), dtype=torch.int64)
+    xj, pj = jnp.asarray(x, jnp.uint32), jnp.int32(0)
+    wt, wj = torch.from_numpy(words), jnp.asarray(words, jnp.uint32)
+    for step in range(10):
+        cdf = _cdf_rows(rng, N, 5)
+        sym, f, c = rans.cdf_lookup(torch.from_numpy(cdf),
+                                    rans.rans_decode_slots(xt, SB))
+        masked = torch.from_numpy(rng.random(N) < 0.2)
+        f = torch.where(masked, 1 << SB, f)
+        c = torch.where(masked, 0, c)
+        xt, pt = rans.rans_decode_advance(xt, pt, wt, f, c, SB)
+        xj, pj = jrans.rans_decode_advance(
+            xj, pj, wj, jnp.asarray(f.numpy(), jnp.int32),
+            jnp.asarray(c.numpy(), jnp.int32), SB)
+        np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
+        assert int(pt) == int(pj)
+    assert int(pt) > n_words or n_words == 4000
+
+
+def test_encoded_grid_decodes_back():
+    """A grid encoded by the port's rans_encode decodes back to its
+    symbols through the decode steps."""
+    rng = np.random.default_rng(3)
+    T, N = 60, 32
+    cdf = _cdf_rows(rng, T * N, 6).reshape(T, N, 7)
+    width = np.diff(cdf, axis=-1)
+    syms = np.argmax(rng.random((T, N, 6)) * (width > 0), axis=-1)
+    f = np.take_along_axis(width, syms[..., None], -1)[..., 0]
+    c = np.take_along_axis(cdf, syms[..., None], -1)[..., 0]
+    words, n, x = rans.rans_encode(torch.from_numpy(f.astype(np.int32)),
+                                   torch.from_numpy(c.astype(np.int32)), SB)
+    ptr = torch.zeros((), dtype=torch.int64)
+    for t in range(T):
+        s, ft, ct = rans.cdf_lookup(torch.from_numpy(cdf[t]),
+                                    rans.rans_decode_slots(x, SB))
+        np.testing.assert_array_equal(s.numpy(), syms[t])
+        x, ptr = rans.rans_decode_advance(x, ptr, words, ft, ct, SB)
+    assert int(ptr) == int(n)
+    assert (x == rans.RANS_L).all()
+
+
+# --- one batch of each stream decoder ------------------------------------------
+
+def tiny_params():
+    p = Params()
+    p.genome_size = 1
+    p.adjust_kmer_sizes()
+    p.n_lanes = 8
+    p.max_batch_reads = 64
+    p.smer_log2_buckets = 12
+    p.bmer_log2_buckets = 12
+    p.dna_siv_cap = 12
+    p.dna_mode = DnaMode.SE_ORIGINAL
+    p.quality_mode = QualityMode.ILLUMINA_8
+    p.id_mode = IdMode.NONE
+    return p
+
+
+def _reads(seed, n):
+    genome = make_genome(3000, seed)
+    codes, quals = sample_reads(genome, n, L, seed + 1, err_rate=0.01,
+                                n_rate=0.005)
+    rng = np.random.default_rng(seed + 2)
+    lengths = np.where(rng.random(n) < 0.3, rng.integers(1, L, n),
+                       L).astype(np.int32)
+    tail = np.arange(L)[None, :] >= lengths[:, None]
+    return (np.where(tail, 0, codes).astype(np.uint8),
+            np.where(tail, 0, quals).astype(np.uint8), lengths)
+
+
+def _planes(codes, quals, lengths, qfwd):
+    """[R, L8] codes and quality symbols with the tails zeroed, as the
+    pipeline feeds them."""
+    tail = np.arange(L)[None, :] >= lengths[:, None]
+    pad = ((0, 0), (0, 48 - L))
+    codes = np.pad(np.where(tail, 0, codes), pad).astype(np.int64)
+    qsyms = np.pad(np.where(tail, 0, qfwd[np.minimum(quals, 95)]), pad)
+    return codes, qsyms.astype(np.int64), lengths.astype(np.int64)
+
+
+def _jax_np(s):
+    s = jax.device_get(s)
+    return {"siv": s.dna.siv, "s_tc": s.dna.s_tc, "b_tc": s.dna.b_tc,
+            "model": s.dna.model, "meta": s.meta, "qual": s.qual}
+
+
+@pytest.fixture(scope="module")
+def decoded():
+    # the reference's decode scans unroll DECODE_UNROLL steps a loop trip,
+    # a speed knob with no effect on values; one step compiles in half the
+    # time
+    unroll, jdna.DECODE_UNROLL = jdna.DECODE_UNROLL, 1
+    try:
+        yield _decode_one_batch()
+    finally:
+        jdna.DECODE_UNROLL = unroll
+
+
+def _decode_one_batch():
+    p = tiny_params()
+    jcfgs = jp.make_configs(p)
+    tcfgs = pipeline.make_configs(tparams.Params.load_params(
+        p.store_params()))
+    dcfg, qcfg, mcfg, _ = jcfgs
+    qfwd = jq.qual_maps(qcfg.mode, qcfg.qt)[0]
+    js = jp.state_create(dcfg, qcfg)
+    codes, quals, lengths = _reads(21, 2 * R_WARM + R_DEC)
+    for k in range(2):
+        sl = slice(k * R_WARM, (k + 1) * R_WARM)
+        kp, nm, qp, _ = jp._pack_inputs(codes[sl], quals[sl], qcfg, qfwd)
+        _, js = jp._model_batch(dcfg, qcfg, mcfg, None, js, kp, nm, qp,
+                                jnp.asarray(lengths[sl]), ())
+    start = _jax_np(js)
+
+    sl = slice(2 * R_WARM, None)
+    lens = lengths[sl].copy()
+    lens[[0, 5, 11]] = (0, 1, 0)             # empty reads, as padding is
+    c8, q8, l8 = _planes(codes[sl], quals[sl], lens, qfwd)
+    ts = state_from_numpy(start)
+    grids, enc_state = pipeline._model_batch(
+        *tcfgs, ts, torch.from_numpy(c8), torch.from_numpy(q8),
+        torch.from_numpy(l8))
+    streams = []
+    for (f, c), cap in zip(grids, (2 * R_DEC, R_DEC * 48, R_DEC * 48)):
+        words, n, x = rans.rans_encode(f, c, SB)
+        w = np.zeros(cap, np.int64)
+        w[:int(n)] = words.numpy()
+        streams.append((w, x.numpy()))
+
+    def jw(k):
+        return (jnp.asarray(streams[k][0], jnp.uint32),
+                jnp.asarray(streams[k][1], jnp.uint32))
+
+    def tw(k):
+        return (torch.from_numpy(streams[k][0]),
+                torch.from_numpy(streams[k][1]))
+
+    out = {"codes": c8, "qsyms": q8, "lengths": l8,
+           "enc_state": state_to_numpy(enc_state), "tcfgs": tcfgs}
+    out["jmeta"] = jax.device_get(jmeta.meta_decode_batch(
+        mcfg, jnp.asarray(start["meta"]), R_DEC, *jw(0)))
+    out["tmeta"] = meta.meta_decode_batch(tcfgs[2], ts.meta, R_DEC, *tw(0))
+    jlen = jnp.asarray(out["jmeta"][0], jnp.int32)
+    tlen = out["tmeta"][0]
+    jcodes, jstate, jx, jptr, jextras = jdna.dna_decode_batch(
+        dcfg, js.dna, jlen, *jw(1), 48)
+    out["jdna"] = jax.device_get((jcodes, jx, jptr, jextras[:3]))
+    out["jdna_state"] = jax.device_get(jstate)
+    out["tdna"] = dna.dna_decode_batch(tcfgs[0], ts.dna, tlen, *tw(1), 48)
+    out["jqual"] = jax.device_get(jq.qual_decode_batch(
+        qcfg, js.qual, jlen, *jw(2), 48))
+    out["tqual"] = quality.qual_decode_batch(tcfgs[1], ts.qual, tlen,
+                                             *tw(2), 48)
+    out["tqual_scan"] = quality.qual_decode_scan_plain(
+        tcfgs[1], ts.qual, tlen.to(torch.int32), tw(2)[0].to(torch.int32),
+        tw(2)[1], 48, with_ctx=True)
+    return out
+
+
+def test_meta_decode_batch(decoded):
+    jl, _, jmodel, jx, jptr = decoded["jmeta"]
+    tl, tmodel, tx, tptr = decoded["tmeta"]
+    np.testing.assert_array_equal(tl.numpy(), jl)
+    np.testing.assert_array_equal(tl.numpy(), decoded["lengths"])
+    np.testing.assert_array_equal(tmodel.numpy(), jmodel)
+    np.testing.assert_array_equal(tmodel.numpy(),
+                                  decoded["enc_state"]["meta"])
+    np.testing.assert_array_equal(tx.numpy(), jx)
+    assert int(tptr) == int(jptr)
+
+
+def test_dna_decode_symbols(decoded):
+    jcodes, jx, jptr, jextras = decoded["jdna"]
+    tcodes, _, tx, tptr, textras = decoded["tdna"]
+    np.testing.assert_array_equal(tcodes.numpy(), jcodes)
+    np.testing.assert_array_equal(tcodes.numpy(), decoded["codes"])
+    for g, w in zip(textras[:3], jextras):      # eff, ctx_all, sym
+        np.testing.assert_array_equal(g.numpy(), w)
+    np.testing.assert_array_equal(tx.numpy(), jx)
+    assert int(tptr) == int(jptr)
+
+
+@pytest.mark.parametrize("key", ["siv", "s_tc", "b_tc", "model"])
+def test_dna_decode_state(decoded, key):
+    got = state_to_numpy(pipeline.CodecState(
+        dna=decoded["tdna"][1], meta=None, qual=None))[key]
+    np.testing.assert_array_equal(got,
+                                  getattr(decoded["jdna_state"], key))
+    np.testing.assert_array_equal(got, decoded["enc_state"][key])
+
+
+def test_qual_decode_batch(decoded):
+    jq_, jmodel, jx, jptr = decoded["jqual"]
+    tq, tmodel, tx, tptr = decoded["tqual"]
+    np.testing.assert_array_equal(tq.numpy(), jq_)
+    active = np.arange(48)[None, :] < decoded["lengths"][:, None]
+    np.testing.assert_array_equal(tq.numpy(),
+                                  np.where(active, decoded["qsyms"], 0))
+    np.testing.assert_array_equal(tmodel.numpy(), jmodel)
+    np.testing.assert_array_equal(tmodel.numpy(),
+                                  decoded["enc_state"]["qual"])
+    np.testing.assert_array_equal(tx.numpy(), jx)
+    assert int(tptr) == int(jptr)
+
+
+def test_qual_ctx_plane_equals_the_scans_contexts(decoded):
+    """qual_decode_batch updates the model from qual_ctx_plane of the
+    decoded symbols instead of the scan's own contexts (kernel K3 writes
+    none): the two agree at every position, masked ones included."""
+    syms, x, ptr, ctx = decoded["tqual_scan"]
+    cfg = decoded["tcfgs"][1]
+    np.testing.assert_array_equal(
+        quality.qual_ctx_plane(cfg, syms.to(torch.int64)).numpy(),
+        ctx.numpy())
+    np.testing.assert_array_equal(syms.numpy(),
+                                  decoded["tqual"][0].numpy())
+
+
+def test_decode_scans_refuse_what_is_not_ported():
+    cfg = quality.QualConfig(with_local=True)
+    with pytest.raises(NotImplementedError):
+        quality.qual_decode_scan(cfg, torch.zeros((cfg.n_ctx, 8),
+                                                  dtype=torch.int32),
+                                 torch.zeros(8, dtype=torch.int32),
+                                 torch.zeros(4, dtype=torch.int32),
+                                 rans.rans_initial_states(8), 8)
+    with pytest.raises(NotImplementedError):
+        dna.dna_decode_batch(dna.DnaConfig(), None, torch.zeros(8), None,
+                             None, 8)
+    with pytest.raises(NotImplementedError):
+        meta.meta_decode_batch(meta.MetaConfig(with_lcp=True), None, 8,
+                               None, rans.rans_initial_states(8))

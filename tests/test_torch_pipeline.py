@@ -3,11 +3,13 @@
 On a tiny multi-group geometry (several groups, table growth and an SIV
 prune), fqsqueezer_tpu_torch.pipeline.compress_file must write the same
 bytes as fqsqueezer_tpu.pipeline.compress_file, and the reference decoder
-must give the reads back. Each package gets its own Params, built the same
-way from its own params module. Also: the port's compress path imports no
-JAX and nothing of the reference package, and the CLI refuses every mode it
-does not have with one line. Everything here asks for the CPU
-(`device="cpu"`, `--device cpu`).
+must give the reads back; the port's decompress_file (and its CLI's `d`)
+must give the same FASTQ bytes as the reference decoder, from either
+package's archive. Each package gets its own Params, built the same way
+from its own params module. Also: the port's compress and decompress paths
+import no JAX and nothing of the reference package, and the CLI refuses
+every mode it does not have, and every file it cannot read, with one line.
+Everything here asks for the CPU (`device="cpu"`, `--device cpu`).
 """
 import contextlib
 import hashlib
@@ -32,6 +34,9 @@ from fqsqueezer_tpu_torch import pipeline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUP_MEM = 30_000   # a few tiny batches per group
+# sha256 of fqsqueezer_tpu.pipeline.decompress_file's FASTQ output for the
+# `archives` fixture's archive (test_reference_decoder_digest recomputes it)
+DECODED_SHA256 = "8053a71995a73807cd906c68f215f644dd6790442a011f5a1b751c5649a055b1"
 
 
 def tiny_params(mod):
@@ -142,11 +147,159 @@ def test_compress_path_imports_no_jax(tmp_path):
     assert res.stdout.strip().endswith("no jax")
 
 
+def _sha256(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _same_reads(src, out):
+    """The decoded reads are the source's: bases and lengths exactly,
+    qualities through the Illumina-8 bins."""
+    a, b = fastq.read_fastq(src), fastq.read_fastq(out)
+    np.testing.assert_array_equal(b.lengths, a.lengths)
+    np.testing.assert_array_equal(b.codes, a.codes)
+    fwd, rev = qual_maps("illumina_8", 20)
+    mask = np.arange(a.codes.shape[1])[None, :] < a.lengths[:, None]
+    np.testing.assert_array_equal(np.where(mask, b.quals, 0),
+                                  np.where(mask, rev[fwd[a.quals]], 0))
+
+
+def test_port_decodes_reference_archive(archives):
+    """decompress_file on the reference writer's archive: the reference
+    decoder's bytes, through every group's growth, prune and checksum."""
+    src, jarc, _, _, _, _, d = archives
+    out = str(d / "port_of_jax.fastq")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        stats = pipeline.decompress_file(tparams.Params(), jarc, out,
+                                         device="cpu")
+    assert stats["n_reads"] == 600
+    assert _sha256(out) == DECODED_SHA256
+    _same_reads(src, out)
+    log = log.getvalue()
+    assert "table grown" in log and "siv pruned" in log
+
+
+def test_cli_decodes_port_archive(archives):
+    """The CLI's d on the port's own archive gives the same bytes."""
+    _, _, tarc, _, _, _, d = archives
+    out = str(d / "cli_of_port.fastq")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["d", "--device", "cpu", "-out", out, tarc]) == 0
+    assert _sha256(out) == DECODED_SHA256
+
+
+@pytest.mark.slow
+def test_reference_decoder_digest(archives):
+    """DECODED_SHA256 is the reference decoder's output for the fixture."""
+    _, jarc, _, _, _, _, d = archives
+    out = str(d / "jax_of_jax.fastq")
+    with contextlib.redirect_stdout(io.StringIO()):
+        jp.decompress_file(jparams.Params(), jarc, out)
+    assert _sha256(out) == DECODED_SHA256
+
+
+def test_decompress_path_imports_no_jax(tmp_path):
+    src, arc, out = (str(tmp_path / n) for n in ("in.fq", "a.fqst", "o.fq"))
+    write_fastq_corpus(src, 40, 30, 5_000, seed=2)
+    code = textwrap.dedent(f"""
+        import sys
+        import fqsqueezer_tpu_torch.cli
+        from fqsqueezer_tpu_torch.params import Params, DnaMode, IdMode
+        from fqsqueezer_tpu_torch import pipeline
+        p = Params()
+        p.genome_size = 1
+        p.adjust_kmer_sizes()
+        p.n_lanes, p.max_batch_reads, p.dna_siv_cap = 8, 64, 7
+        p.smer_log2_buckets = p.bmer_log2_buckets = 8
+        p.dna_mode, p.id_mode = DnaMode.SE_ORIGINAL, IdMode.NONE
+        pipeline.compress_file(p, {src!r}, {arc!r}, device="cpu")
+        st = pipeline.decompress_file(Params(), {arc!r}, {out!r},
+                                      device="cpu")
+        assert st["n_reads"] == 40
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "fqsqueezer_tpu"))
+        assert not bad, bad
+        print("no jax")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("no jax")
+    a, b = fastq.read_fastq(src), fastq.read_fastq(out)
+    np.testing.assert_array_equal(b.codes, a.codes)
+
+
+def _header_only_archive(path, **fields):
+    """An archive the reference package's writer starts with the given
+    Params fields and closes without a group."""
+    from fqsqueezer_tpu.archive import ArchiveWriter
+
+    p = jparams.Params()
+    p.dna_mode = jparams.DnaMode.SE_ORIGINAL
+    p.quality_mode = jparams.QualityMode.ILLUMINA_8
+    p.id_mode = jparams.IdMode.NONE
+    for k, v in fields.items():
+        setattr(p, k, v)
+    ArchiveWriter(str(path), p.store_params()).close()
+    return str(path)
+
+
+@pytest.mark.parametrize("fields,what", [
+    ({"quality_mode": jparams.QualityMode.LOSSLESS}, "quality mode"),
+    ({"dna_mode": jparams.DnaMode.SE_SORTED}, "sorted"),
+    ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, "paired-end"),
+    ({"id_mode": jparams.IdMode.INSTRUMENT}, "id mode"),
+    ({"mesh_dp": 2}, "mesh"),
+    ({"dna_row_global": 0}, "row-global"),
+])
+def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
+    arc = _header_only_archive(tmp_path / "a.fqst", **fields)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["d", "--device", "cpu", "-out", str(tmp_path / "o.fq"),
+                  arc])
+    msg = e.value.code
+    assert isinstance(msg, str) and "\n" not in msg
+    assert msg.startswith("error: ") and what in msg
+    assert msg.endswith("not yet ported to fqsqueezer_tpu_torch")
+    assert not os.path.exists(tmp_path / "o.fq")
+    with pytest.raises(ValueError, match="not yet ported"):
+        pipeline.decompress_file(tparams.Params(), arc,
+                                 str(tmp_path / "o.fq"), device="cpu")
+
+
+def test_cli_d_error_paths_exit_with_one_line(tmp_path):
+    """No visible card and no --device (in a fresh process, which shows
+    the exit code and that no traceback is printed); a file that is not
+    an archive; an archive of a mode the port lacks; a missing file. Each
+    is exit 1 with one line, and writes no output file."""
+    arc = _header_only_archive(tmp_path / "ok.fqst")
+    out = str(tmp_path / "o.fq")
+    res = subprocess.run(
+        [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "d", "-out", out,
+         arc], cwd=REPO, capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    lines = res.stderr.strip().splitlines()
+    assert res.returncode == 1 and len(lines) == 1, res.stderr
+    assert "no CUDA device" in lines[0]
+    bad = tmp_path / "bad.fqst"
+    bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
+    lossless = _header_only_archive(
+        tmp_path / "qo.fqst", quality_mode=jparams.QualityMode.LOSSLESS)
+    for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
+                       (lossless, "quality mode"),
+                       (str(tmp_path / "none.fqst"), "none.fqst")):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["d", "--device", "cpu", "-out", out, path])
+        msg = e.value.code
+        assert isinstance(msg, str) and "\n" not in msg and what in msg
+    assert not os.path.exists(out)
+
+
 _SE = ["-s", "-om", "o", "-qm", "8", "-im", "n"]
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["d", "x.fqst"], "decompression"),
     (["e", "-p", "-om", "o", "-qm", "8", "-im", "n", "a.fq", "b.fq"],
      "paired-end"),
     (["e", "-s", "-om", "s", "-qm", "8", "-im", "n", "a.fq"], "sorted"),
