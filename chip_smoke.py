@@ -145,9 +145,10 @@ def phase_build():
     from fqsqueezer_tpu_torch.ops import _build
 
     t0 = time.time()
-    so = _build.build(verbose=True)
+    out_dir = _build.build(verbose=True)
     _build.kernels()
-    print(f"[build] {os.path.relpath(so, REPO)} in {time.time() - t0:.2f} s")
+    print(f"[build] {os.path.relpath(out_dir, REPO)} in "
+          f"{time.time() - t0:.2f} s")
 
 
 def _cuda_grid(seed, T, N):

@@ -167,22 +167,6 @@ def _not_ported(what: str):
     return SystemExit(f"error: {what} not yet ported to fqsqueezer_tpu_torch")
 
 
-def _archive_header(path: str) -> Params:
-    """The Params an archive's header holds; one line on failure."""
-    from .archive import ArchiveReader
-
-    try:
-        rd = ArchiveReader(path)
-    except (OSError, ValueError) as e:
-        raise SystemExit(f"error: {path}: {e}")
-    try:
-        return Params.load_params(rd.header_blob)
-    except Exception as e:    # a damaged header: any parse error
-        raise SystemExit(f"error: {path}: unreadable archive header ({e})")
-    finally:
-        rd.close()
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     device, argv = take_device(argv)
@@ -198,10 +182,8 @@ def main(argv=None) -> int:
                     if os.path.exists(f))
         if not missing and total > STREAM_THRESHOLD:
             missing = [f"streamed input above {STREAM_THRESHOLD >> 20} MiB"]
-    else:
-        missing = pipeline.unported_archive(_archive_header(p.file_names[0]))
-    if missing:
-        raise _not_ported(", ".join(missing))
+        if missing:
+            raise _not_ported(", ".join(missing))
     try:
         device = pipeline.resolve_device(device)
     except RuntimeError as e:
@@ -222,7 +204,7 @@ def main(argv=None) -> int:
         try:
             stats = pipeline.decompress_file(p, p.file_names[0], p.out_path,
                                              device=device)
-        except ValueError as e:
+        except (OSError, EOFError, ValueError) as e:
             raise SystemExit(f"error: {e}")
         if p.verbosity >= 1:
             print(f"reads: {stats['n_reads']}")

@@ -1,11 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by its own nvcc process for sm_90a, all
-of them at once, and the objects are linked into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
-library lands in `build/kernels/<source hash>/` at the repository root, a
-git-ignored directory, so a fresh checkout builds it on its first CUDA call
-and a changed source gets a new directory instead of a stale library.
+Every `csrc/*.cu` file is compiled for sm_90a into a shared library of its
+own with a plain C interface (no PyTorch headers, so a build takes seconds),
+one nvcc process a source, all started together. The libraries land in
+`build/kernels/<source hash>/` at the repository root, a git-ignored
+directory, so a fresh checkout builds them on its first CUDA call and a
+changed source gets a new directory instead of a stale library.
 """
 from __future__ import annotations
 
@@ -16,12 +16,13 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -36,64 +37,65 @@ def _nvcc() -> str:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile the kernels unless a library for the current sources exists;
-    returns its path."""
+    """Compile the kernels unless libraries for the current sources exist;
+    returns their directory."""
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
         with open(s, "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
-    so = os.path.join(out_dir, "libfqtz_kernels.so")
-    if os.path.exists(so):
-        return so
+    libs = [os.path.join(out_dir, f"lib{os.path.basename(s)[:-3]}.so")
+            for s in sources]
+    if all(os.path.exists(so) for so in libs):
+        return out_dir
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
-    procs = []
-    for src in sources:
-        obj = f"{tmp}.{os.path.basename(src)}.o"
-        procs.append((obj, subprocess.Popen(
-            [nvcc, *ptxas, *NVCC_FLAGS, "-c", "-o", obj, src],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    procs = [(so, subprocess.Popen(
+        [nvcc, *ptxas, *NVCC_FLAGS, "-o", f"{so}.{os.getpid()}.tmp", src],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for so, src in zip(libs, sources)]
     failed = []
-    for obj, proc in procs:
+    for so, proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}):\n{err}")
-        elif verbose and err:
+            continue
+        if verbose and err:
             print(err.strip())
+        os.replace(f"{so}.{os.getpid()}.tmp", so)
     if failed:
         raise RuntimeError("\n".join(failed))
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
-                          *(obj for obj, _ in procs)],
-                         capture_output=True, text=True)
-    for obj, _ in procs:
-        os.remove(obj)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
-                           f"{res.stderr}")
-    os.replace(tmp, so)
-    return so
+    return out_dir
 
 
-def kernels() -> ctypes.CDLL:
-    """The loaded kernel library, with every entry point's argtypes set."""
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = {
+    # (n_streams, f[], c[], init[], w[], e[], fin[], T[], N[], sb, stream):
+    # the arrays are host arrays, one entry a stream
+    "fqtz_rans_encode_walk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # (model, A, hist_bits, n_hist, lengths, r_pl, L, words, n_words, init,
+    # N, sb, syms, fin, ptr_out, stream)
+    "fqtz_qual_decode": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P,
+                         _P, _P, _P],
+}
+
+
+def kernels() -> types.SimpleNamespace:
+    """Every kernel entry point, loaded from its library with its argtypes
+    set, as attributes of one namespace."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            p, i = ctypes.c_void_p, ctypes.c_int
-            # (n_streams, f[], c[], init[], w[], e[], fin[], T[], N[], sb,
-            # stream): the arrays are host arrays, one entry a stream
-            lib.fqtz_rans_encode_walk.argtypes = [i, p, p, p, p, p, p, p, p,
-                                                  i, p]
-            lib.fqtz_rans_encode_walk.restype = i
-            # (model, A, hist_bits, n_hist, lengths, r_pl, L, words,
-            # n_words, init, N, sb, syms, fin, ptr_out, stream)
-            lib.fqtz_qual_decode.argtypes = [p, i, i, i, p, i, i, p, i, p,
-                                             i, i, p, p, p, p]
-            lib.fqtz_qual_decode.restype = i
-            _lib = lib
+            out_dir = build()
+            fns = {}
+            for so in sorted(glob.glob(os.path.join(out_dir, "lib*.so"))):
+                lib = ctypes.CDLL(so)
+                for name, argtypes in _ARGTYPES.items():
+                    if hasattr(lib, name):
+                        fn = getattr(lib, name)
+                        fn.argtypes, fn.restype = argtypes, _I
+                        fns[name] = fn
+            _lib = types.SimpleNamespace(**fns)
         return _lib

@@ -432,8 +432,8 @@ def decompress_file(p_cli: Params, in_path: str, out_path: str,
         p = Params.load_params(reader.header_blob, base=p_cli)
         missing = unported_archive(p)
         if missing:
-            raise ValueError("archive needs what is not yet ported to "
-                             "fqsqueezer_tpu_torch: " + ", ".join(missing))
+            raise ValueError(", ".join(missing) + " not yet ported to "
+                             "fqsqueezer_tpu_torch")
         device = resolve_device(device)
         writer = fastq.FastqWriter(out_path)
         try:

@@ -483,32 +483,10 @@ def _window_lookup(cfg, state, kcodes, lengths, be=tables.LOCAL,
     return counts, level, active
 
 
-def _model_view(cfg, state: DnaState):
-    """Batch-frozen find view of the DNA model: fine + letters rows packed
-    two cells per word (models.pack_freqs), the coarse family apart. A pure
-    storage layout: the cdf values are those of the raw array."""
-    n_fine = _n_model_ctx(cfg)
-    mp = models.pack_freqs(state.model[:n_fine])
-    coarse = state.model[n_fine:] if cfg.mix_w > 0 else None
-    return mp, coarse
-
-
-def _dna_cdf(cfg, mv, ctx, sb):
-    """DNA model cdf from a _model_view: fine row, optionally mixed with its
-    coarse parent (cfg.mix_w)."""
-    mp, coarse = mv
-    if cfg.mix_w > 0:
-        return models.model_cdf_mix_packed(
-            mp, A_SYM, coarse, ctx, _coarse_ctx(cfg, ctx), sb, cfg.mix_w,
-            cfg.mix_b)
-    return models.model_cdf_packed(mp, A_SYM, ctx, sb)
-
-
-def _dna_cdf_raw(cfg, model, ctx, sb):
-    """_dna_cdf read from the raw model array (fine and letters rows, then
-    the coarse family): the same cdf values without the packed view, whose
-    pass over every model row a batch the decoder's per-position reads of
-    N rows do not repay."""
+def _dna_cdf(cfg, model, ctx, sb):
+    """DNA model cdf from the raw model array (fine and letters rows, then
+    the coarse family): the fine row, optionally mixed with its coarse
+    parent (cfg.mix_w)."""
     if cfg.mix_w > 0:
         return models.model_cdf_mix(model, ctx,
                                     _n_model_ctx(cfg) + _coarse_ctx(cfg, ctx),
@@ -605,7 +583,6 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
     rb = lambda x: common.to_row_blocks(x, N)
     len_rows = common.to_read_grid(lengths, N).T              # [rows, N]
     blocks = (rb(codes), rb(kcodes), rb(code_active), rb(pb), rb(let_ctx))
-    mv = _model_view(cfg, state)
     s_tc, b_tc = state.s_tc, state.b_tc
     outs = []
     for rd in range(len_rows.shape[0]):
@@ -634,7 +611,7 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
             counts, level = _combine_rough(counts, level, cr, fr)
         ctx_r, sym_r = _ctx_sym_from_counts(
             cfg, counts, level, codes_r, cact_r, pb_r, let_r, pos)
-        cdf = _dna_cdf(cfg, mv, ctx_r, cfg.scale_bits)
+        cdf = _dna_cdf(cfg, state.model, ctx_r, cfg.scale_bits)
         f, c = models.cdf_encode_lookup(cdf, sym_r)
         f = torch.where(cact_r, f, 1 << cfg.scale_bits)
         c = torch.where(cact_r, c, 0)
@@ -844,7 +821,7 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
             let_ctx = (lh & LH_MASK) | (_let_pb(cfg, pb) << 15)
             ctx_all = torch.where(use_code, code_ctx, let_base + let_ctx)
 
-            cdf = _dna_cdf_raw(cfg, state.model, ctx_all, sb)
+            cdf = _dna_cdf(cfg, state.model, ctx_all, sb)
             sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
             f = torch.where(active, f, 1 << sb)
             c = torch.where(active, c, 0)

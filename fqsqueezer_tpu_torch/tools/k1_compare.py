@@ -50,8 +50,8 @@ def _load_other(src):
     out = os.path.join(os.path.dirname(_build._BUILD_ROOT), "k1_compare")
     os.makedirs(out, exist_ok=True)
     so = os.path.join(out, "libother.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
-                    src], check=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                   check=True)
     lib = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fqtz_rans_encode_walk.argtypes = [p, p, p, p, p, p, i, i, i, p]
@@ -78,9 +78,8 @@ def _chain_floor_ms(f, c, init):
     out = os.path.join(os.path.dirname(_build._BUILD_ROOT), "k1_compare")
     os.makedirs(out, exist_ok=True)
     so = os.path.join(out, "libchain.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                    "-DK1_CHAIN_ONLY", "-o", so,
-                    os.path.join(_build._CSRC, "rans_encode.cu")],
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DK1_CHAIN_ONLY",
+                    "-o", so, os.path.join(_build._CSRC, "rans_encode.cu")],
                    check=True)
     lib = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int

@@ -90,13 +90,11 @@ def _load_other(src):
     out = os.path.join(os.path.dirname(_build._BUILD_ROOT), "k3_compare")
     os.makedirs(out, exist_ok=True)
     so = os.path.join(out, "libother.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so,
-                    src], check=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
+                   check=True)
     lib = ctypes.CDLL(so)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fqtz_qual_decode.argtypes = [p, i, i, i, p, i, i, p, i, p, i, i, p,
-                                     p, p, p]
-    lib.fqtz_qual_decode.restype = i
+    lib.fqtz_qual_decode.argtypes = _build._ARGTYPES["fqtz_qual_decode"]
+    lib.fqtz_qual_decode.restype = ctypes.c_int
 
     def scan(cfg, model, lengths, words, init, L):
         N = cfg.n_lanes

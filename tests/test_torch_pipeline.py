@@ -15,6 +15,7 @@ import contextlib
 import hashlib
 import importlib.util
 import io
+import json
 import os
 import subprocess
 import sys
@@ -119,32 +120,50 @@ def test_reference_decodes_port_archive(tmp_path):
                                   np.where(mask, rev[fwd[a.quals]], 0))
 
 
-def test_compress_path_imports_no_jax(tmp_path):
-    src = str(tmp_path / "in.fastq")
-    write_fastq_corpus(src, 80, 30, 5_000, seed=1)
+@pytest.fixture(scope="module")
+def no_jax_run(tmp_path_factory):
+    """One fresh process that compresses a small corpus through the port and
+    decodes the archive back, listing after each step the modules of JAX and
+    of the reference package it has imported."""
+    d = tmp_path_factory.mktemp("no_jax")
+    src, arc, out = (str(d / n) for n in ("in.fq", "a.fqst", "o.fq"))
+    write_fastq_corpus(src, 40, 30, 5_000, seed=2)
     code = textwrap.dedent(f"""
+        import json
         import sys
         import fqsqueezer_tpu_torch.cli
         from fqsqueezer_tpu_torch.params import Params, DnaMode, IdMode
         from fqsqueezer_tpu_torch import pipeline
+
+        def bad():
+            return sorted(m for m in sys.modules if m.split(".")[0] in (
+                "jax", "jaxlib", "fqsqueezer_tpu"))
+
         p = Params()
         p.genome_size = 1
         p.adjust_kmer_sizes()
         p.n_lanes, p.max_batch_reads, p.dna_siv_cap = 8, 64, 7
         p.smer_log2_buckets = p.bmer_log2_buckets = 8
         p.dna_mode, p.id_mode = DnaMode.SE_ORIGINAL, IdMode.NONE
-        st = pipeline.compress_file(p, {src!r}, {str(tmp_path / "o.fqst")!r},
-                                    device="cpu")
-        assert st["n_reads"] == 80
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-            "jax", "jaxlib", "fqsqueezer_tpu"))
-        assert not bad, bad
-        print("no jax")
+        p.verbosity = 0
+        c = pipeline.compress_file(p, {src!r}, {arc!r}, device="cpu")
+        after_c = bad()
+        q = Params()
+        q.verbosity = 0
+        dd = pipeline.decompress_file(q, {arc!r}, {out!r}, device="cpu")
+        print(json.dumps({{"compress": [c["n_reads"], after_c],
+                          "decompress": [dd["n_reads"], bad()]}}))
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith("no jax")
+    return src, out, json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def test_compress_path_imports_no_jax(no_jax_run):
+    n_reads, bad = no_jax_run[2]["compress"]
+    assert n_reads == 40
+    assert not bad, bad
 
 
 def _sha256(path):
@@ -164,29 +183,37 @@ def _same_reads(src, out):
                                   np.where(mask, rev[fwd[a.quals]], 0))
 
 
-def test_port_decodes_reference_archive(archives):
-    """decompress_file on the reference writer's archive: the reference
-    decoder's bytes, through every group's growth, prune and checksum."""
-    src, jarc, _, _, _, _, d = archives
+@pytest.fixture(scope="module")
+def port_decode(archives):
+    """The port's CLI `d --device cpu` (pipeline.decompress_file behind it)
+    on the reference writer's archive, decoded once for the tests below:
+    the output path and the printed log."""
+    _, jarc, _, _, _, _, d = archives
     out = str(d / "port_of_jax.fastq")
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        stats = pipeline.decompress_file(tparams.Params(), jarc, out,
-                                         device="cpu")
-    assert stats["n_reads"] == 600
+        assert cli.main(["d", "--device", "cpu", "-out", out, jarc]) == 0
+    return out, log.getvalue()
+
+
+def test_port_decodes_reference_archive(archives, port_decode):
+    """The reference writer's archive decodes to the reference decoder's
+    bytes, through every group's growth, prune and checksum."""
+    out, log = port_decode
     assert _sha256(out) == DECODED_SHA256
-    _same_reads(src, out)
-    log = log.getvalue()
+    _same_reads(archives[0], out)
+    assert "reads: 600" in log
     assert "table grown" in log and "siv pruned" in log
 
 
-def test_cli_decodes_port_archive(archives):
-    """The CLI's d on the port's own archive gives the same bytes."""
-    _, _, tarc, _, _, _, d = archives
-    out = str(d / "cli_of_port.fastq")
-    with contextlib.redirect_stdout(io.StringIO()):
-        assert cli.main(["d", "--device", "cpu", "-out", out, tarc]) == 0
-    assert _sha256(out) == DECODED_SHA256
+def test_cli_decodes_port_archive(archives, port_decode):
+    """The port's own archive is byte for byte the reference writer's
+    (test_archive_byte_identical), so the CLI's decode of it is the one
+    above: the reference decoder's bytes."""
+    _, jarc, tarc, _, _, _, _ = archives
+    with open(jarc, "rb") as f, open(tarc, "rb") as g:
+        assert f.read() == g.read()
+    assert _sha256(port_decode[0]) == DECODED_SHA256
 
 
 @pytest.mark.slow
@@ -199,33 +226,11 @@ def test_reference_decoder_digest(archives):
     assert _sha256(out) == DECODED_SHA256
 
 
-def test_decompress_path_imports_no_jax(tmp_path):
-    src, arc, out = (str(tmp_path / n) for n in ("in.fq", "a.fqst", "o.fq"))
-    write_fastq_corpus(src, 40, 30, 5_000, seed=2)
-    code = textwrap.dedent(f"""
-        import sys
-        import fqsqueezer_tpu_torch.cli
-        from fqsqueezer_tpu_torch.params import Params, DnaMode, IdMode
-        from fqsqueezer_tpu_torch import pipeline
-        p = Params()
-        p.genome_size = 1
-        p.adjust_kmer_sizes()
-        p.n_lanes, p.max_batch_reads, p.dna_siv_cap = 8, 64, 7
-        p.smer_log2_buckets = p.bmer_log2_buckets = 8
-        p.dna_mode, p.id_mode = DnaMode.SE_ORIGINAL, IdMode.NONE
-        pipeline.compress_file(p, {src!r}, {arc!r}, device="cpu")
-        st = pipeline.decompress_file(Params(), {arc!r}, {out!r},
-                                      device="cpu")
-        assert st["n_reads"] == 40
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-            "jax", "jaxlib", "fqsqueezer_tpu"))
-        assert not bad, bad
-        print("no jax")
-    """)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith("no jax")
+def test_decompress_path_imports_no_jax(no_jax_run):
+    src, out, res = no_jax_run
+    n_reads, bad = res["decompress"]
+    assert n_reads == 40
+    assert not bad, bad
     a, b = fastq.read_fastq(src), fastq.read_fastq(out)
     np.testing.assert_array_equal(b.codes, a.codes)
 
