@@ -35,13 +35,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
                104 columns) of the 20k archive, with the quality model the
                first batch left. Then K3 and the plain scan timed on that
                batch, and its bound.
-  7. decode  — the 20k archive through the port's CLI `d` with no
+  7. k2      — kernel K2 (the DNA decode scan, one launch a read row)
+               against its plain torch row scan on the card, exact (the
+               four planes, final states, words consumed, carried
+               registers), row by row: encoded random batches (K2_SHAPES:
+               N in {8, 256, 2048}, lengths 0, 1 and L among them, grown
+               tables, short word streams) and the main path's second
+               batch of the 20k archive with the DNA state the first batch
+               left. Then on that batch K2's launches timed, the plain
+               row scan, the chain floor (K2 on 32 lanes) and the bound.
+  8. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
-               (DIGEST_D20K, DIGEST_D100K) and K3 must have launched at
-               least once a batch. Prints decode reads/s, wall time, peak
-               CUDA memory and K3's launches.
+               (DIGEST_D20K, DIGEST_D100K), K3 must have launched at
+               least once a batch and K2 once a read row. Prints decode
+               reads/s, wall time, peak CUDA memory and the launches.
 The last two lines are the kernels' JSON record and the result line.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
@@ -87,6 +96,11 @@ K3_SHAPES = tuple((n, r, l) for n in (8, 256, 2048) for l in (40, 104)
 K3_OPS_PER_POS = 120   # an active lane-step: the row's loads and 8 adds,
                        # a divide, 8 x (mulhi, correction, compare,
                        # selects), the state update, its share of the scan
+# (N, r_pl, L, grown tables, short word stream) of the K2 checks on encoded
+# random batches
+K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
+             (256, 2, 104, True, False), (256, 1, 40, True, True),
+             (2048, 2, 104, False, False), (2048, 2, 104, True, True))
 
 
 def bench_params():
@@ -439,40 +453,83 @@ def phase_k3():
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def _n_batches(arc, n_lanes):
-    """Batches an archive holds (the port's own reader)."""
+def phase_k2():
+    """K2 == its plain row scan, exact, on every shape and on the main
+    path's real batch; returns the numbers of the kernels line."""
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.tools import k2_compare as k2c
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    for seed, (N, r_pl, L, grow, short) in enumerate(K2_SHAPES):
+        batch = dna_decode_inputs(seed, N, r_pl, L, "cuda", grow, short)
+        k2c.check_rows(*batch, L, what=f"N={N} r_pl={r_pl} L={L} "
+                                       f"grown={grow} short={short}")
+    _, arc = _corpus(DIGEST_READS)
+    batch = k2c.real_dna_batch(arc)
+    rows = k2c.check_rows(*batch, what="the main path's batch")
+    ms = _ms(lambda: [dna.dna_decode_row(*a) for a, _ in rows], 20)
+    chain = k2c.chain_rows(rows)
+    floor_ms = _ms(lambda: [dna.dna_decode_row(*a) for a in chain], 20)
+    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a) for a, _ in rows],
+                   2)
+    bound_ms, bound_by = k2c.k2_bound_ms(rows)
+    cfg, L = batch[0], batch[-1]
+    steps = len(rows) * L
+    print(f"[k2] exact on {len(K2_SHAPES)} random batches and the main "
+          f"path's batch (N={cfg.n_lanes}, {len(rows)} rows, L={L}): K2 "
+          f"{ms:.4f} ms a batch ({ms / steps * 1e3:.2f} us a step), chain "
+          f"floor ({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "chain_floor_ms": floor_ms}
+
+
+def _batches_and_rows(arc):
+    """(batches, read rows) an archive holds (the port's own reader): one
+    K3 launch a batch, one K2 launch a read row."""
+    from fqsqueezer_tpu_torch import pipeline
     from fqsqueezer_tpu_torch.archive import ArchiveReader
+    from fqsqueezer_tpu_torch.params import Params
 
     rd = ArchiveReader(arc)
-    n = 0
     try:
-        while (g := rd.read_group(n_lanes)) is not None:
-            n += len(g[1])
+        p = Params.load_params(rd.header_blob)
+        first = pipeline._first_batch(p.n_lanes, p.max_batch_reads, 0,
+                                      p.n_lanes)
+        batches = rows = 0
+        while (g := rd.read_group(p.n_lanes)) is not None:
+            batches += len(g[1])
+            rows += sum(pipeline.canonical_padded(
+                take, first, p.max_batch_reads, p.n_lanes) // p.n_lanes
+                for take, _, _ in g[1])
     finally:
         rd.close()
-    return n
+    return batches, rows
 
 
 def _decompress(n_reads):
-    """(sha256 of the FASTQ, seconds, K3 launches, batches, n_reads) of one
-    pipeline.decompress_file on the card (no device named: the default)."""
+    """(sha256 of the FASTQ, seconds, K3 launches, batches, K2 launches,
+    read rows, n_reads) of one pipeline.decompress_file on the card (no
+    device named: the default)."""
     import torch
 
     from fqsqueezer_tpu_torch import pipeline
     from fqsqueezer_tpu_torch.params import Params
-    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.streams import dna, quality
 
     _, arc = _corpus(n_reads)
     out = os.path.join(WORK, f"bench_{n_reads}.dec.fastq")
     torch.cuda.synchronize()
     quality.K3_LAUNCHES = 0
+    dna.K2_LAUNCHES = 0
     t0 = time.time()
     stats = pipeline.decompress_file(Params(), arc, out)
     torch.cuda.synchronize()
     dt = time.time() - t0
-    launches = quality.K3_LAUNCHES
-    return (_sha256(out), dt, launches,
-            _n_batches(arc, bench_params().n_lanes), stats["n_reads"])
+    batches, rows = _batches_and_rows(arc)
+    return (_sha256(out), dt, quality.K3_LAUNCHES, batches, dna.K2_LAUNCHES,
+            rows, stats["n_reads"])
 
 
 def phase_decode():
@@ -481,17 +538,19 @@ def phase_decode():
     import torch
 
     from fqsqueezer_tpu_torch import cli
-    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.streams import dna, quality
 
     _, arc = _corpus(DIGEST_READS)
     out = os.path.join(WORK, f"bench_{DIGEST_READS}.dec.fastq")
     quality.K3_LAUNCHES = 0
+    dna.K2_LAUNCHES = 0
     t0 = time.time()
     rc = cli.main(["d", "-v", "1", "-out", out, arc])
     torch.cuda.synchronize()
     dt = time.time() - t0
     launches = quality.K3_LAUNCHES
-    batches = _n_batches(arc, bench_params().n_lanes)
+    k2_launches = dna.K2_LAUNCHES
+    batches, rows = _batches_and_rows(arc)
     if rc != 0:
         raise RuntimeError(f"the CLI's d returned {rc}")
     sha = _sha256(out)
@@ -501,24 +560,30 @@ def phase_decode():
     if launches < batches:
         raise RuntimeError(f"K3 launched {launches} times for {batches} "
                            f"batches")
+    if k2_launches != rows:
+        raise RuntimeError(f"K2 launched {k2_launches} times for {rows} "
+                           f"read rows")
     print(f"[decode] {DIGEST_READS} reads through the CLI's d: sha256 "
           f"{sha} == reference decoder; K3 launches {launches} for "
-          f"{batches} batches, {dt:.2f} s")
+          f"{batches} batches, K2 launches {k2_launches} for {rows} read "
+          f"rows, {dt:.2f} s")
 
     _decompress(FULL_READS)                        # warm-up
     torch.cuda.reset_peak_memory_stats()
-    sha, dt, launches, batches, n = _decompress(FULL_READS)
+    sha, dt, launches, batches, k2_launches, rows, n = _decompress(FULL_READS)
     peak = torch.cuda.max_memory_allocated()
     if sha != DIGEST_D100K:
         raise RuntimeError(f"decoded 100k FASTQ sha256 {sha} != reference "
                            f"decoder's {DIGEST_D100K}")
-    if launches < batches or n != FULL_READS:
+    if launches < batches or k2_launches != rows or n != FULL_READS:
         raise RuntimeError(f"K3 launched {launches} times for {batches} "
-                           f"batches; {n} reads decoded")
+                           f"batches, K2 {k2_launches} times for {rows} read "
+                           f"rows; {n} reads decoded")
     print(f"[decode] {n} reads: {n / dt:.1f} reads/s, wall {dt:.3f} s, "
           f"peak CUDA memory {peak / 2**30:.3f} GiB, sha256 == reference "
-          f"decoder, K3 launches {launches} for {batches} batches")
-    return launches
+          f"decoder, K3 launches {launches} for {batches} batches, K2 "
+          f"launches {k2_launches} for {rows} read rows")
+    return launches, k2_launches
 
 
 def main() -> int:
@@ -537,7 +602,8 @@ def main() -> int:
     phase_digest()
     launches = phase_full()
     k3 = phase_k3()
-    k3_launches = phase_decode()
+    k2 = phase_k2()
+    k3_launches, k2_launches = phase_decode()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "fqsqueezer_tpu"))
     if foreign:
@@ -547,6 +613,10 @@ def main() -> int:
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
         "replaces": "fqsqueezer_tpu/ops/rans.py:100",
         "launches": launches, **k1}, {
+        "name": "dna_decode_row (K2)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": k2_launches, **k2}, {
         "name": "qual_decode_scan (K3)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/quality.py:171",

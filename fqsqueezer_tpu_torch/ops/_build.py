@@ -79,6 +79,9 @@ _ARGTYPES = {
     # N, sb, syms, fin, ptr_out, stream)
     "fqtz_qual_decode": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P,
                          _P, _P, _P],
+    # (args, n_args, stream): args a host int64 array in the order of
+    # streams/dna.py's K2_ARGS (struct Args in csrc/dna_decode.cu)
+    "fqtz_dna_decode_row": [_P, _I, _P],
 }
 
 

@@ -16,15 +16,18 @@ order the decoder replays. Every op inside a row is [N, L]-wide.
 Decode (dna_decode_batch) replays that order one position at a time for
 all lanes: per read row a scan over the L positions, each step the cascade,
 the context and cdf, one rANS step, repair and the register rolls; then the
-row's s/b insert events. It is torch ops on the lanes' [N] tensors, as the
-reference runs it through XLA (not Pallas); a hand kernel (K2) is to replace
-it, with this scan as its plain version.
+row's s/b insert events. The reference runs the scan through XLA (not
+Pallas). Here each read row is one call of dna_decode_row: on CUDA tensors
+kernel K2 (csrc/dna_decode.cu), one launch a row; on CPU tensors
+dna_decode_row_plain, the same scan as torch ops on the lanes' [N] tensors.
+The row-end s/b updates and the batch's model and SIV update stay torch.
 
 Not ported yet: sorted-mode LCP, paired-end anchors, the legacy
 (non-row-global, non-canonical, u16-cell) paths.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -135,6 +138,23 @@ def check_supported(cfg: DnaConfig) -> None:
         missing.append("paired-end anchors")
     if cfg.sorted_ctx:
         missing.append("sorted-mode position contexts")
+    # header knobs other than the ones the JAX writer stores: their branches
+    # are held against the reference by no test
+    if cfg.ctx_v != 2:
+        missing.append(f"dna_ctx_v={cfg.ctx_v} (contexts other than v2)")
+    if not cfg.rough:
+        missing.append("dna_rough=0 (no rough 1-substitution rescue)")
+    if not cfg.let_pb2:
+        missing.append("dna_let_pb2=0 (fine letters position buckets)")
+    if cfg.mix_w <= 0:
+        missing.append("dna_mix_w=0 (no two-level model mix)")
+    if not cfg.prefix_ramp:
+        missing.append("dna_prefix_ramp=0 (no prefix ramp)")
+    if cfg.pmer_gate > 0:
+        missing.append(f"dna_pmer_gate={cfg.pmer_gate} (gated SIV level)")
+    if cfg.repair_iters != 1:
+        missing.append(f"dna_repair_iters={cfg.repair_iters} (repairs "
+                       f"other than one a read)")
     if missing:
         raise NotImplementedError(
             "not ported to fqsqueezer_tpu_torch: " + ", ".join(missing))
@@ -730,6 +750,240 @@ def _key_mask(width_bases: int):
             0 if bits <= 32 else (1 << (bits - 32)) - 1)
 
 
+# Launches of K2 (the CUDA DNA decode scan, one a read row) in this process;
+# the plain row scan never counts.
+K2_LAUNCHES = 0
+K2_MAX_LANES = 2048   # one cluster of 8 blocks x 256 (kMaxLanes in the source)
+# carried registers of a row, the rows of one int64 [K2_NREGS, N] tensor:
+# pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi (the SIV key, then the
+# (lo, hi) u32 halves of the s and b windows and of their reverse
+# complements)
+K2_NREGS = 9
+# the launch's int64 arguments, in the order of struct Args in the source
+K2_ARGS = ("siv", "s_tc", "b_tc", "model", "lengths", "words", "x_in",
+           "ptr_in", "regs_in", "base", "kc", "ctx", "sym", "x_out",
+           "ptr_out", "regs_out", "n_words", "N", "L", "siv_len", "smer_len",
+           "bmer_len", "prefix_len", "scale_bits", "s_log2_rows",
+           "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b")
+
+
+def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
+                         ptr, regs, L: int, be=tables.LOCAL):
+    """K2's plain torch version, on any device: the decode scan of one read
+    row — the reference's `inner` step for each of the row's static steps
+    (_decode_segments). state: the DnaState the row reads, its s/b tables
+    fresh with every earlier row's events; length: [N] int64; words: [W]
+    integer tensor of u16 values; x: [N] int64 lane states; ptr: 0-d int64
+    words consumed so far; regs: int64 [K2_NREGS, N] carried registers.
+    Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr,
+    regs)."""
+    N = length.shape[0]
+    dev = x.device
+    sb = cfg.scale_bits
+    pm_mask = 4 ** (cfg.siv_len - 1) - 1
+    s_w, b_w = cfg.smer_len - 1, cfg.bmer_len - 1
+    s_mlo, s_mhi = _key_mask(s_w)
+    b_mlo, b_mhi = _key_mask(b_w)
+    let_base = 1 << _ctx_bits(cfg)
+    pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi = regs.unbind(0)
+    zeros = torch.zeros((N,), dtype=torch.int64, device=dev)
+    lh = torch.full((N,), LH_RESET, dtype=torch.int64, device=dev)
+    rh = rep_cnt = prevc = srun = zeros
+    ys = []
+    for i, ramp_q, rough_on in _decode_segments(cfg, L):
+        active = i < length
+        vp_i = i >= cfg.siv_len - 1
+        if cfg.pmer_gate > 0:
+            vp_i = vp_i and i < cfg.pmer_gate
+        vp = active & vp_i
+        vs = active & (i >= s_w)
+        vb = active & (i >= b_w)
+        s_lo, s_hi = slo & s_mlo, shi & s_mhi
+        s_q = _canon_query(s_lo, s_hi, rslo, rshi, cfg.smer_len,
+                           cfg.smer_log2_buckets)
+        b_q = _canon_query(blo & b_mlo, bhi & b_mhi, rblo, rbhi,
+                           cfg.bmer_len, cfg.bmer_log2_buckets)
+        parts = _cascade_parts_k(state, pkey & pm_mask, s_q, b_q, vp, vs, vb,
+                                 be, cfg.smer_log2_buckets,
+                                 cfg.bmer_log2_buckets)
+        if ramp_q is not None:
+            # partial-prefix SIV evidence: pkey's low 2q bits are this row's
+            # decoded prefix (repair never rewrites them)
+            cq = _prefix_ramp_counts_static(
+                cfg, be, state.siv, pkey & (4 ** ramp_q - 1), ramp_q)
+            ok = active & (cq.sum(dim=-1) > 0)
+            cp_, cs_, cb_, fp_, fs_, fb_ = parts
+            parts = (torch.where(ok[:, None], cq, cp_), cs_, cb_, fp_ | ok,
+                     fs_, fb_)
+        counts_g, level_g = _cascade_combine(*parts)
+        counts, level = counts_g, level_g
+        if cfg.rough and rough_on:
+            # suspect-tracked 1-sub rescue; srun counts this lane's
+            # consecutive s/b misses
+            miss = vs & ~parts[4] & ~parts[5]
+            srun = torch.where(miss, srun + 1, 0)
+            age = srun - 1
+            ok_r = miss & (age <= s_w - 1)
+            cr = _rough_counts(cfg, be, state.s_tc, s_lo, s_hi, rslo, rshi,
+                               torch.clamp(age, 0, s_w - 1), ok_r)
+            fr = ok_r & (cr.sum(dim=-1) > 0)
+            counts, level = _combine_rough(counts, level, cr, fr)
+
+        use_code = (level > LEVEL_NONE) & (i >= cfg.prefix_len)
+        pb = _pos_bucket(torch.full_like(level, i), length)
+        nz = _popcount4(rh)
+        if cfg.ctx_v >= 2:
+            code_ctx = _code_ctx(level, counts, pb, nz, prevc,
+                                 rough=cfg.rough > 0)
+        else:
+            code_ctx = _code_ctx(level, counts, pb, nz)
+        let_ctx = (lh & LH_MASK) | (_let_pb(cfg, pb) << 15)
+        ctx_all = torch.where(use_code, code_ctx, let_base + let_ctx)
+
+        cdf = _dna_cdf(cfg, state.model, ctx_all, sb)
+        sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
+        f = torch.where(active, f, 1 << sb)
+        c = torch.where(active, c, 0)
+        x, ptr = rans.rans_decode_advance(x, ptr, words, f, c, sb)
+
+        base = torch.where(use_code, _base_of_rank(counts, sym), sym)
+        base = torch.where(active, base, 0)
+        # repair triggers on the cascade's counts, before rough evidence
+        trig, best = _repair_trigger(counts_g, level_g, base)
+        do_rep = trig & active & (rep_cnt < cfg.repair_iters)
+        rep_cnt = rep_cnt + do_rep.to(torch.int64)
+        kc = torch.where(do_rep, best, torch.where(base >= 4, 0, base))
+
+        pkey = ((pkey << 2) | kc) & pm_mask
+        shi = ((shi << 2) | (slo >> 30)) & s_mhi
+        slo = ((slo << 2) | kc) & s_mlo
+        bhi = ((bhi << 2) | (blo >> 30)) & b_mhi
+        blo = ((blo << 2) | kc) & b_mlo
+        comp = 3 - kc
+        rslo, rshi = kmers.or_top_base(*kmers.shr2(rslo, rshi), comp, s_w)
+        rblo, rbhi = kmers.or_top_base(*kmers.shr2(rblo, rbhi), comp, b_w)
+        lh = ((lh << 3) | base) & LH_MASK
+        rbit = (use_code & (sym > 0) & active).to(torch.int64)
+        rh = ((rh << 1) | rbit) & 0xF
+        prevc = _level_class(cfg, level, use_code)
+        ys.append((base, kc, ctx_all, sym))
+    planes = tuple(torch.stack(y, dim=1) for y in zip(*ys))     # [N, L]
+    return planes, x, ptr, torch.stack(
+        [pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi])
+
+
+def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
+    check_supported(cfg)
+    if be is not tables.LOCAL:
+        raise ValueError("K2 reads whole tables on one device (the local "
+                         "backend)")
+    N = cfg.n_lanes
+    dev = state.model.device
+    if not 1 <= N <= K2_MAX_LANES:
+        raise ValueError(f"K2: {N} lanes, one cluster takes "
+                         f"1..{K2_MAX_LANES}")
+    s_rows, b_rows = state.s_tc.shape[0], state.b_tc.shape[0]
+    n_model = _n_model_ctx(cfg) + _n_coarse_ctx(cfg)
+    want = (("siv", state.siv, torch.int64, (4 ** (cfg.siv_len - 1),)),
+            ("s_tc", state.s_tc, torch.int64, (s_rows, tables.KBUCKET)),
+            ("b_tc", state.b_tc, torch.int64, (b_rows, tables.KBUCKET)),
+            ("model", state.model, torch.int32, (n_model, A_SYM)),
+            ("length", length, torch.int64, (N,)),
+            ("words", words, torch.int32, None),
+            ("x", x, torch.int64, (N,)),
+            ("ptr", ptr, torch.int64, ()),
+            ("regs", regs, torch.int64, (K2_NREGS, N)))
+    for name, t, dt, shape in want:
+        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
+                or (shape is None and t.dim() != 1)
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"K2: {name} must be a contiguous {dt} tensor "
+                             f"on {dev}" + ("" if shape is None else
+                                            f" of shape {shape}")
+                             + f", got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    for name, rows, log2_base in (("s", s_rows, cfg.smer_log2_buckets),
+                                  ("b", b_rows, cfg.bmer_log2_buckets)):
+        lr = rows.bit_length() - 1
+        if rows != 1 << lr or not log2_base <= lr <= min(log2_base + 4, 30):
+            raise ValueError(f"K2: the {name} table has {rows} rows, not "
+                             f"2^{log2_base} grown at most 4 times")
+    if state.s_tc.data_ptr() % 16 or state.b_tc.data_ptr() % 16:
+        raise ValueError("K2: the K2 tables' rows must be 16-byte aligned")
+    if (words.numel() < 1 or L < 1 or N * L >= 1 << 31
+            or not 1 <= cfg.scale_bits <= 16 or not 3 <= cfg.siv_len <= 17
+            or not 3 <= cfg.smer_len <= 33 or not 3 <= cfg.bmer_len <= 33
+            or cfg.mix_w > 1 << 18 or cfg.mix_b < 1
+            or cfg.mix_w * cfg.mix_b >= 1 << 31):
+        raise ValueError(f"K2: {words.numel()} words, L = {L}, or a "
+                         f"geometry outside the kernel's: {cfg}")
+
+
+def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
+    """Allocate one row's outputs and launch `entry` (a C function with
+    K2's signature) on the current stream. No checks: _check_k2 first."""
+    dev = x.device
+    N = cfg.n_lanes
+    planes = torch.empty((4, N, L), dtype=torch.int64, device=dev)
+    x_out = torch.empty((N,), dtype=torch.int64, device=dev)
+    ptr_out = torch.empty((1,), dtype=torch.int64, device=dev)
+    regs_out = torch.empty((K2_NREGS, N), dtype=torch.int64, device=dev)
+    vals = {
+        "siv": state.siv, "s_tc": state.s_tc, "b_tc": state.b_tc,
+        "model": state.model, "lengths": length, "words": words, "x_in": x,
+        "ptr_in": ptr, "regs_in": regs, "base": planes[0], "kc": planes[1],
+        "ctx": planes[2], "sym": planes[3], "x_out": x_out,
+        "ptr_out": ptr_out, "regs_out": regs_out,
+        "n_words": words.numel(), "N": N, "L": L, "siv_len": cfg.siv_len,
+        "smer_len": cfg.smer_len, "bmer_len": cfg.bmer_len,
+        "prefix_len": cfg.prefix_len, "scale_bits": cfg.scale_bits,
+        "s_log2_rows": state.s_tc.shape[0].bit_length() - 1,
+        "s_log2_base": cfg.smer_log2_buckets,
+        "b_log2_rows": state.b_tc.shape[0].bit_length() - 1,
+        "b_log2_base": cfg.bmer_log2_buckets,
+        "mix_w": cfg.mix_w, "mix_b": cfg.mix_b}
+    args = (ctypes.c_int64 * len(K2_ARGS))(*(
+        v.data_ptr() if isinstance(v, torch.Tensor) else v
+        for v in (vals[k] for k in K2_ARGS)))
+    with torch.cuda.device(dev):
+        rc = entry(args, len(K2_ARGS),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    return tuple(planes.unbind(0)), x_out, ptr_out[0], regs_out
+
+
+def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, be):
+    """One K2 launch for one read row. Checks everything before it builds
+    or launches."""
+    global K2_LAUNCHES
+    _check_k2(cfg, state, length, words, x, ptr, regs, L, be)
+    from ..ops import _build
+
+    out = _k2_launch(_build.kernels().fqtz_dna_decode_row, cfg, state,
+                     length, words, x, ptr, regs, L)
+    K2_LAUNCHES += 1
+    return out
+
+
+def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
+                   regs, L: int, be=tables.LOCAL):
+    """The decode scan of one read row: on CUDA tensors kernel K2 (a failed
+    build or launch raises; nothing falls back to the plain scan), on CPU
+    tensors dna_decode_row_plain (see there for the arguments and the
+    result); the model's device decides. K2 takes words as a contiguous
+    int32 tensor."""
+    kind = state.model.device.type
+    if kind == "cuda":
+        return _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs,
+                                    L, be)
+    if kind == "cpu":
+        return dna_decode_row_plain(cfg, state, length, words, x, ptr, regs,
+                                    L, be)
+    raise ValueError(f"dna_decode_row: no scan for device "
+                     f"{state.model.device}")
+
+
 def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
                      init_states, L: int, be=tables.LOCAL):
     """Decode a batch — the reference's dna_decode_batch for single-end,
@@ -738,127 +992,34 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     integer tensor of u16 values; init_states: [N] int64 (the encoder's
     final states).
 
-    A loop over the read rows; each row runs its static steps
-    (_decode_segments) against the carried s/b tables, then applies the
-    row's s/b insert events; dna_collect_updates (model and SIV) runs once
-    after the batch. Returns (codes [R, L] int64, new_state, final_states,
+    A loop over the read rows: each row is one dna_decode_row (K2 on a CUDA
+    device) against the carried s/b tables, then the row's s/b insert
+    events; dna_collect_updates (model and SIV) runs once after the batch.
+    Returns (codes [R, L] int64, new_state, final_states,
     n_words_consumed, (eff, ctx_all, sym, code_active))."""
     check_supported(cfg)
     N = cfg.n_lanes
     R = lengths.shape[0]
     dev = init_states.device
-    len_grid = common.to_read_grid(lengths.to(torch.int64), N)  # [N, r_pl]
-    sb = cfg.scale_bits
-    pm_mask = 4 ** (cfg.siv_len - 1) - 1
-    s_w, b_w = cfg.smer_len - 1, cfg.bmer_len - 1
-    s_mlo, s_mhi = _key_mask(s_w)
-    b_mlo, b_mhi = _key_mask(b_w)
-    let_base = 1 << _ctx_bits(cfg)
-    steps = _decode_segments(cfg, L)
-
-    zeros = torch.zeros((N,), dtype=torch.int64, device=dev)
+    len_rows = common.to_read_grid(lengths.to(torch.int64), N).t().contiguous()
+    words = words.to(torch.int32).contiguous()
+    pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     x = init_states
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
-    pkey = slo = shi = blo = bhi = zeros
-    rslo = rshi = rblo = rbhi = zeros
+    regs = torch.zeros((K2_NREGS, N), dtype=torch.int64, device=dev)
     s_tc, b_tc = state.s_tc, state.b_tc
     rows = []
     for rd in range(R // N):
-        # the cascade and repair read the CARRIED s/b tables, fresh with
-        # every earlier row's events
-        st_row = state._replace(s_tc=s_tc, b_tc=b_tc)
-        length = len_grid[:, rd]
-        lh = torch.full((N,), LH_RESET, dtype=torch.int64, device=dev)
-        rh = rep_cnt = prevc = srun = zeros
-        ys = []
-        for i, ramp_q, rough_on in steps:
-            active = i < length
-            vp_i = i >= cfg.siv_len - 1
-            if cfg.pmer_gate > 0:
-                vp_i = vp_i and i < cfg.pmer_gate
-            vp = active & vp_i
-            vs = active & (i >= s_w)
-            vb = active & (i >= b_w)
-            s_lo, s_hi = slo & s_mlo, shi & s_mhi
-            s_q = _canon_query(s_lo, s_hi, rslo, rshi, cfg.smer_len,
-                               cfg.smer_log2_buckets)
-            b_q = _canon_query(blo & b_mlo, bhi & b_mhi, rblo, rbhi,
-                               cfg.bmer_len, cfg.bmer_log2_buckets)
-            parts = _cascade_parts_k(st_row, pkey & pm_mask, s_q, b_q, vp, vs,
-                                     vb, be, cfg.smer_log2_buckets,
-                                     cfg.bmer_log2_buckets)
-            if ramp_q is not None:
-                # partial-prefix SIV evidence: pkey's low 2q bits are this
-                # row's decoded prefix (repair never rewrites them)
-                cq = _prefix_ramp_counts_static(
-                    cfg, be, state.siv, pkey & (4 ** ramp_q - 1), ramp_q)
-                ok = active & (cq.sum(dim=-1) > 0)
-                cp_, cs_, cb_, fp_, fs_, fb_ = parts
-                parts = (torch.where(ok[:, None], cq, cp_), cs_, cb_,
-                         fp_ | ok, fs_, fb_)
-            counts_g, level_g = _cascade_combine(*parts)
-            counts, level = counts_g, level_g
-            if cfg.rough and rough_on:
-                # suspect-tracked 1-sub rescue; srun counts this lane's
-                # consecutive s/b misses
-                miss = vs & ~parts[4] & ~parts[5]
-                srun = torch.where(miss, srun + 1, 0)
-                age = srun - 1
-                ok_r = miss & (age <= s_w - 1)
-                cr = _rough_counts(cfg, be, st_row.s_tc, s_lo, s_hi, rslo,
-                                   rshi, torch.clamp(age, 0, s_w - 1), ok_r)
-                fr = ok_r & (cr.sum(dim=-1) > 0)
-                counts, level = _combine_rough(counts, level, cr, fr)
-
-            use_code = (level > LEVEL_NONE) & (i >= cfg.prefix_len)
-            pb = _pos_bucket(torch.full_like(level, i), length)
-            nz = _popcount4(rh)
-            if cfg.ctx_v >= 2:
-                code_ctx = _code_ctx(level, counts, pb, nz, prevc,
-                                     rough=cfg.rough > 0)
-            else:
-                code_ctx = _code_ctx(level, counts, pb, nz)
-            let_ctx = (lh & LH_MASK) | (_let_pb(cfg, pb) << 15)
-            ctx_all = torch.where(use_code, code_ctx, let_base + let_ctx)
-
-            cdf = _dna_cdf(cfg, state.model, ctx_all, sb)
-            sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
-            f = torch.where(active, f, 1 << sb)
-            c = torch.where(active, c, 0)
-            x, ptr = rans.rans_decode_advance(x, ptr, words, f, c, sb)
-
-            base = torch.where(use_code, _base_of_rank(counts, sym), sym)
-            base = torch.where(active, base, 0)
-            # repair triggers on the cascade's counts, before rough evidence
-            trig, best = _repair_trigger(counts_g, level_g, base)
-            do_rep = trig & active & (rep_cnt < cfg.repair_iters)
-            rep_cnt = rep_cnt + do_rep.to(torch.int64)
-            kc = torch.where(do_rep, best, torch.where(base >= 4, 0, base))
-
-            pkey = ((pkey << 2) | kc) & pm_mask
-            shi = ((shi << 2) | (slo >> 30)) & s_mhi
-            slo = ((slo << 2) | kc) & s_mlo
-            bhi = ((bhi << 2) | (blo >> 30)) & b_mhi
-            blo = ((blo << 2) | kc) & b_mlo
-            comp = 3 - kc
-            rslo, rshi = kmers.or_top_base(*kmers.shr2(rslo, rshi), comp,
-                                           s_w)
-            rblo, rbhi = kmers.or_top_base(*kmers.shr2(rblo, rbhi), comp,
-                                           b_w)
-            lh = ((lh << 3) | base) & LH_MASK
-            rbit = (use_code & (sym > 0) & active).to(torch.int64)
-            rh = ((rh << 1) | rbit) & 0xF
-            prevc = _level_class(cfg, level, use_code)
-            ys.append((base, kc, ctx_all, sym))
-        base_r, eff_r, ctx_r, sym_r = (torch.stack(y, dim=1)
-                                       for y in zip(*ys))      # [N, L]
-        act_r = torch.arange(L, device=dev)[None, :] < length[:, None]
-        s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, eff_r, act_r)
-        rows.append((base_r, eff_r, ctx_r, sym_r))
+        length = len_rows[rd]
+        planes, x, ptr, regs = dna_decode_row(
+            cfg, state._replace(s_tc=s_tc, b_tc=b_tc), length, words, x, ptr,
+            regs, L, be)
+        s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, planes[1],
+                                       pos < length[:, None])
+        rows.append(planes)
 
     codes, eff, ctx_all, sym = (common.from_row_blocks(torch.stack(r))
                                 for r in zip(*rows))
-    pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     code_active = pos < lengths[:, None]
     new_state = dna_collect_updates(
         cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,

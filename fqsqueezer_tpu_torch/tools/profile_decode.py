@@ -34,7 +34,8 @@ from ..utils.corpus import write_fastq_corpus
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
 
 TIMED = ((pipeline, "_decode_batch"), (meta, "meta_decode_batch"),
-         (dna, "dna_decode_batch"), (dna, "_apply_sb_updates"),
+         (dna, "dna_decode_batch"), (dna, "dna_decode_row"),
+         (dna, "_apply_sb_updates"),
          (dna, "dna_collect_updates"), (quality, "qual_decode_batch"),
          (quality, "qual_decode_scan"), (pipeline, "payload_crc"),
          (fastq.FastqWriter, "write_batch"),

@@ -1,0 +1,97 @@
+"""Encoded DNA batches for checking and timing the DNA decode scan (K2).
+
+A batch is made the way the compressor makes one: reads sampled from a
+random genome (numpy, from a seed), two warm-up batches through the port's
+encoder and state update so that the tables and the model hold real counts,
+then the batch itself encoded into one rANS word stream. Decoding it walks
+every path of the scan (SIV, s, b and mixed levels, the prefix ramp, rough
+rescues, repairs, the letters model). Used by chip_smoke.py and the tests
+that need a card; it runs on any device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import pipeline
+from ..ops import rans, tables
+from ..params import Params
+from ..streams import common, dna
+from .corpus import make_genome, sample_reads
+
+# the s and b tables of these batches hold 2^LOG2_BUCKETS rows each
+LOG2_BUCKETS = 16
+
+
+def bench_dna_config(n_lanes: int | None = None) -> dna.DnaConfig:
+    """The bench primary row's DnaConfig (-gs 5: siv_len 14, s/b-mers 18
+    and 21, the header defaults), at another lane count when given."""
+    p = Params()
+    p.genome_size = 5
+    p.adjust_kmer_sizes()
+    cfg = pipeline.make_configs(p)[0]
+    if n_lanes is not None:
+        cfg = dataclasses.replace(cfg, n_lanes=n_lanes)
+    return cfg
+
+
+def _reads(rng, genome, R, L, seed):
+    """codes [R, L] int64 (N = 4, zero past the length) and lengths [R]
+    int64: a quarter each of lengths 0, 1 and L, the rest random."""
+    codes, _ = sample_reads(genome, R, L, seed, err_rate=0.01, n_rate=0.005)
+    lengths = rng.integers(0, L + 1, R)
+    lengths[:3 * (R // 4)] = np.resize(np.array([0, 1, L]), 3 * (R // 4))
+    rng.shuffle(lengths)
+    tail = np.arange(L)[None, :] >= lengths[:, None]
+    return (np.where(tail, 0, codes).astype(np.int64),
+            lengths.astype(np.int64))
+
+
+def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
+                      grow: bool = False, short: bool = False):
+    """(cfg, state, lengths [R] int64, words int32 [W], init states [N]
+    int64) of one encoded batch of R = n_lanes * r_pl reads of width L.
+    grow: the s and b tables are doubled once (tables.k2_grow) before the
+    batch, so every find takes a growth bit. short: the word stream is cut
+    to half the words the batch needs, so the decode reads past its end
+    (those reads clamp to the last word)."""
+    cfg = dataclasses.replace(bench_dna_config(n_lanes),
+                              smer_log2_buckets=LOG2_BUCKETS,
+                              bmer_log2_buckets=LOG2_BUCKETS)
+    rng = np.random.default_rng(seed)
+    R = n_lanes * r_pl
+    # about 8x coverage a batch, so that the batch's k-mers hit the tables
+    genome = make_genome(max(600, R * L // 8), seed)
+    state = dna.dna_state_create(cfg, device)
+
+    def encode(codes, lengths):
+        c = torch.from_numpy(codes).to(device)
+        n = torch.from_numpy(lengths).to(device)
+        kc = torch.where(c >= 4, 0, c)
+        eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch_rg(
+            cfg, state, c, kc, n)
+        return (c, n, eff, ctx, sym, act, s_tc, b_tc), (f, cum)
+
+    for k in range(2):
+        (c, n, eff, ctx, sym, act, s_tc, b_tc), _ = encode(
+            *_reads(rng, genome, R, L, seed + 1 + k))
+        state = dna.dna_collect_updates(
+            cfg, state._replace(s_tc=s_tc, b_tc=b_tc), c, eff, n, ctx, sym,
+            act)
+    if grow:
+        state = state._replace(
+            s_tc=tables.k2_grow(state.s_tc, cfg.smer_log2_buckets),
+            b_tc=tables.k2_grow(state.b_tc, cfg.bmer_log2_buckets))
+    (_, lengths, *_), (f, cum) = encode(*_reads(rng, genome, R, L, seed + 3))
+    words, n_words, init = rans.rans_encode(
+        common.to_grid(f, n_lanes).to(torch.int32).contiguous(),
+        common.to_grid(cum, n_lanes).to(torch.int32).contiguous(),
+        cfg.scale_bits)
+    n_words = int(n_words)
+    cap = max(1, n_words // 2) if short else R * max(L, 2)
+    plane = torch.zeros((cap,), dtype=torch.int32, device=device)
+    keep = min(cap, n_words)
+    plane[:keep] = words[:keep]
+    return cfg, state, lengths, plane, init

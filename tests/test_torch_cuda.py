@@ -1,5 +1,6 @@
-"""Kernel K1 on a CUDA card: it launches, equals its plain torch version
-exactly, and refuses what it does not take instead of falling back. Imports
+"""Kernels K1, K3 and K2 on a CUDA card: each launches, equals its plain
+torch version exactly, and refuses what it does not take instead of
+falling back. Imports
 no JAX and nothing of the reference package, so it runs on a machine with a
 card and neither of them:
 
@@ -164,3 +165,102 @@ def test_k3_refuses_instead_of_falling_back():
             big, model, lengths.repeat(512), words,
             init.repeat(512), 16)
     assert quality.K3_LAUNCHES == before
+
+
+# --- K2: the DNA decode scan, one launch a read row ---------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,r_pl,L,grow,short", [
+    (8, 2, 104, False, False), (8, 1, 20, False, False), (8, 2, 40, True, True),
+    (256, 2, 104, True, False), (256, 1, 40, False, True),
+    (2048, 2, 104, False, False), (2048, 1, 104, True, True)])
+def test_k2_equals_plain_row_scan(N, r_pl, L, grow, short):
+    """The four planes, final states, words consumed and carried registers
+    of every row, exactly, on encoded batches whose lengths include 0, 1
+    and L; grown s/b tables; word streams cut short (reads past the end
+    clamp, so K2 and the plain scan decode the same wrong bases)."""
+    from fqsqueezer_tpu_torch.tools.k2_compare import check_rows
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    _card()
+    batch = dna_decode_inputs(N + L, N, r_pl, L, "cuda", grow, short)
+    assert len(check_rows(*batch, L)) == r_pl
+
+
+@pytest.mark.cuda
+def test_k2_batch_launches_once_a_row_and_never_the_plain_scan(monkeypatch):
+    """dna_decode_batch on CUDA tensors: one K2 launch a read row, no plain
+    row scan, and the same codes, state and extras as the batch decoded
+    through the plain row scan on the same card."""
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    _card()
+    cfg, state, lengths, words, init = dna_decode_inputs(5, 256, 2, 104,
+                                                         "cuda")
+    plain = dna.dna_decode_row_plain
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain row scan ran on CUDA tensors")
+
+    monkeypatch.setattr(dna, "dna_decode_row_plain", refuse)
+    before = dna.K2_LAUNCHES
+    got = dna.dna_decode_batch(cfg, state, lengths, words, init, 104)
+    assert dna.K2_LAUNCHES == before + 2
+    monkeypatch.setattr(dna, "dna_decode_row", plain)
+    want = dna.dna_decode_batch(cfg, state, lengths, words, init, 104)
+    assert dna.K2_LAUNCHES == before + 2
+    codes, st, x, ptr, extras = got
+    wcodes, wst, wx, wptr, wextras = want
+    for g, w in zip((codes, x, ptr, *extras, st.siv, st.s_tc, st.b_tc,
+                     st.model),
+                    (wcodes, wx, wptr, *wextras, wst.siv, wst.s_tc, wst.b_tc,
+                     wst.model)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k2_refuses_instead_of_falling_back():
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.ops import tables
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    _card()
+    cfg, st, lengths, words, init = dna_decode_inputs(1, 8, 1, 24, "cuda")
+    ptr = torch.zeros((), dtype=torch.int64, device="cuda")
+    regs = torch.zeros((dna.K2_NREGS, 8), dtype=torch.int64, device="cuda")
+    good = (cfg, st, lengths, words, init, ptr, regs, 24)
+    before = dna.K2_LAUNCHES
+    dna.dna_decode_row(*good)
+    assert dna.K2_LAUNCHES == before + 1
+
+    def bad(k, v):
+        a = list(good)
+        a[k] = v
+        return a
+
+    rows = st.s_tc.shape[0]
+    unaligned = torch.empty(rows * 4 + 1, dtype=torch.int64,
+                            device="cuda")[1:].view(rows, 4)
+    for args in (bad(3, words.long()),                  # wrong dtype
+                 bad(2, lengths.int()),
+                 bad(4, init.cpu()),                    # wrong device
+                 bad(6, regs[:, :7]),                   # wrong shape
+                 bad(6, regs.t().contiguous().t()),     # not contiguous
+                 bad(5, ptr.reshape(1)),
+                 bad(7, 0),                             # no positions
+                 bad(3, words[:0]),                     # no words
+                 bad(1, st._replace(model=st.model[:-1])),
+                 bad(1, st._replace(siv=st.siv.int())),
+                 bad(1, st._replace(s_tc=unaligned)),   # 8-byte aligned rows
+                 bad(1, st._replace(b_tc=st.b_tc[:3])),  # not 2^k rows
+                 bad(0, dataclasses.replace(cfg, n_lanes=4096))):
+        with pytest.raises(ValueError):
+            dna.dna_decode_row(*args)
+    with pytest.raises(ValueError):          # another table backend
+        dna.dna_decode_row(*good, be=tables.LocalBackend())
+    with pytest.raises(NotImplementedError):  # a header K2 does not take
+        dna.dna_decode_row(*bad(0, dataclasses.replace(cfg, ctx_v=1)))
+    assert dna.K2_LAUNCHES == before + 1

@@ -11,8 +11,11 @@ test_torch_streams.py with SIV cap 12, so the prefix ramp and the rough
 rescue are on: 8 lanes, 16 reads (two read rows), ragged lengths with
 0, 1 and the full width among them. Tolerance 0: the codec is
 integer-only. Everything of the port runs on the CPU (the plain versions
-of its kernels).
+of its kernels). Then the header knobs the port refuses, and the DNA decode
+kernel's (K2's) step predicates against the static segmentation.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +34,7 @@ from fqsqueezer_tpu_torch import pipeline
 from fqsqueezer_tpu_torch.ops import rans
 from fqsqueezer_tpu_torch.state import state_from_numpy, state_to_numpy
 from fqsqueezer_tpu_torch.streams import dna, meta, quality
+from fqsqueezer_tpu_torch.utils.dna_batches import bench_dna_config
 
 SB = 14
 L = 44            # read width; the batch's columns are L8 = 48
@@ -310,3 +314,48 @@ def test_decode_scans_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         meta.meta_decode_batch(meta.MetaConfig(with_lcp=True), None, 8,
                                None, rans.rans_initial_states(8))
+
+
+@pytest.mark.parametrize("knob,value,named", [
+    ("ctx_v", 1, "dna_ctx_v=1"), ("rough", 0, "dna_rough=0"),
+    ("let_pb2", 0, "dna_let_pb2=0"), ("mix_w", 0, "dna_mix_w=0"),
+    ("prefix_ramp", False, "dna_prefix_ramp=0"),
+    ("pmer_gate", 20, "dna_pmer_gate=20"),
+    ("repair_iters", 3, "dna_repair_iters=3")])
+def test_check_supported_refuses_untested_header_knobs(knob, value, named):
+    """Each header knob whose branch no test holds against the reference is
+    refused with one line naming it; the bench header itself passes."""
+    cfg = bench_dna_config()
+    dna.check_supported(cfg)
+    with pytest.raises(NotImplementedError) as e:
+        dna.check_supported(dataclasses.replace(cfg, **{knob: value}))
+    msg = str(e.value)
+    assert msg.startswith("not ported to fqsqueezer_tpu_torch: ")
+    assert "\n" not in msg and named in msg and msg.count("dna_") == 1
+
+
+@pytest.mark.parametrize("prefix_len,siv_len,smer_len", [
+    (10, 14, 18),     # the bench header: ramp 10..12 before the s window
+    (9, 12, 11),      # the s window inside the ramp
+    (12, 16, 13),     # the s window at the ramp's first column
+    (0, 5, 3),        # a ramp from position 0
+    (14, 13, 22)])    # no ramp column
+def test_k2_step_predicates_equal_the_static_segmentation(prefix_len,
+                                                          siv_len, smer_len):
+    """Kernel K2 decides each position's ramp column and rough rescue from
+    predicates on i; they equal the reference's static segmentation
+    (_decode_segments) at every read width up to 40."""
+    cfg = dataclasses.replace(bench_dna_config(), prefix_len=prefix_len,
+                              siv_len=siv_len, smer_len=smer_len)
+
+    # the predicates of csrc/dna_decode.cu's step: the ramp at
+    # `i >= prefix_len && i < siv_len - 1`, the rough rescue at `i >= s_w`
+    # (s_w = smer_len - 1); the header's ramp and rough are on
+    def kind(i):
+        ramp = prefix_len <= i < siv_len - 1
+        return i, (i if ramp else None), i >= smer_len - 1
+
+    assert cfg.prefix_ramp and cfg.rough
+    for width in range(41):
+        assert ([kind(i) for i in range(width)]
+                == dna._decode_segments(cfg, width))
