@@ -34,16 +34,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
                and the main path's second batch (4096 reads, 2 read rows,
                104 columns) of the 20k archive, with the quality model the
                first batch left. Then K3 and the plain scan timed on that
-               batch, and its bound.
-  7. k2      — kernel K2 (the DNA decode scan, one launch a read row)
-               against its plain torch row scan on the card, exact (the
-               four planes, final states, words consumed, carried
-               registers), row by row: encoded random batches (K2_SHAPES:
-               N in {8, 256, 2048}, lengths 0, 1 and L among them, grown
-               tables, short word streams) and the main path's second
-               batch of the 20k archive with the DNA state the first batch
-               left. Then on that batch K2's launches timed, the plain
-               row scan, the chain floor (K2 on 32 lanes) and the bound.
+               batch, the chain floor (K3 on 32 lanes) and its bound.
+  7. k2      — kernel K2 (one read row of the DNA decode — the scan and
+               the row's s/b table update — one launch) against its plain
+               torch version (the row scan, then _apply_sb_updates) on the
+               card, exact (the four planes, final states, words consumed,
+               carried registers, both updated tables), row by row:
+               encoded random batches (K2_SHAPES: N in {8, 256, 2048},
+               lengths 0, 1 and L among them, grown tables, short word
+               streams), an adversarial batch (K2_ADVERSARIAL: most
+               buckets full, counts at 255, keys in two cells, new keys
+               racing for one empty cell) and the main path's second batch
+               of the 20k archive with the DNA state the first batch left.
+               Then on that batch K2's launches timed (the tables restored
+               to the row-start ones before each repetition, outside the
+               timed region), the plain row step, the chain floor (K2 on
+               32 lanes) and the bound.
   8. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
@@ -101,6 +107,8 @@ K3_OPS_PER_POS = 120   # an active lane-step: the row's loads and 8 adds,
 K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
              (256, 2, 104, True, False), (256, 1, 40, True, True),
              (2048, 2, 104, False, False), (2048, 2, 104, True, True))
+# (N, r_pl, L) of the K2 check on adversarial tables
+K2_ADVERSARIAL = (256, 2, 104)
 
 
 def bench_params():
@@ -425,7 +433,9 @@ def phase_k3():
     import torch
 
     from fqsqueezer_tpu_torch.streams import quality
-    from fqsqueezer_tpu_torch.tools.k3_compare import real_quality_batch
+    from fqsqueezer_tpu_torch.tools.k3_compare import (CHAIN_LANES,
+                                                       chain_batch,
+                                                       real_quality_batch)
     from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
 
     for N, r_pl, L in K3_SHAPES:
@@ -440,6 +450,8 @@ def phase_k3():
                              "the main path's batch")
     args = (cfg, model, lengths, words, init, L)
     ms = _ms(lambda: quality.qual_decode_scan(*args), 20)
+    chain = chain_batch(args)
+    floor_ms = _ms(lambda: quality.qual_decode_scan(*chain), 20)
     plain_ms = _ms(lambda: quality.qual_decode_scan_plain(*args), 2)
     bound_ms, bound_by = _k3_bound_ms(cfg, model, lengths, syms, int(ptr),
                                       L)
@@ -447,15 +459,18 @@ def phase_k3():
     print(f"[k3] exact on {len(K3_SHAPES)} random shapes and the main "
           f"path's batch (N={cfg.n_lanes}, r_pl={R // cfg.n_lanes}, L={L}, "
           f"{int(ptr)} words): K3 {ms:.4f} ms "
-          f"({ms / (R // cfg.n_lanes * L) * 1e3:.2f} us a step), plain "
-          f"torch {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+          f"({ms / (R // cfg.n_lanes * L) * 1e3:.2f} us a step), chain "
+          f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "chain_floor_ms": floor_ms}
 
 
 def phase_k2():
-    """K2 == its plain row scan, exact, on every shape and on the main
-    path's real batch; returns the numbers of the kernels line."""
+    """K2 == its plain row step (the scan and the row's table update),
+    exact, on every shape, on adversarial tables and on the main path's
+    real batch; returns the numbers of the kernels line."""
     from fqsqueezer_tpu_torch.streams import dna
     from fqsqueezer_tpu_torch.tools import k2_compare as k2c
     from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
@@ -464,21 +479,25 @@ def phase_k2():
         batch = dna_decode_inputs(seed, N, r_pl, L, "cuda", grow, short)
         k2c.check_rows(*batch, L, what=f"N={N} r_pl={r_pl} L={L} "
                                        f"grown={grow} short={short}")
+    N, r_pl, L = K2_ADVERSARIAL
+    k2c.check_rows(*dna_decode_inputs(11, N, r_pl, L, "cuda",
+                                      adversarial=True), L,
+                   what="the adversarial tables")
     _, arc = _corpus(DIGEST_READS)
     batch = k2c.real_dna_batch(arc)
     rows = k2c.check_rows(*batch, what="the main path's batch")
-    ms = _ms(lambda: [dna.dna_decode_row(*a) for a, _ in rows], 20)
-    chain = k2c.chain_rows(rows)
-    floor_ms = _ms(lambda: [dna.dna_decode_row(*a) for a in chain], 20)
-    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a) for a, _ in rows],
-                   2)
+    args = [a for a, _ in rows]
+    ms = k2c.replay_ms(args, reps=20)
+    floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
+    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a) for a in args], 2)
     bound_ms, bound_by = k2c.k2_bound_ms(rows)
     cfg, L = batch[0], batch[-1]
     steps = len(rows) * L
-    print(f"[k2] exact on {len(K2_SHAPES)} random batches and the main "
-          f"path's batch (N={cfg.n_lanes}, {len(rows)} rows, L={L}): K2 "
-          f"{ms:.4f} ms a batch ({ms / steps * 1e3:.2f} us a step), chain "
-          f"floor ({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
+    print(f"[k2] exact on {len(K2_SHAPES)} random batches, the adversarial "
+          f"tables and the main path's batch (N={cfg.n_lanes}, "
+          f"{len(rows)} rows, L={L}), tables included: K2 {ms:.4f} ms a "
+          f"batch ({ms / steps * 1e3:.2f} us a step), chain floor "
+          f"({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
           f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,

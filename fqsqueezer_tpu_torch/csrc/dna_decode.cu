@@ -28,51 +28,85 @@
 //            once a row; then the rolls of pkey, the s/b windows, their
 //            reverse complements, the letters and rank histories
 //   out      base, eff (kc), ctx and sym of position i, int64 [N, L]
+//   events   at i >= k - 1 (k = smer_len, then bmer_len) and i < length:
+//            the row's canonical s-mer and b-mer insert event, whose key is
+//            the find's own query with the decoded kc as its candidate;
+//            its tables.k2_update decision (cell index, new word) is taken
+//            from the cells the find loaded
+// and after the row's last position, the row's s/b table update (the end
+// of the reference's `outer` step, _apply_sb_updates): every decision was
+// taken against the row-start tables, one cluster barrier follows the
+// scan, and then every lane max-es its decisions into the tables with
+// 64-bit atomics, in place. That is k2_update's one gather and one
+// scatter-max: duplicate events of one key raise its count once, new keys
+// that pick one empty slot leave the larger word, a new key whose
+// row-start bucket is full is dropped, counts saturate at 255.
 // x, ptr, pkey and the six window registers carry in and out (across rows,
 // as the reference's outer carry); lh, rh, rep_cnt, prevc and srun start
-// afresh each row.
+// afresh each row. At i >= k - 1 the masked window registers hold only
+// this row's bases, so the events equal dna.sb_canon_events of the row's
+// kc plane (a CPU test restates the enumeration).
 //
 // What bounds it on an H100: neither bytes nor operations over the card
 // (a row reads a few MB of table rows and writes 7 MB of planes: some
 // microseconds at 3.35 TB/s). The time is the chain: L dependent steps,
-// each a handful of dependent loads (finds, then the rough probes, then two
-// model rows, then the word), a few hundred to a few thousand integer
+// each a handful of dependent loads (the finds and the rough probes, then
+// two model rows, then the word), a few hundred to a few thousand integer
 // instructions a lane, and one barrier across every lane. The design:
-//  * One lane a thread, 256 threads a block, the lanes spread over a
-//    thread-block cluster of ceil(N/256) <= 8 blocks on as many SMs. A
-//    thread has up to 255 registers for a lane's state and temporaries,
-//    and eight SMs issue the lanes' work instead of one (K3 keeps all 2048
-//    lanes on one SM and spends microseconds a step in issue alone).
-//  * The scan: each warp's ballot count is stored into every block of the
-//    cluster (distributed shared memory), double-buffered by step parity,
-//    then ONE cluster barrier a step; each warp scans the at most 64 warp
-//    totals from its own shared memory with shuffles.
+//  * One lane a thread, 128 threads a block, the lanes spread
+//    over a thread-block cluster of ceil(N/128) <= 16 blocks on as many SMs
+//    (a non-portable cluster size, which the H100 takes). A thread has up
+//    to 255 registers for a lane's state and temporaries, and sixteen SMs
+//    issue the lanes' work (with 256 lanes a block on eight SMs, issue cost
+//    more than the chain: PERF.md).
+//  * The scan (cluster_scan.cuh, shared with K3): each warp's ballot count
+//    is stored into every block of the cluster, double-buffered by step
+//    parity, then ONE cluster barrier a step; each warp scans the at most
+//    64 warp totals from its own shared memory with shuffles.
 //  * Tables are read in place: a K2 row as two 16-byte loads, the SIV word
 //    and the model's 20-byte rows as 4-byte loads. Masked lanes read no
 //    table row, but still read the letters context's model rows: the plain
 //    version writes the looked-up symbol of every lane.
+//  * The rough probes' three s rows are loaded beside the finds' rows,
+//    before the finds tell whether the step misses, whenever a miss would
+//    probe (the lane's miss run is shorter than s_w): their latencies
+//    overlap, and a step took 17% less time than with the probes loaded
+//    after the finds (PERF.md).
+//  * The row's table update costs no gather of its own: the s and b cells
+//    the step's finds loaded stay in registers until kc is known. The
+//    decisions wait in a global scratch plane [2, L, N] (coalesced u64
+//    stores, L2-resident: 3.4 MB at N = 2048, L = 104), since a row's 171
+//    events a lane would not fit a block's shared memory; a lane loads
+//    eight of them at once, then issues their atomics
+//    (fire-and-forget reductions).
 // Preconditions (the wrapper checks the shapes; the values are what the
 // codec stores): K2 cells, SIV words, states and window registers are u32
 // values (the registers masked to their windows); model rows are
 // model_update's, smoothed totals at most 2^13, so with w*b < 2^31 and
-// w <= 2^18 every product and boundary of the cdf fits 32 bits.
+// w <= 2^18 every product and boundary of the cdf fits 32 bits; the s and
+// b tables do not overlap (they are updated in place).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
+
+#include "cluster_scan.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLanes = 2048;      // K2_MAX_LANES in streams/dna.py
-constexpr int kThreads = 256;        // lanes a block
-constexpr int kMaxBlocks = kMaxLanes / kThreads;   // 8: a portable cluster
+constexpr int kThreads = 128;        // lanes a block
+// events a lane loads at once in the row's table update, before it issues
+// their atomics
+constexpr int kEventBatch = 8;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxWarps = kMaxBlocks * kWarps;     // 64
+static_assert(kThreads % 32 == 0 && kMaxLanes / kThreads <= 16 &&
+                  kMaxLanes / 32 <= fqtz::kScanMaxWarps,
+              "a cluster of at most 16 blocks holds every lane");
 constexpr int kA = 5;                // symbols a model row: 4 ranks + N
 constexpr uint32_t kRansL = 1u << 16;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr uint32_t kC1 = 0x9E3779B1u, kC2 = 0x85EBCA77u, kC3 = 0xC2B2AE3Du,
                    kC4 = 0x27D4EB2Fu, kC5 = 0x165667B1u;
 constexpr int kNone = 0, kPmer = 1, kSmer = 2, kMixed = 3, kBmer = 4,
@@ -86,8 +120,8 @@ constexpr uint32_t kCoarseCode = 1u << 10;   // N_COARSE_CODE_ROUGH
 // The launch's arguments, in the order of K2_ARGS in streams/dna.py.
 struct Args {
   const int64_t* siv;       // [4^(siv_len-1)] u32 words
-  const int64_t* s_tc;      // [2^s_log2_rows, 4] u32 cells
-  const int64_t* b_tc;      // [2^b_log2_rows, 4]
+  int64_t* s_tc;            // [2^s_log2_rows, 4] u32 cells, updated in place
+  int64_t* b_tc;            // [2^b_log2_rows, 4]
   const int32_t* model;     // [n_model_ctx + n_coarse_ctx, 5]
   const int64_t* lengths;   // [N]
   const int32_t* words;     // [n_words] u16 values
@@ -103,6 +137,7 @@ struct Args {
   int64_t* regs_out;        // [9, N]
   int64_t n_words, N, L, siv_len, smer_len, bmer_len, prefix_len, sb;
   int64_t s_log2_rows, s_log2_base, b_log2_rows, b_log2_base, mix_w, mix_b;
+  uint64_t* events;         // [2, L, N] scratch: the s, then b decisions
 };
 constexpr int kNArgs = sizeof(Args) / sizeof(int64_t);
 static_assert(sizeof(void*) == sizeof(int64_t), "64-bit pointers");
@@ -163,18 +198,23 @@ __device__ __forceinline__ Query canon_query(uint64_t c, uint64_t r, int k,
   return q;
 }
 
-// tables.k2_find: the 4 candidates' summed counts over the row's matching
-// cells; returns whether any cell matched.
-__device__ __forceinline__ bool k2_find(const int64_t* __restrict__ tc,
-                                        const Query& q, uint32_t cnt[4]) {
+// One bucket row of a K2 table: two 16-byte loads, the four u32 cells.
+__device__ __forceinline__ void load_cells(const int64_t* tc, uint32_t row,
+                                           uint32_t cell[4]) {
   const longlong2* p = reinterpret_cast<const longlong2*>(tc) +
-                       2 * static_cast<size_t>(q.row);
+                       2 * static_cast<size_t>(row);
   const longlong2 a = __ldg(p);
   const longlong2 b = __ldg(p + 1);
-  const uint32_t cell[4] = {static_cast<uint32_t>(a.x),
-                            static_cast<uint32_t>(a.y),
-                            static_cast<uint32_t>(b.x),
-                            static_cast<uint32_t>(b.y)};
+  cell[0] = static_cast<uint32_t>(a.x);
+  cell[1] = static_cast<uint32_t>(a.y);
+  cell[2] = static_cast<uint32_t>(b.x);
+  cell[3] = static_cast<uint32_t>(b.y);
+}
+
+// tables.k2_find on a loaded row: the 4 candidates' summed counts over the
+// row's matching cells; returns whether any cell matched.
+__device__ __forceinline__ bool k2_count(const uint32_t cell[4],
+                                         const Query& q, uint32_t cnt[4]) {
   bool found = false;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
@@ -188,6 +228,62 @@ __device__ __forceinline__ bool k2_find(const int64_t* __restrict__ tc,
     }
   }
   return found;
+}
+
+// The query of rough probe k (0..2): the s window Sm (its reverse
+// complement RS) with the base at offset `age` replaced by the k-th of the
+// three others.
+__device__ __forceinline__ Query rough_query(uint64_t Sm, uint64_t RS,
+                                             int age, uint32_t k, int s_w,
+                                             int smer, int lb, int lr) {
+  const int a2 = 2 * age;
+  const int d2 = 2 * (s_w - 1 - age);
+  const uint32_t orig = static_cast<uint32_t>(Sm >> a2) & 3u;
+  const uint32_t ju = k + (orig <= k ? 1u : 0u);
+  const uint64_t Sj = (Sm & ~(3ull << a2)) | static_cast<uint64_t>(ju) << a2;
+  const uint64_t Rj = (RS & ~(3ull << d2)) |
+                      static_cast<uint64_t>(3u - ju) << d2;
+  return canon_query(Sj, Rj, smer, lb, lr);
+}
+
+// The tag word of candidate b (a register select, not an indexed array).
+__device__ __forceinline__ uint32_t tag_word(const Query& q, uint32_t b) {
+  uint32_t tw = q.tw[0];
+#pragma unroll
+  for (uint32_t c = 1; c < 4; ++c) tw = b == c ? q.tw[c] : tw;
+  return tw;
+}
+
+// tables.k2_update's decision for one insert event (tag word tw) against
+// its bucket row's row-start cells: (cell index << 32 | new cell), or 0
+// when the key is new and the row has no empty cell (the event is
+// dropped). A found key writes the sum of its matching cells + 1 (the
+// first match's index; the count saturates at 255); a new key writes
+// tw | 1 into the first empty cell after rotating the empty mask by
+// j = ((tag >> 13) ^ tag) & 3 — tag bits 13-14 sit at tw bits 25-26, its
+// slot bits 0-1 at tw bits 8-9.
+__device__ __forceinline__ uint64_t k2_decide(const uint32_t cell[4],
+                                              uint32_t row, uint32_t tw) {
+  uint32_t sum = 0, bm = 0, d = 4;
+#pragma unroll
+  for (int c = 3; c >= 0; --c) {
+    if ((cell[c] & 0xFFFFFF00u) == tw) {
+      sum += cell[c];
+      d = c;
+    }
+    bm |= (cell[c] == 0u ? 1u : 0u) << c;
+  }
+  uint32_t v;
+  if (d < 4) {
+    v = sum + ((sum & 0xFFu) < 0xFFu ? 1u : 0u);
+  } else {
+    if (bm == 0) return 0;
+    const uint32_t j = ((tw >> 25) ^ (tw >> 8)) & 3u;
+    const uint32_t rot = ((bm >> j) | (bm << (4u - j))) & 0xFu;
+    d = (j + static_cast<uint32_t>(__ffs(rot)) - 1u) & 3u;
+    v = tw | 1u;
+  }
+  return static_cast<uint64_t>(row * 4u + d) << 32 | v;
 }
 
 __device__ __forceinline__ void unpack4(uint32_t w, uint32_t c[4]) {
@@ -242,17 +338,33 @@ __device__ __forceinline__ void load_row(const int32_t* __restrict__ model,
   for (int k = 0; k < kA; ++k) v[k] = static_cast<uint32_t>(__ldg(row + k));
 }
 
+// One lane's row update into one table: its decisions of positions
+// [from, end) (stride N), kEventBatch loads in flight before their
+// atomics (a decision of 0 is a dropped event).
+__device__ __forceinline__ void apply_events(const uint64_t* ev,
+                                             unsigned long long* cells,
+                                             int from, int end, int N) {
+  for (int i0 = from; i0 < end; i0 += kEventBatch) {
+    uint64_t e[kEventBatch];
+#pragma unroll
+    for (int u = 0; u < kEventBatch; ++u)
+      e[u] = i0 + u < end ? ev[static_cast<size_t>(i0 + u) * N] : 0ull;
+#pragma unroll
+    for (int u = 0; u < kEventBatch; ++u)
+      if (static_cast<uint32_t>(e[u]) != 0u)
+        atomicMax(cells + (e[u] >> 32), e[u] & 0xFFFFFFFFull);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
     dna_decode_row_kernel(const Args a) {
-  __shared__ int warp_tot[2][kMaxWarps];
+  __shared__ fqtz::ScanSmem scan_sm;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int n_blocks = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x;
-  const int wl = tid & 31;
   const int gw = rank * kWarps + (tid >> 5);     // warp index in the cluster
   const int n_gw = n_blocks * kWarps;
-  const unsigned lt = (1u << wl) - 1u;
   const int N = static_cast<int>(a.N);
   const int L = static_cast<int>(a.L);
   const int lane = rank * kThreads + tid;
@@ -301,33 +413,55 @@ __global__ void __launch_bounds__(kThreads)
   int64_t* out_kc = a.kc + static_cast<size_t>(lane) * L;
   int64_t* out_ctx = a.ctx + static_cast<size_t>(lane) * L;
   int64_t* out_sym = a.sym + static_cast<size_t>(lane) * L;
+  uint64_t* ev_s = a.events + lane;                     // [L, N] each
+  uint64_t* ev_b = a.events + static_cast<size_t>(L) * N + lane;
 
   cluster.sync();   // every block has started before any remote store
   for (int i = 0; i < L; ++i) {
     const bool active = live && i < length;
+    const bool vs = active && i >= s_w;
+    const bool vb = active && i >= b_w;
     // what the step's second half reads of the first
     uint32_t counts_g[4], counts[4], sym = 0, ctx_all = 0;
+    uint32_t scell[4] = {0, 0, 0, 0}, bcell[4] = {0, 0, 0, 0};
+    Query qs = {}, qb = {};
     int level_g = kNone, level = kNone;
     bool use_code = false, take = false;
     if (live) {   // lanes past N only take part in the scan
       const bool vp = active && i >= siv_len - 1;
-      const bool vs = active && i >= s_w;
-      const bool vb = active && i >= b_w;
       const uint64_t Sm = S & s_mask;
       const uint64_t Bm = B & b_mask;
 
-      // --- finds ---
+      // --- finds (their cells also decide the row's insert events) ---
       uint32_t cp[4] = {0, 0, 0, 0}, cs[4] = {0, 0, 0, 0},
                cb[4] = {0, 0, 0, 0};
       bool fp = false, fs = false, fb = false;
-      if (vp) {
-        unpack4(static_cast<uint32_t>(__ldg(a.siv + (pkey & pm_mask))), cp);
-        fp = (cp[0] + cp[1] + cp[2] + cp[3]) > 0;
-      }
+      // every load of the step's finds is issued before the first is used
+      const uint32_t pword =
+          vp ? static_cast<uint32_t>(__ldg(a.siv + (pkey & pm_mask))) : 0u;
       if (vs || vb) {   // a b hit of two or more candidates adds the s counts
-        fs = k2_find(a.s_tc, canon_query(Sm, RS, smer, s_lb, s_lr), cs) && vs;
+        qs = canon_query(Sm, RS, smer, s_lb, s_lr);
+        load_cells(a.s_tc, qs.row, scell);
       }
-      if (vb) fb = k2_find(a.b_tc, canon_query(Bm, RB, bmer, b_lb, b_lr), cb);
+      if (vb) {
+        qb = canon_query(Bm, RB, bmer, b_lb, b_lr);
+        load_cells(a.b_tc, qb.row, bcell);
+      }
+      // the rough probes' rows, on the guess that the step misses: a miss
+      // probes at age srun (the run before it), if that is below s_w
+      uint32_t pcell[3][4];
+      Query pq[3];
+      if (vs && srun <= s_w - 1) {
+#pragma unroll
+        for (uint32_t k = 0; k < 3; ++k) {
+          pq[k] = rough_query(Sm, RS, srun, k, s_w, smer, s_lb, s_lr);
+          load_cells(a.s_tc, pq[k].row, pcell[k]);
+        }
+      }
+      unpack4(pword, cp);
+      fp = (cp[0] + cp[1] + cp[2] + cp[3]) > 0;
+      if (vs || vb) fs = k2_count(scell, qs, cs) && vs;
+      if (vb) fb = k2_count(bcell, qb, cb);
 
       // --- prefix ramp ---
       if (active && i >= prefix_len && i < siv_len - 1) {
@@ -374,19 +508,11 @@ __global__ void __launch_bounds__(kThreads)
         srun = miss ? srun + 1 : 0;
         const int age = srun - 1;
         if (miss && age <= s_w - 1) {
-          const int a2 = 2 * age;
-          const int d2 = 2 * (s_w - 1 - age);
-          const uint32_t orig = static_cast<uint32_t>(Sm >> a2) & 3u;
           uint32_t acc[4] = {0, 0, 0, 0};
 #pragma unroll
           for (uint32_t k = 0; k < 3; ++k) {
-            const uint32_t ju = k + (orig <= k ? 1u : 0u);
-            const uint64_t Sj = (Sm & ~(3ull << a2)) |
-                                static_cast<uint64_t>(ju) << a2;
-            const uint64_t Rj = (RS & ~(3ull << d2)) |
-                                static_cast<uint64_t>(3u - ju) << d2;
             uint32_t c4[4];
-            k2_find(a.s_tc, canon_query(Sj, Rj, smer, s_lb, s_lr), c4);
+            k2_count(pcell[k], pq[k], c4);
 #pragma unroll
             for (int c = 0; c < 4; ++c) acc[c] += c4[c];
           }
@@ -473,37 +599,17 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // --- the exclusive scan of the renormalizing lanes, in lane order ---
-    const unsigned bal = __ballot_sync(kFull, take);
-    const int mine = __popc(bal);
-    if (wl < n_blocks)
-      *cluster.map_shared_rank(&warp_tot[parity][gw], wl) = mine;
-    cluster.sync();
-    int inc0 = wl < n_gw ? warp_tot[parity][wl] : 0;
-    int inc1 = wl + 32 < n_gw ? warp_tot[parity][wl + 32] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u0 = __shfl_up_sync(kFull, inc0, d);
-      const int u1 = __shfl_up_sync(kFull, inc1, d);
-      if (wl >= d) {
-        inc0 += u0;
-        inc1 += u1;
-      }
-    }
-    const int tot0 = __shfl_sync(kFull, inc0, 31);
-    const int at0 = __shfl_sync(kFull, inc0, gw & 31);
-    const int at1 = __shfl_sync(kFull, inc1, gw & 31);
-    const int total_take = tot0 + __shfl_sync(kFull, inc1, 31);
-    const int before = (gw < 32 ? at0 : tot0 + at1) - mine;
-    parity ^= 1;
+    const fqtz::TakeScan sc = fqtz::cluster_take_scan(
+        cluster, scan_sm, parity, take, gw, n_gw, n_blocks);
     if (take) {
-      const int64_t off = ptr + before + __popc(bal & lt);
+      const int64_t off = ptr + sc.rank;
       const int64_t idx = off < a.n_words - 1 ? off : a.n_words - 1;
       x = x << 16 | static_cast<uint32_t>(__ldg(a.words + idx));
     }
-    ptr += total_take;
+    ptr += sc.total;
     if (!live) continue;
 
-    // --- un-rank, repair, rolls ---
+    // --- un-rank, repair, the row's insert events, rolls ---
     uint32_t base;
     if (use_code) {
       if (sym >= 4) {
@@ -539,6 +645,14 @@ __global__ void __launch_bounds__(kThreads)
         kc = best;
       }
     }
+    // the event's key is the find's query (the window before i) with kc
+    // as its last base: decided now, applied after the row
+    if (vs)
+      ev_s[static_cast<size_t>(i) * N] =
+          k2_decide(scell, qs.row, tag_word(qs, kc));
+    if (vb)
+      ev_b[static_cast<size_t>(i) * N] =
+          k2_decide(bcell, qb.row, tag_word(qb, kc));
     pkey = (pkey << 2 | kc) & pm_mask;
     S = (S << 2 | kc) & s_mask;
     B = (B << 2 | kc) & b_mask;
@@ -569,7 +683,22 @@ __global__ void __launch_bounds__(kThreads)
     rg[8 * N] = static_cast<int64_t>(RB >> 32);
   }
   if (lane == 0) a.ptr_out[0] = ptr;
-  cluster.sync();   // no block leaves while another may store into it
+
+  // --- the row's s/b table update ---
+  // Every lane's finds of this row read the row-start tables; the barrier
+  // (release/acquire at cluster scope, and the cluster is the whole grid)
+  // puts every one of them before the first write. It also keeps every
+  // block resident until no block stores into its shared memory.
+  cluster.sync();
+  if (live) {
+    const int end = length < L ? static_cast<int>(length) : L;
+    unsigned long long* s_cells =
+        reinterpret_cast<unsigned long long*>(a.s_tc);
+    unsigned long long* b_cells =
+        reinterpret_cast<unsigned long long*>(a.b_tc);
+    apply_events(ev_s, s_cells, s_w, end, N);
+    apply_events(ev_b, b_cells, b_w, end, N);
+  }
 }
 
 }  // namespace
@@ -582,6 +711,8 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
   if (n_args != kNArgs) return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   memcpy(&a, args, sizeof(Args));
+  const auto s_at = reinterpret_cast<uintptr_t>(a.s_tc);
+  const auto b_at = reinterpret_cast<uintptr_t>(a.b_tc);
   if (a.N < 1 || a.N > kMaxLanes || a.L < 1 || a.n_words < 1 || a.sb < 1 ||
       a.sb > 16 || a.siv_len < 3 || a.siv_len > 17 || a.smer_len < 3 ||
       a.smer_len > 33 || a.bmer_len < 3 || a.bmer_len > 33 ||
@@ -591,23 +722,14 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
       a.b_log2_rows > a.b_log2_base + 4 || a.s_log2_rows > 30 ||
       a.b_log2_rows > 30 || a.mix_w < 1 || a.mix_w > (1 << 18) ||
       a.mix_b < 1 || a.mix_w * a.mix_b >= (1ll << 31) ||
-      (reinterpret_cast<uintptr_t>(a.s_tc) & 15u) != 0 ||
-      (reinterpret_cast<uintptr_t>(a.b_tc) & 15u) != 0)
+      a.N * a.L >= (1ll << 31) || (s_at & 15u) != 0 || (b_at & 15u) != 0 ||
+      a.events == nullptr ||
+      (reinterpret_cast<uintptr_t>(a.events) & 7u) != 0 ||
+      (s_at < b_at + (32ull << a.b_log2_rows) &&
+       b_at < s_at + (32ull << a.s_log2_rows)))   // the tables overlap
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = static_cast<int>((a.N + kThreads - 1) / kThreads);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_blocks, 1, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = n_blocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, dna_decode_row_kernel, a);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(fqtz::launch_one_cluster(
+      dna_decode_row_kernel, n_blocks, kThreads,
+      static_cast<cudaStream_t>(stream), a));
 }

@@ -16,18 +16,18 @@
 // What bounds it on an H100: neither bytes nor operations over the card.
 // The bytes it must move (the model rows it reads, the words it consumes,
 // u8 symbols out) take microseconds at 3.35 TB/s; the time is the chain of
-// dependent steps, R / N * L of them a batch, each done by ONE SM for all
-// lanes: two dependent loads (the model row depends on the previous
-// symbol, the word on the block-wide scan's pointer), one block barrier,
-// and every lane's cdf arithmetic issued by that SM's four schedulers. The
-// design keeps each step short:
-//  * One block owns every lane (N <= 2048; two lanes a thread, up to 1024
-//    threads), since every step couples every lane through the scan.
-//  * The scan is two warp ballots (one for each of a thread's two lanes,
-//    so lane order is thread order), a popc for the in-warp prefix, and
-//    one pass over the warp totals in shared memory: one warp-shuffle scan
-//    of at most 32 values. The totals are double-buffered by step parity,
-//    so one __syncthreads a step suffices.
+// dependent steps, R / N * L of them a batch: two dependent loads (the
+// model row depends on the previous symbol, the word on the scan's
+// pointer), one barrier across every lane, and every lane's cdf
+// arithmetic. The design keeps each step short:
+//  * One lane a thread, 256 threads a block, the lanes spread
+//    over ONE thread-block cluster of ceil(N/256) <= 8 blocks on as many
+//    SMs, so that eight SMs' schedulers issue the lanes' work (with all
+//    2048 lanes in one block, one SM issued them: 4.5 us a step; sixteen
+//    blocks of 128 took 1.6% longer than eight of 256: PERF.md).
+//  * The scan (cluster_scan.cuh, shared with K2): each warp's ballot
+//    total is stored into every block's shared memory, double-buffered by
+//    step parity, then ONE cluster barrier a step.
 //  * A model row (8 int32 cells, Illumina-8's symbols) is two 16-byte
 //    loads: the load unit pays per row a warp touches, and eight 4-byte
 //    loads took about a third more time a batch than two 16-byte ones.
@@ -42,17 +42,23 @@
 // at most 2^13).
 // Later work: the model is frozen for the batch, so a wide kernel could
 // build every row's cdf once and the scan would read 8 u16 boundaries
-// with no divide; or a cluster of blocks could share the lanes and the
-// scan through distributed shared memory, so that one SM no longer issues
-// every lane's work.
+// with no divide.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "cluster_scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxLanes = 2048;      // K3_MAX_LANES in streams/quality.py
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kThreads = 256;        // lanes a block
+constexpr int kWarps = kThreads / 32;
+static_assert(kThreads % 32 == 0 && kMaxLanes / kThreads <= 16 &&
+                  kMaxLanes / 32 <= fqtz::kScanMaxWarps,
+              "a cluster of at most 16 blocks holds every lane");
 constexpr int kSym = 8;              // K3_SYM in streams/quality.py
 constexpr uint32_t kRansL = 1u << 16;
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -100,7 +106,7 @@ __device__ __forceinline__ uint32_t lane_step(
   return active ? sym : 0u;
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kThreads)
     qual_decode_kernel(const int32_t* __restrict__ model, int hist_bits,
                        int n_hist,
                        const int32_t* __restrict__ lengths, int r_pl, int L,
@@ -108,90 +114,58 @@ __global__ void __launch_bounds__(kMaxThreads)
                        const int64_t* __restrict__ init, int N, int sb,
                        uint8_t* __restrict__ syms, int64_t* __restrict__ fin,
                        int64_t* __restrict__ ptr_out) {
-  __shared__ int warp_tot[2][kMaxWarps];
+  __shared__ fqtz::ScanSmem scan_sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int n_blocks = static_cast<int>(cluster.num_blocks());
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wl = tid & 31;
-  const int n_warps = blockDim.x >> 5;
-  const unsigned lt = (1u << wl) - 1u;
+  const int gw = rank * kWarps + (tid >> 5);     // warp index in the cluster
+  const int n_gw = n_blocks * kWarps;
   const int pos_shift = hist_bits * n_hist;
   const uint32_t hist_mask = (1u << pos_shift) - 1u;
+  const int lane = rank * kThreads + tid;
+  const bool live = lane < N;
 
-  int lane[2];
-  bool live[2];
-  uint32_t x[2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    lane[j] = 2 * tid + j;
-    live[j] = lane[j] < N;
-    x[j] = live[j] ? static_cast<uint32_t>(init[lane[j]]) : kRansL;
-  }
+  uint32_t x = live ? static_cast<uint32_t>(init[lane]) : kRansL;
   int ptr = 0;
   int parity = 0;
+  cluster.sync();   // every block has started before any remote store
   for (int rd = 0; rd < r_pl; ++rd) {
-    int len[2];
-    uint32_t hist[2];
-    uint8_t* out[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const size_t read = static_cast<size_t>(lane[j]) * r_pl + rd;
-      len[j] = live[j] ? lengths[read] : 0;
-      hist[j] = hist_mask;
-      out[j] = syms + read * L;
-    }
+    const size_t read = static_cast<size_t>(lane) * r_pl + rd;
+    const int len = live ? lengths[read] : 0;
+    uint32_t hist = hist_mask;
+    uint8_t* out = syms + read * L;
     for (int i = 0; i < L; ++i) {
-      const uint32_t pb = pos_bucket(i) << pos_shift;
-      bool take[2];
-      uint32_t sym[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sym[j] = lane_step(model, hist[j] | pb, i < len[j], x[j], sb);
-        take[j] = live[j] && x[j] < kRansL;
-      }
+      const uint32_t sym = lane_step(model, hist | pos_bucket(i) << pos_shift,
+                                     i < len, x, sb);
+      const bool take = live && x < kRansL;
       // exclusive scan of the renormalizing lanes, in lane order
-      const unsigned b0 = __ballot_sync(kFull, take[0]);
-      const unsigned b1 = __ballot_sync(kFull, take[1]);
-      if (wl == 0) warp_tot[parity][warp] = __popc(b0) + __popc(b1);
-      __syncthreads();
-      int incl = wl < n_warps ? warp_tot[parity][wl] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(kFull, incl, d);
-        if (wl >= d) incl += v;
+      const fqtz::TakeScan sc = fqtz::cluster_take_scan(
+          cluster, scan_sm, parity, take, gw, n_gw, n_blocks);
+      if (take) {
+        const int off = ptr + sc.rank;
+        const int at = off < n_words ? off : n_words - 1;
+        x = (x << 16) | static_cast<uint32_t>(__ldg(words + at));
       }
-      const int before = __shfl_sync(kFull, incl, warp) -
-                         warp_tot[parity][warp];
-      const int total = __shfl_sync(kFull, incl, n_warps - 1);
-      parity ^= 1;
-      int off = ptr + before + __popc(b0 & lt) + __popc(b1 & lt);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (take[j]) {
-          const int at = off < n_words ? off : n_words - 1;
-          x[j] = (x[j] << 16) | static_cast<uint32_t>(__ldg(words + at));
-          ++off;
-        }
-        if (live[j]) {
-          out[j][i] = static_cast<uint8_t>(sym[j]);
-          hist[j] = ((hist[j] << hist_bits) | sym[j]) & hist_mask;
-        }
+      if (live) {
+        out[i] = static_cast<uint8_t>(sym);
+        hist = ((hist << hist_bits) | sym) & hist_mask;
       }
-      ptr += total;
+      ptr += sc.total;
     }
   }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    if (live[j]) fin[lane[j]] = static_cast<int64_t>(x[j]);
-  if (tid == 0) ptr_out[0] = ptr;
+  if (live) fin[lane] = static_cast<int64_t>(x);
+  if (lane == 0) ptr_out[0] = ptr;
+  cluster.sync();   // no block leaves while another may store into it
 }
 
 }  // namespace
 
 // Launches K3 on `stream` for one batch of R = N * r_pl reads: model int32
-// [n_ctx, 8] (16-byte aligned), lengths int32 [R] (read r = lane * r_pl + row), words int32
-// [n_words] (u16 values), init int64 [N] (u32 states); writes syms u8
-// [R, L], fin int64 [N] and ptr_out int64 [1] (words consumed). Returns the
-// cudaError of the launch (0 = launched).
+// [n_ctx, 8] (16-byte aligned), lengths int32 [R] (read r = lane * r_pl +
+// row), words int32 [n_words] (u16 values), init int64 [N] (u32 states);
+// writes syms u8 [R, L], fin int64 [N] and ptr_out int64 [1] (words
+// consumed). Returns the cudaError of the launch (0 = launched).
 extern "C" int fqtz_qual_decode(const void* model, int A, int hist_bits,
                                 int n_hist, const void* lengths, int r_pl,
                                 int L, const void* words, int n_words,
@@ -202,12 +176,12 @@ extern "C" int fqtz_qual_decode(const void* model, int A, int hist_bits,
       hist_bits * n_hist > 26 ||
       (reinterpret_cast<uintptr_t>(model) & 15u) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = ((N + 1) / 2 + 31) / 32 * 32;
-  qual_decode_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(model), hist_bits, n_hist,
-      static_cast<const int32_t*>(lengths), r_pl, L,
+  const int n_blocks = (N + kThreads - 1) / kThreads;
+  return static_cast<int>(fqtz::launch_one_cluster(
+      qual_decode_kernel, n_blocks, kThreads,
+      static_cast<cudaStream_t>(stream), static_cast<const int32_t*>(model),
+      hist_bits, n_hist, static_cast<const int32_t*>(lengths), r_pl, L,
       static_cast<const int32_t*>(words), n_words,
       static_cast<const int64_t*>(init), N, sb, static_cast<uint8_t*>(syms),
-      static_cast<int64_t*>(fin), static_cast<int64_t*>(ptr_out));
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int64_t*>(fin), static_cast<int64_t*>(ptr_out)));
 }

@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled for sm_90a into a shared library of its
-own with a plain C interface (no PyTorch headers, so a build takes seconds),
-one nvcc process a source, all started together. The libraries land in
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers it includes) is
+compiled for sm_90a into a shared library of its own with a plain C
+interface (no PyTorch headers, so a build takes seconds), one nvcc process
+a source, all started together. The libraries land in
 `build/kernels/<source hash>/` at the repository root, a git-ignored
 directory, so a fresh checkout builds them on its first CUDA call and a
 changed source gets a new directory instead of a stale library.
@@ -41,7 +42,7 @@ def build(verbose: bool = False) -> str:
     returns their directory."""
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
         with open(s, "rb") as fh:
             h.update(fh.read())
     out_dir = os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
@@ -83,6 +84,28 @@ _ARGTYPES = {
     # streams/dna.py's K2_ARGS (struct Args in csrc/dna_decode.cu)
     "fqtz_dna_decode_row": [_P, _I, _P],
 }
+
+
+def load_other(src: str, tag: str) -> ctypes.CDLL:
+    """Build one CUDA source from anywhere (the headers of `csrc/` on its
+    include path) into `build/kernels/<tag>/` and load it with the argtypes
+    of the entry points it has set: for the measuring scripts, which time a
+    kernel against another source of it, e.g. an earlier revision. The
+    package's own kernels never come from here."""
+    out = os.path.join(_BUILD_ROOT, tag)
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "lib.so")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", so, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n"
+                           f"{proc.stderr}")
+    lib = ctypes.CDLL(so)
+    for name, argtypes in _ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, _I
+    return lib
 
 
 def kernels() -> types.SimpleNamespace:

@@ -17,10 +17,12 @@ Decode (dna_decode_batch) replays that order one position at a time for
 all lanes: per read row a scan over the L positions, each step the cascade,
 the context and cdf, one rANS step, repair and the register rolls; then the
 row's s/b insert events. The reference runs the scan through XLA (not
-Pallas). Here each read row is one call of dna_decode_row: on CUDA tensors
-kernel K2 (csrc/dna_decode.cu), one launch a row; on CPU tensors
-dna_decode_row_plain, the same scan as torch ops on the lanes' [N] tensors.
-The row-end s/b updates and the batch's model and SIV update stay torch.
+Pallas). Here each read row — the scan and the row's s/b table update, the
+reference's whole `outer` step — is one call of dna_decode_row: on CUDA
+tensors kernel K2 (csrc/dna_decode.cu), one launch a row that updates the
+tables in place; on CPU tensors dna_decode_row_plain, the same scan as
+torch ops on the lanes' [N] tensors, then _apply_sb_updates. The batch's
+model and SIV update stays torch.
 
 Not ported yet: sorted-mode LCP, paired-end anchors, the legacy
 (non-row-global, non-canonical, u16-cell) paths.
@@ -280,6 +282,15 @@ def _rough_counts(cfg, be, s_tc, lo, hi, rlo, rhi, age, valid):
     reference package). lo/hi: (smer_len-1)-base context windows, rlo/rhi
     their reverse complements, age: offsets in [0, smer_len-2]. Returns
     [..., 4] counts clipped to 255."""
+    q = _rough_queries(cfg, lo, hi, rlo, rhi, age)
+    c, _ = be.ktable_find(s_tc, q[0], q[1], cfg.smer_log2_buckets)
+    acc = c.sum(dim=0)
+    return torch.clamp(torch.where(valid[..., None], acc, 0), max=255)
+
+
+def _rough_queries(cfg, lo, hi, rlo, rhi, age):
+    """The s-table queries (_canon_query) of the 3 single-base
+    substitutions of _rough_counts, along a leading axis of 3."""
     w = cfg.smer_len - 1
     a2 = 2 * age                          # fwd bit offset
     d2 = 2 * (w - 1 - age)                # rc bit offset
@@ -302,11 +313,8 @@ def _rough_counts(cfg, be, s_tc, lo, hi, rlo, rhi, age, valid):
     hi_j = torch.where(fwd_lo, hi, put(hi, ju, a2h))
     rlo_j = torch.where(rc_lo, put(rlo, cj, d2l), rlo)
     rhi_j = torch.where(rc_lo, rhi, put(rhi, cj, d2h))
-    q = _canon_query(lo_j, hi_j, rlo_j, rhi_j, cfg.smer_len,
-                     cfg.smer_log2_buckets)
-    c, _ = be.ktable_find(s_tc, q[0], q[1], cfg.smer_log2_buckets)
-    acc = c.sum(dim=0)
-    return torch.clamp(torch.where(valid[..., None], acc, 0), max=255)
+    return _canon_query(lo_j, hi_j, rlo_j, rhi_j, cfg.smer_len,
+                        cfg.smer_log2_buckets)
 
 
 def _combine_rough(counts, level, cr, fr):
@@ -753,7 +761,7 @@ def _key_mask(width_bases: int):
 # Launches of K2 (the CUDA DNA decode scan, one a read row) in this process;
 # the plain row scan never counts.
 K2_LAUNCHES = 0
-K2_MAX_LANES = 2048   # one cluster of 8 blocks x 256 (kMaxLanes in the source)
+K2_MAX_LANES = 2048   # one cluster of 16 blocks x 128 (the source's kMaxLanes)
 # carried registers of a row, the rows of one int64 [K2_NREGS, N] tensor:
 # pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi (the SIV key, then the
 # (lo, hi) u32 halves of the s and b windows and of their reverse
@@ -764,19 +772,21 @@ K2_ARGS = ("siv", "s_tc", "b_tc", "model", "lengths", "words", "x_in",
            "ptr_in", "regs_in", "base", "kc", "ctx", "sym", "x_out",
            "ptr_out", "regs_out", "n_words", "N", "L", "siv_len", "smer_len",
            "bmer_len", "prefix_len", "scale_bits", "s_log2_rows",
-           "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b")
+           "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b",
+           "events")
 
 
 def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
                          ptr, regs, L: int, be=tables.LOCAL):
-    """K2's plain torch version, on any device: the decode scan of one read
-    row — the reference's `inner` step for each of the row's static steps
-    (_decode_segments). state: the DnaState the row reads, its s/b tables
+    """K2's plain torch version, on any device: one read row of the decode,
+    the reference's whole `outer` step — its `inner` step for each of the
+    row's static steps (_decode_segments), then the row's s/b insert events
+    (_apply_sb_updates). state: the DnaState the row reads, its s/b tables
     fresh with every earlier row's events; length: [N] int64; words: [W]
     integer tensor of u16 values; x: [N] int64 lane states; ptr: 0-d int64
     words consumed so far; regs: int64 [K2_NREGS, N] carried registers.
-    Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr,
-    regs)."""
+    Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr, regs, s_tc,
+    b_tc), the tables new tensors (the state's are left as they were)."""
     N = length.shape[0]
     dev = x.device
     sb = cfg.scale_bits
@@ -868,8 +878,11 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         prevc = _level_class(cfg, level, use_code)
         ys.append((base, kc, ctx_all, sym))
     planes = tuple(torch.stack(y, dim=1) for y in zip(*ys))     # [N, L]
+    pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
+    s_tc, b_tc = _apply_sb_updates(cfg, be, state.s_tc, state.b_tc, planes[1],
+                                   pos < length[:, None])
     return planes, x, ptr, torch.stack(
-        [pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi])
+        [pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi]), s_tc, b_tc
 
 
 def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
@@ -910,6 +923,10 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
                              f"2^{log2_base} grown at most 4 times")
     if state.s_tc.data_ptr() % 16 or state.b_tc.data_ptr() % 16:
         raise ValueError("K2: the K2 tables' rows must be 16-byte aligned")
+    s_at, b_at = state.s_tc.data_ptr(), state.b_tc.data_ptr()
+    if (s_at < b_at + state.b_tc.nbytes and b_at < s_at + state.s_tc.nbytes):
+        raise ValueError("K2: the s and b tables overlap (K2 updates both "
+                         "in place)")
     if (words.numel() < 1 or L < 1 or N * L >= 1 << 31
             or not 1 <= cfg.scale_bits <= 16 or not 3 <= cfg.siv_len <= 17
             or not 3 <= cfg.smer_len <= 33 or not 3 <= cfg.bmer_len <= 33
@@ -920,14 +937,20 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
 
 
 def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
-    """Allocate one row's outputs and launch `entry` (a C function with
-    K2's signature) on the current stream. No checks: _check_k2 first."""
+    """Allocate one row's outputs and its event scratch and launch `entry`
+    (a C function with K2's signature) on the current stream. No checks:
+    _check_k2 first. Returns (planes, x, ptr, regs, s_tc, b_tc), the tables
+    the state's, updated in place."""
     dev = x.device
     N = cfg.n_lanes
     planes = torch.empty((4, N, L), dtype=torch.int64, device=dev)
     x_out = torch.empty((N,), dtype=torch.int64, device=dev)
     ptr_out = torch.empty((1,), dtype=torch.int64, device=dev)
     regs_out = torch.empty((K2_NREGS, N), dtype=torch.int64, device=dev)
+    # the row's s, then b insert decisions, one a lane and position: K2
+    # writes those of positions k-1 <= i < length and reads them back after
+    # the row's scan
+    events = torch.empty((2, L, N), dtype=torch.int64, device=dev)
     vals = {
         "siv": state.siv, "s_tc": state.s_tc, "b_tc": state.b_tc,
         "model": state.model, "lengths": length, "words": words, "x_in": x,
@@ -941,7 +964,7 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
         "s_log2_base": cfg.smer_log2_buckets,
         "b_log2_rows": state.b_tc.shape[0].bit_length() - 1,
         "b_log2_base": cfg.bmer_log2_buckets,
-        "mix_w": cfg.mix_w, "mix_b": cfg.mix_b}
+        "mix_w": cfg.mix_w, "mix_b": cfg.mix_b, "events": events}
     args = (ctypes.c_int64 * len(K2_ARGS))(*(
         v.data_ptr() if isinstance(v, torch.Tensor) else v
         for v in (vals[k] for k in K2_ARGS)))
@@ -950,12 +973,13 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
-    return tuple(planes.unbind(0)), x_out, ptr_out[0], regs_out
+    return (tuple(planes.unbind(0)), x_out, ptr_out[0], regs_out, state.s_tc,
+            state.b_tc)
 
 
 def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, be):
-    """One K2 launch for one read row. Checks everything before it builds
-    or launches."""
+    """One K2 launch for one read row, its table update included. Checks
+    everything before it builds or launches."""
     global K2_LAUNCHES
     _check_k2(cfg, state, length, words, x, ptr, regs, L, be)
     from ..ops import _build
@@ -968,11 +992,12 @@ def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, be):
 
 def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
                    regs, L: int, be=tables.LOCAL):
-    """The decode scan of one read row: on CUDA tensors kernel K2 (a failed
-    build or launch raises; nothing falls back to the plain scan), on CPU
-    tensors dna_decode_row_plain (see there for the arguments and the
-    result); the model's device decides. K2 takes words as a contiguous
-    int32 tensor."""
+    """One read row of the decode, its s/b table update included: on CUDA
+    tensors kernel K2 (a failed build or launch raises; nothing falls back
+    to the plain version), which updates state.s_tc and state.b_tc IN
+    PLACE and returns them; on CPU tensors dna_decode_row_plain, which
+    returns new tables (see there for the arguments and the result). The
+    model's device decides. K2 takes words as a contiguous int32 tensor."""
     kind = state.model.device.type
     if kind == "cuda":
         return _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs,
@@ -993,10 +1018,13 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     final states).
 
     A loop over the read rows: each row is one dna_decode_row (K2 on a CUDA
-    device) against the carried s/b tables, then the row's s/b insert
-    events; dna_collect_updates (model and SIV) runs once after the batch.
-    Returns (codes [R, L] int64, new_state, final_states,
-    n_words_consumed, (eff, ctx_all, sym, code_active))."""
+    device) against the carried s/b tables, the row's s/b insert events
+    included; dna_collect_updates (model and SIV) runs once after the batch.
+    On a CUDA device the state's s/b tables are updated in place: the
+    returned state holds the same tensors, and the given one no longer
+    holds the batch's starting tables. Returns (codes [R, L] int64,
+    new_state, final_states, n_words_consumed, (eff, ctx_all, sym,
+    code_active))."""
     check_supported(cfg)
     N = cfg.n_lanes
     R = lengths.shape[0]
@@ -1011,11 +1039,9 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     rows = []
     for rd in range(R // N):
         length = len_rows[rd]
-        planes, x, ptr, regs = dna_decode_row(
+        planes, x, ptr, regs, s_tc, b_tc = dna_decode_row(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), length, words, x, ptr,
             regs, L, be)
-        s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, planes[1],
-                                       pos < length[:, None])
         rows.append(planes)
 
     codes, eff, ctx_all, sym = (common.from_row_blocks(torch.stack(r))

@@ -137,7 +137,7 @@ def qual_modeling(cfg: QualConfig, model: torch.Tensor, qsyms: torch.Tensor,
 # Launches of K3 (the CUDA quality decode scan) in this process; the plain
 # scan never counts.
 K3_LAUNCHES = 0
-K3_MAX_LANES = 2048   # one block holds every lane (kMaxLanes in the source)
+K3_MAX_LANES = 2048   # one cluster holds every lane (kMaxLanes in the source)
 K3_SYM = 8            # symbols a model row: Illumina-8 (kSym in the source)
 
 
@@ -187,7 +187,8 @@ def _check_k3(cfg, model, lengths, words, init_states, L):
     N = cfg.n_lanes
     dev = model.device
     if not 1 <= N <= K3_MAX_LANES:
-        raise ValueError(f"K3: {N} lanes, one block takes 1..{K3_MAX_LANES}")
+        raise ValueError(f"K3: {N} lanes, one cluster takes "
+                         f"1..{K3_MAX_LANES}")
     if cfg.n_sym != K3_SYM:
         raise ValueError(f"K3: quality mode {cfg.mode} is not taken (it "
                          f"takes {K3_SYM}-symbol models)")

@@ -1,18 +1,29 @@
-"""Check and time kernel K2 (the DNA decode scan, one launch a read row)
-on one card, against its plain torch version.
+"""Check and time kernel K2 (one read row of the DNA decode: the scan and
+the row's s/b table update, one launch) on one card, against its plain
+torch version.
 
-    python3 -m fqsqueezer_tpu_torch.tools.k2_compare
+    python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--other other.cu ...]
 
 The input is the main path's real batch: the bench corpus's first 20,000
 reads (chip_smoke.py's) compressed on the card at the bench primary row,
 and the DNA decode inputs of the archive's second batch with the DNA state
 the first batch left (real_dna_batch). dna_decode_batch decodes it with
-every read row run by K2 and by the plain row scan on the same inputs and
-held equal (check_rows). Then one batch's K2 launches are timed with CUDA
-events, each call allocating its outputs as the wrapper does, beside the
-plain scan, the chain floor (K2 on the first 32 lanes only: one warp
-walking the same dependent loads) and the bound. Prints the card's name
-and power limit first. Needs a CUDA card and nvcc.
+every read row run by K2 and by the plain row step on the same inputs and
+held equal, both updated tables included (check_rows). Then one batch's
+rows are timed with CUDA events, each call allocating its outputs as the
+wrapper does, and the tables restored to the row-start ones before each
+repetition, outside its timed region (replay_ms), in turns: every run,
+then every run again in reverse order. The runs: K2; two copies of its
+source cut at run time (CUTS) — without the row update's atomics, and the
+scan alone (no decisions either) — whose differences from K2 are the
+update's time; and each `--other`, another source with K2's C entry
+point and struct Args (a candidate redesign, or an earlier revision of
+the file). Every run is held equal to the plain row step first: the planes,
+x, ptr and registers, and the tables (updated by K2 and `--other`, left
+as they were by the cut copies). Then the chain floor (K2 on the first 32
+lanes only: one warp walking the same dependent loads), the plain row
+step and the bound. Prints the card's name and power limit first. Needs a
+CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -26,7 +37,7 @@ import torch
 
 from .. import cli, pipeline
 from ..archive import ArchiveReader
-from ..ops import kmers, tables
+from ..ops import _build, kmers, tables
 from ..params import Params
 from ..streams import dna, meta
 from ..utils.corpus import write_fastq_corpus
@@ -40,6 +51,8 @@ K2_OPS_PER_POS = 700       # an active lane-step: two queries (hash, tag,
                            # (sort, quantizers), two model rows, six
                            # divides, the lookup, the scan's share, the
                            # repair and the rolls; rough probes not counted
+K2_OPS_PER_EVENT = 30      # an insert event: the match, empty mask and slot
+                           # of its decision, its store, load and atomic
 CHAIN_LANES = 32
 
 
@@ -80,12 +93,12 @@ def real_dna_batch(arc, device="cuda"):
 
 
 _OUT_NAMES = ("base", "eff", "ctx", "sym", "final states", "ptr",
-              "registers")
+              "registers", "s table", "b table")
 
 
 def _flat(out):
-    planes, x, ptr, regs = out
-    return (*planes, x, ptr, regs)
+    planes, *rest = out
+    return (*planes, *rest)
 
 
 def max_abs_err(got, want):
@@ -104,26 +117,34 @@ def max_abs_err(got, want):
 
 def check_rows(cfg, state, lengths, words, init, L, what="the batch"):
     """Decode one batch through dna.dna_decode_batch with every read row
-    run by both K2 (dna_decode_row on CUDA tensors) and
-    dna_decode_row_plain on the same inputs, raising at the first
-    difference; the batch goes on with the plain results. Returns, a row,
-    (its dna_decode_row arguments, the plain result)."""
+    run by both K2 (dna_decode_row on CUDA tensors, on copies of the
+    row-start tables, which it updates in place) and dna_decode_row_plain
+    on the same inputs, raising at the first difference in the planes,
+    final states, words consumed, registers or either updated table; the
+    batch goes on with the plain results, and the caller's state keeps its
+    tables. Returns, a row, (its dna_decode_row arguments, which hold the
+    row-start tables, and the plain result)."""
     k2 = dna.dna_decode_row
     rows = []
 
     def both(cfg, state, length, words, x, ptr, regs, L, be=tables.LOCAL):
         args = (cfg, state, length, words, x, ptr, regs, L)
+        want = dna.dna_decode_row_plain(*args, be)
+        work = state._replace(s_tc=state.s_tc.clone(),
+                              b_tc=state.b_tc.clone())
         before = dna.K2_LAUNCHES
-        got = k2(*args, be)
+        got = k2(cfg, work, length, words, x, ptr, regs, L, be)
         if dna.K2_LAUNCHES != before + 1:
             raise RuntimeError("dna_decode_row did not launch K2")
-        want = dna.dna_decode_row_plain(*args, be)
+        if got[4] is not work.s_tc or got[5] is not work.b_tc:
+            raise RuntimeError("K2 did not return the tables it updated in "
+                               "place")
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         if err:
             bad = [n for g, w, n in zip(_flat(got), _flat(want), _OUT_NAMES)
                    if not torch.equal(g, w)]
-            raise RuntimeError(f"K2 disagrees with the plain row scan on "
+            raise RuntimeError(f"K2 disagrees with the plain row step on "
                                f"{what}, row {len(rows)}: {', '.join(bad)}, "
                                f"max abs err {err}")
         rows.append((args, want))
@@ -149,78 +170,153 @@ def chain_rows(rows, lanes=CHAIN_LANES):
     return out
 
 
+def replay_ms(args, launch=None, reps=20):
+    """ms a batch of `launch` (default dna.dna_decode_row: K2) over rows'
+    dna_decode_row arguments, the rows in order, timed with CUDA events.
+    Every repetition runs on work copies of each row's tables, restored
+    from the row-start ones before it and outside its timed region: K2
+    updates the tables in place, and a replay must not see its own
+    events."""
+    launch = launch or dna.dna_decode_row
+    work = [(a, a[1].s_tc.clone(), a[1].b_tc.clone()) for a in args]
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps + 1)]
+    for start, end in marks:            # the first repetition warms up
+        for a, ws, wb in work:
+            ws.copy_(a[1].s_tc)
+            wb.copy_(a[1].b_tc)
+        start.record()
+        for a, ws, wb in work:
+            launch(a[0], a[1]._replace(s_tc=ws, b_tc=wb), *a[2:])
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks[1:]) / reps
+
+
+# Copies of K2's source with parts of the row's table update cut out,
+# built at run time to time that update apart: (old, new) text pairs, each
+# found once in csrc/dna_decode.cu.
+_NO_ATOMICS = (("    apply_events(ev_s, s_cells, s_w, end, N);\n"
+                "    apply_events(ev_b, b_cells, b_w, end, N);\n", ""),)
+CUTS = {
+    "K2 without the update's atomics": _NO_ATOMICS,
+    "K2, the scan alone": _NO_ATOMICS + (
+        ("      ev_s[static_cast<size_t>(i) * N] =\n", "      (void)\n"),
+        ("      ev_b[static_cast<size_t>(i) * N] =\n", "      (void)\n")),
+}
+
+
+def cut_source(tag, cuts):
+    """K2's source with `cuts` applied, written into the kernels' build
+    directory as `<tag>.cu`; returns its path."""
+    with open(os.path.join(_build._CSRC, "dna_decode.cu")) as fh:
+        text = fh.read()
+    for old, new in cuts:
+        if text.count(old) != 1:
+            raise RuntimeError(f"csrc/dna_decode.cu holds {old!r} "
+                               f"{text.count(old)} times, not once")
+        text = text.replace(old, new)
+    os.makedirs(_build._BUILD_ROOT, exist_ok=True)
+    path = os.path.join(_build._BUILD_ROOT, f"{tag}.cu")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+def variant(src, tag):
+    """A dna_decode_row that launches K2 built from `src` (checks as the
+    wrapper's, no launch count)."""
+    entry = _build.load_other(src, tag).fqtz_dna_decode_row
+
+    def launch(cfg, state, length, words, x, ptr, regs, L, be=tables.LOCAL):
+        dna._check_k2(cfg, state, length, words, x, ptr, regs, L, be)
+        return dna._k2_launch(entry, cfg, state, length, words, x, ptr, regs,
+                              L)
+    return launch
+
+
 def _distinct(t):
     return int(torch.unique(t).numel())
 
 
-def _find_rows(cfg, kc, active, tc, k, log2_base):
-    """Distinct rows of a width-k table that the finds of an [N, L] row
-    read: the (k-1)-base window of the row's eff bases before each position
-    that has one (the windows carried from the previous row are never
-    used)."""
-    w = k - 1
-    sr = lambda t: kmers.shift_right(t, 1)
-    lo, hi = kmers.pack_windows(kc, w)
-    rlo, rhi = kmers.pack_windows_rc(kc, w)
-    bkt, tags4, *_ = dna._canon_query(sr(lo), sr(hi), sr(rlo), sr(rhi), k,
-                                      log2_base)
-    rows = tables.kbucket_of(tags4[..., 0], bkt, tc.shape[0].bit_length() - 1,
+def _rows_of(tc, q, log2_base):
+    """Bucket rows of _canon_query results q in table tc."""
+    return tables.kbucket_of(q[1][..., 0], q[0], tc.shape[0].bit_length() - 1,
                              log2_base)
-    return rows[active]
 
 
 def k2_bound_ms(rows):
-    """(ms, 'bytes' | 'operations'): the least time the card could take
-    for these rows' K2 launches. Bytes a launch: the distinct s and b table
-    rows its finds read (32 B), the distinct SIV words (8 B) and model rows
-    (fine and coarse, 20 B) it reads, the words it consumes (4 B), lengths,
-    states, registers and the pointer in and out, and the four int64
-    [N, L] planes out; the rough probes' and the ramp's reads are not
-    counted, so this bound is low. Operations: K2_OPS_PER_POS an active
-    lane-position over the published 32-bit rate."""
+    """(ms, 'bytes' | 'operations'): the least time the card could take for
+    these rows' K2 launches, each row's reads and writes as its data needs
+    them. Bytes a launch: the distinct table rows (32 B) that its finds and
+    its rough probes read, the distinct SIV words (8 B) that its finds and
+    its prefix ramp read, the distinct model rows (fine and coarse, 20 B),
+    the words it consumes (4 B), lengths, states, registers and the pointer
+    in and out, the four int64 [N, L] planes out, and the table cells its
+    update changes (8 B). Operations: K2_OPS_PER_POS an active
+    lane-position and K2_OPS_PER_EVENT an insert event over the published
+    32-bit rate."""
     nbytes = 0
-    n_active = 0
+    n_ops = 0
     for (cfg, st, length, words, x, ptr, regs, L), want in rows:
-        (_, kc, ctx, _), _, ptr_end, _ = want
+        (_, kc, ctx, _), _, ptr_end, _, s_new, b_new = want
         N = length.shape[0]
         pos = torch.arange(L, device=kc.device)[None, :]
-        active = pos < length[:, None]
-        n_active += int(active.sum())
+        (_, _, _, _, fs, fb), active = dna._window_parts(cfg, st, kc, length)
         s_w, b_w = cfg.smer_len - 1, cfg.bmer_len - 1
-        s_rows = _find_rows(cfg, kc, active & (pos >= min(s_w, b_w)),
-                            st.s_tc, cfg.smer_len, cfg.smer_log2_buckets)
-        b_rows = _find_rows(cfg, kc, active & (pos >= b_w), st.b_tc,
-                            cfg.bmer_len, cfg.bmer_log2_buckets)
-        pm = kmers.shift_right(kmers.pack_windows(kc, cfg.siv_len - 1)[0], 1)
-        siv = pm[active & (pos >= cfg.siv_len - 1)]
+        sr = lambda t: kmers.shift_right(t, 1)
+        s_win = tuple(sr(t) for t in (*kmers.pack_windows(kc, s_w),
+                                      *kmers.pack_windows_rc(kc, s_w)))
+        b_win = tuple(sr(t) for t in (*kmers.pack_windows(kc, b_w),
+                                      *kmers.pack_windows_rc(kc, b_w)))
+        s_q = dna._canon_query(*s_win, cfg.smer_len, cfg.smer_log2_buckets)
+        b_q = dna._canon_query(*b_win, cfg.bmer_len, cfg.bmer_log2_buckets)
+        s_rows = [_rows_of(st.s_tc, s_q, cfg.smer_log2_buckets)[
+            active & (pos >= min(s_w, b_w))]]
+        b_rows = _rows_of(st.b_tc, b_q, cfg.bmer_log2_buckets)[
+            active & (pos >= b_w)]
+        # the rough probes: three s rows at each miss within s_w of its run
+        miss = active & (pos >= s_w) & ~fs & ~fb
+        age = dna._miss_age(miss, pos.expand_as(miss))
+        ok = miss & (age <= s_w - 1)
+        r_q = dna._rough_queries(cfg, *s_win, torch.clamp(age, 0, s_w - 1))
+        s_rows.append(_rows_of(st.s_tc, r_q, cfg.smer_log2_buckets)[
+            ok[None].expand(3, -1, -1)])
+        # the SIV: a word at each full window, and the ramp's ranges
+        pm = sr(kmers.pack_windows(kc, cfg.siv_len - 1)[0])
+        siv = [pm[active & (pos >= cfg.siv_len - 1)]]
+        for q in dna._ramp_cols(cfg):
+            if q < L:
+                w4 = 4 ** torch.arange(q - 1, -1, -1, device=kc.device)
+                pfx = (kc[:, :q] * w4[None, :]).sum(dim=1)
+                siv.append(dna._ramp_word_idx(cfg, pfx, q)[
+                    active[:, q]].reshape(-1))
         fine = ctx.reshape(-1)
         model_rows = torch.cat([fine, dna._n_model_ctx(cfg)
                                 + dna._coarse_ctx(cfg, fine)])
-        nbytes += (32 * (_distinct(s_rows) + _distinct(b_rows))
-                   + 8 * _distinct(siv) + 20 * _distinct(model_rows)
+        changed = int((s_new != st.s_tc).sum() + (b_new != st.b_tc).sum())
+        n_events = int((active & (pos >= s_w)).sum()
+                       + (active & (pos >= b_w)).sum())
+        n_ops += (int(active.sum()) * K2_OPS_PER_POS
+                  + n_events * K2_OPS_PER_EVENT)
+        nbytes += (32 * (_distinct(torch.cat(s_rows)) + _distinct(b_rows))
+                   + 8 * _distinct(torch.cat(siv))
+                   + 20 * _distinct(model_rows)
                    + 4 * int(ptr_end - ptr) + 8 * N
-                   + 2 * 8 * (N + dna.K2_NREGS * N + 1) + 4 * N * L * 8)
+                   + 2 * 8 * (N + dna.K2_NREGS * N + 1) + 4 * N * L * 8
+                   + 8 * changed)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_active * K2_OPS_PER_POS / INT_OPS_PER_S * 1e3
+    by_ops = n_ops / INT_OPS_PER_S * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def ms(fn, reps=20):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    fn()
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--other", action="append", default=[],
+                    help="another CUDA source of K2 (its C entry point and "
+                    "struct Args) to time beside it (repeatable)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k2_compare: no CUDA device is visible")
     print(subprocess.run(
@@ -236,13 +332,39 @@ def main() -> int:
     rows = check_rows(*batch)
     L = batch[-1]
     steps = len(rows) * L
-    k2_ms = ms(lambda: [dna.dna_decode_row(*a) for a, _ in rows])
+    row_args = [a for a, _ in rows]
+    runs = [("K2", None, True)]
+    for k, (name, cuts) in enumerate(CUTS.items()):
+        runs.append((name, variant(cut_source(f"k2_cut{k}", cuts),
+                                   f"k2_cut{k}"), False))
+    for k, src in enumerate(args.other):
+        runs.append((src, variant(src, f"k2_other{k}"), True))
+    for name, launch, updates in runs[1:]:      # every run is exact
+        for a, want in rows:
+            st = a[1]
+            got = launch(a[0], st._replace(s_tc=st.s_tc.clone(),
+                                           b_tc=st.b_tc.clone()), *a[2:])
+            torch.cuda.synchronize()
+            if not updates:
+                want = (*want[:4], st.s_tc, st.b_tc)
+            if max_abs_err(got, want):
+                raise RuntimeError(f"{name} differs from the plain row step")
+    times = {name: [] for name, _, _ in runs}
+    for name, launch, _ in runs + runs[::-1]:
+        times[name].append(replay_ms(row_args, launch))
+    for name, t in times.items():
+        print(f"{name}: {t[0]:.4f} ms, {t[1]:.4f} ms a batch "
+              f"({t[0] / steps * 1e3:.2f} us a step)")
+    mean = {name: sum(t) / len(t) for name, t in times.items()}
+    for name in CUTS:
+        d_ms = mean["K2"] - mean[name]
+        print(f"K2 minus {name}: {d_ms:.4f} ms a batch, "
+              f"{d_ms / len(rows):.4f} ms a row")
     chain = chain_rows(rows)
-    floor_ms = ms(lambda: [dna.dna_decode_row(*a) for a in chain])
-    plain_ms = ms(lambda: [dna.dna_decode_row_plain(*a) for a, _ in rows], 2)
+    floor_ms = replay_ms(chain)
+    plain_ms = replay_ms(row_args, dna.dna_decode_row_plain, 2)
     bound, by = k2_bound_ms(rows)
-    print(f"the main path's batch ({len(rows)} rows, {steps} steps): K2 "
-          f"{k2_ms:.4f} ms ({k2_ms / steps * 1e3:.2f} us a step), chain "
+    print(f"the main path's batch ({len(rows)} rows, {steps} steps): chain "
           f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {by}")
     return 0

@@ -1,22 +1,26 @@
-"""Time kernel K3 against another build of the quality decode scan, in
-turns, on one card.
+"""Time kernel K3 against other sources of the quality decode scan, in
+turns, on one card, and its chain floor.
 
-    python3 -m fqsqueezer_tpu_torch.tools.k3_compare --other old.cu
+    python3 -m fqsqueezer_tpu_torch.tools.k3_compare [--other other.cu ...]
 
-`--other` is a CUDA source with K3's C entry point (`fqtz_qual_decode`,
-the signature of csrc/qual_decode.cu), for example an earlier revision of
-that file. The input is the main path's real batch: the bench corpus's
+Each `--other` is a CUDA source with K3's C entry point
+(`fqtz_qual_decode`, the signature of csrc/qual_decode.cu), for example an
+earlier revision of that file (`git show
+0b0dbb7:fqsqueezer_tpu_torch/csrc/qual_decode.cu`) or a candidate
+redesign. The input is the main path's real batch: the bench corpus's
 first 20,000 reads (chip_smoke.py's) compressed on the card at the bench
 primary row, and the quality decode inputs of the archive's second batch
-(real_quality_batch). Both scans are checked equal to the plain torch scan
-and then timed other, K3, K3, other with CUDA events, each call allocating
-its outputs as the wrapper does. Without `--other` only K3 is timed.
-Prints the card's name and power limit first. Needs a CUDA card and nvcc.
+(real_quality_batch). Every scan is checked equal to the plain torch scan
+and then timed with CUDA events in turns (every scan, then every scan
+again in reverse order), each call allocating its outputs as the wrapper
+does. Then the chain floor: K3 on the batch's first 32 lanes (one warp
+walking the same dependent steps; chain_batch). Prints the card's name and
+power limit first. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
+import dataclasses
 import os
 import subprocess
 import tempfile
@@ -85,16 +89,22 @@ def _ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
-def _load_other(src):
-    """The other scan, built from `src`, behind K3's wrapper signature."""
-    out = os.path.join(os.path.dirname(_build._BUILD_ROOT), "k3_compare")
-    os.makedirs(out, exist_ok=True)
-    so = os.path.join(out, "libother.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, src],
-                   check=True)
-    lib = ctypes.CDLL(so)
-    lib.fqtz_qual_decode.argtypes = _build._ARGTYPES["fqtz_qual_decode"]
-    lib.fqtz_qual_decode.restype = ctypes.c_int
+CHAIN_LANES = 32
+
+
+def chain_batch(batch, lanes=CHAIN_LANES):
+    """The batch's K3 arguments cut to its first `lanes` lanes (the chain
+    floor: the same dependent steps for one warp)."""
+    cfg, model, lengths, words, init, L = batch
+    r_pl = lengths.shape[0] // cfg.n_lanes
+    return (dataclasses.replace(cfg, n_lanes=lanes), model,
+            lengths[:lanes * r_pl].contiguous(), words,
+            init[:lanes].contiguous(), L)
+
+
+def _load_other(src, tag):
+    """The scan built from `src`, behind K3's wrapper signature."""
+    lib = _build.load_other(src, tag)
 
     def scan(cfg, model, lengths, words, init, L):
         N = cfg.n_lanes
@@ -116,7 +126,8 @@ def _load_other(src):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", help="CUDA source of the scan to compare with")
+    ap.add_argument("--other", action="append", default=[],
+                    help="CUDA source of a scan to compare with (repeatable)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k3_compare: no CUDA device is visible")
@@ -124,7 +135,6 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    other = _load_other(args.other) if args.other else None
     with tempfile.TemporaryDirectory() as d:
         src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
         write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
@@ -134,22 +144,25 @@ def main() -> int:
     cfg, L = batch[0], batch[-1]
     steps = batch[2].shape[0] // cfg.n_lanes * L
     want = quality.qual_decode_scan_plain(*batch)
-    k3 = lambda: quality.qual_decode_scan(*batch)
-    runs = [("K3", k3)] + ([("other", lambda: other(*batch))]
-                           if other is not None else [])
+    runs = [("K3", quality.qual_decode_scan)]
+    for k, src in enumerate(args.other):
+        runs.append((src, _load_other(src, f"k3_other{k}")))
     for name, fn in runs:
-        got = fn()
+        got = fn(*batch)
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise RuntimeError(f"{name} differs from the plain scan")
-    line = f"the main path's batch ({steps} steps):"
-    if other is not None:
-        oth = runs[1][1]
-        t = [_ms(oth), _ms(k3), _ms(k3), _ms(oth)]
-        line += (f" other {t[0]:.4f} ms, K3 {t[1]:.4f} ms, K3 {t[2]:.4f} ms,"
-                 f" other {t[3]:.4f} ms (equal results);")
-    ms = _ms(k3)
-    print(f"{line} K3 {ms:.4f} ms, {ms / steps * 1e3:.2f} us a step")
+    times = {name: [] for name, _ in runs}
+    for name, fn in runs + runs[::-1]:
+        times[name].append(_ms(lambda: fn(*batch)))
+    for name, t in times.items():
+        print(f"{name}: {t[0]:.4f} ms, {t[1]:.4f} ms a batch "
+              f"({t[0] / steps * 1e3:.2f} us a step)")
+    chain = chain_batch(batch)
+    floor = _ms(lambda: quality.qual_decode_scan(*chain))
+    print(f"the main path's batch ({steps} steps): chain floor "
+          f"({CHAIN_LANES} lanes) {floor:.4f} ms, "
+          f"{floor / steps * 1e3:.2f} us a step")
     return 0
 
 

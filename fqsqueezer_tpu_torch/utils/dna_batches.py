@@ -21,8 +21,10 @@ from ..params import Params
 from ..streams import common, dna
 from .corpus import make_genome, sample_reads
 
-# the s and b tables of these batches hold 2^LOG2_BUCKETS rows each
+# the s and b tables of these batches hold 2^LOG2_BUCKETS rows each, those
+# of an adversarial batch 2^ADVERSARIAL_LOG2_BUCKETS
 LOG2_BUCKETS = 16
+ADVERSARIAL_LOG2_BUCKETS = 8
 
 
 def bench_dna_config(n_lanes: int | None = None) -> dna.DnaConfig:
@@ -49,17 +51,39 @@ def _reads(rng, genome, R, L, seed):
             lengths.astype(np.int64))
 
 
+def _adversarial(tc, rng):
+    """A K2 table made hard for the row update: of its live cells a third
+    count 255 and a third 254; in every 8th row slot 1 repeats slot 0's cell
+    (a key in two cells); every 3rd row has one empty cell, every 7th two,
+    so that new keys race for them."""
+    t = tc.clone()
+    pick = torch.from_numpy(rng.integers(0, 3, tuple(t.shape))).to(t.device)
+    live = t != tables.EMPTY
+    t = torch.where(live & (pick == 0), t | 0xFF, t)
+    t = torch.where(live & (pick == 1), (t & ~0xFF) | 0xFE, t)
+    t[::8, 1] = t[::8, 0]
+    t[::3, 2] = tables.EMPTY
+    t[::7, 3] = tables.EMPTY
+    return t
+
+
 def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
-                      grow: bool = False, short: bool = False):
+                      grow: bool = False, short: bool = False,
+                      adversarial: bool = False):
     """(cfg, state, lengths [R] int64, words int32 [W], init states [N]
     int64) of one encoded batch of R = n_lanes * r_pl reads of width L.
     grow: the s and b tables are doubled once (tables.k2_grow) before the
     batch, so every find takes a growth bit. short: the word stream is cut
     to half the words the batch needs, so the decode reads past its end
-    (those reads clamp to the last word)."""
+    (those reads clamp to the last word). adversarial: tables of
+    2^ADVERSARIAL_LOG2_BUCKETS rows, so that most buckets are full, made
+    harder before the batch (_adversarial): counts at 255, keys in two
+    cells, new keys racing for one empty cell; the batch's rows repeat
+    k-mers."""
+    log2b = ADVERSARIAL_LOG2_BUCKETS if adversarial else LOG2_BUCKETS
     cfg = dataclasses.replace(bench_dna_config(n_lanes),
-                              smer_log2_buckets=LOG2_BUCKETS,
-                              bmer_log2_buckets=LOG2_BUCKETS)
+                              smer_log2_buckets=log2b,
+                              bmer_log2_buckets=log2b)
     rng = np.random.default_rng(seed)
     R = n_lanes * r_pl
     # about 8x coverage a batch, so that the batch's k-mers hit the tables
@@ -84,6 +108,9 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
         state = state._replace(
             s_tc=tables.k2_grow(state.s_tc, cfg.smer_log2_buckets),
             b_tc=tables.k2_grow(state.b_tc, cfg.bmer_log2_buckets))
+    if adversarial:
+        state = state._replace(s_tc=_adversarial(state.s_tc, rng),
+                               b_tc=_adversarial(state.b_tc, rng))
     (_, lengths, *_), (f, cum) = encode(*_reads(rng, genome, R, L, seed + 3))
     words, n_words, init = rans.rans_encode(
         common.to_grid(f, n_lanes).to(torch.int32).contiguous(),
@@ -95,3 +122,4 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     keep = min(cap, n_words)
     plane[:keep] = words[:keep]
     return cfg, state, lengths, plane, init
+

@@ -1,6 +1,6 @@
 """Kernels K1, K3 and K2 on a CUDA card: each launches, equals its plain
-torch version exactly, and refuses what it does not take instead of
-falling back. Imports
+torch version exactly (K2 with its row's table update), and refuses what
+it does not take instead of falling back. Imports
 no JAX and nothing of the reference package, so it runs on a machine with a
 card and neither of them:
 
@@ -175,16 +175,84 @@ def test_k3_refuses_instead_of_falling_back():
     (256, 2, 104, True, False), (256, 1, 40, False, True),
     (2048, 2, 104, False, False), (2048, 1, 104, True, True)])
 def test_k2_equals_plain_row_scan(N, r_pl, L, grow, short):
-    """The four planes, final states, words consumed and carried registers
-    of every row, exactly, on encoded batches whose lengths include 0, 1
-    and L; grown s/b tables; word streams cut short (reads past the end
-    clamp, so K2 and the plain scan decode the same wrong bases)."""
+    """The four planes, final states, words consumed, carried registers and
+    both updated s/b tables of every row, exactly, against
+    dna_decode_row_plain (the scan, then _apply_sb_updates), on encoded
+    batches whose lengths include 0, 1 and L; grown s/b tables; word
+    streams cut short (reads past the end clamp, so K2 and the plain scan
+    decode the same wrong bases)."""
     from fqsqueezer_tpu_torch.tools.k2_compare import check_rows
     from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
 
     _card()
     batch = dna_decode_inputs(N + L, N, r_pl, L, "cuda", grow, short)
     assert len(check_rows(*batch, L)) == r_pl
+
+
+def _update_cases(cfg, tc, kcodes, length, k: int, log2_base: int) -> dict:
+    """How often each hard case of the row update (tables.k2_update) occurs
+    among one row's width-k insert events (dna.sb_canon_events of its kc
+    plane [N, L] and lengths [N]) against the row-start table tc: events
+    of a key that the row holds more than once ("duplicate"), found keys
+    whose count is 255 ("count_255"), new keys whose bucket is full
+    ("full_bucket"), and cells that two or more different new keys pick
+    ("race")."""
+    from fqsqueezer_tpu_torch.ops import tables
+    from fqsqueezer_tpu_torch.streams import dna
+
+    pos = torch.arange(kcodes.shape[1], device=kcodes.device)[None, :]
+    bkt, tag, valid = dna.sb_canon_events(cfg, kcodes, pos < length[:, None],
+                                          k, log2_base)
+    bkt, tag = bkt[valid], tag[valid]
+    rows = tables.kbucket_of(tag, bkt, tc.shape[0].bit_length() - 1,
+                             log2_base)
+    row = tc[rows]
+    tw = tables.k2tag(tag) << 8
+    match = (row & 0xFFFFFF00) == tw[:, None]
+    found = match.any(dim=1)
+    cellv = torch.where(match, row, 0).sum(dim=1) & 0xFFFFFFFF
+    empty = row == tables.EMPTY
+    key = rows * (1 << 32) + tw
+    _, inv, n_key = torch.unique(key, return_inverse=True, return_counts=True)
+    # the cell each new key picks (k2_update's rotation of the empty mask)
+    bm = (empty.to(torch.int64) << torch.arange(4, device=tc.device)).sum(1)
+    j = ((tag >> 13) ^ tag) & 3
+    rot = ((bm >> j) | (bm << (4 - j))) & 0xF
+    first = torch.tensor([0, 0, 1, 0, 2, 0, 1, 0, 3, 0, 1, 0, 2, 0, 1, 0],
+                         device=tc.device)[rot]
+    new = ~found & (bm > 0)
+    picks = torch.unique(torch.stack([rows * 4 + ((j + first) & 3), tw],
+                                     dim=1)[new], dim=0)
+    _, n_pick = torch.unique(picks[:, 0], return_counts=True)
+    return {"duplicate": int((n_key[inv] > 1).sum()),
+            "count_255": int((found & ((cellv & 0xFF) == 0xFF)).sum()),
+            "full_bucket": int((~found & (bm == 0)).sum()),
+            "race": int((n_pick > 1).sum())}
+
+
+@pytest.mark.cuda
+def test_k2_row_update_on_adversarial_tables():
+    """The row update's hard cases, each present in the batch's events:
+    keys the row holds more than once, found keys at count 255, new keys
+    whose row-start bucket is full, and different new keys that pick one
+    empty cell; K2's tables equal k2_update's exactly."""
+    from fqsqueezer_tpu_torch.tools.k2_compare import check_rows
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    _card()
+    cfg, state, lengths, words, init = dna_decode_inputs(
+        11, 256, 2, 104, "cuda", adversarial=True)
+    rows = check_rows(cfg, state, lengths, words, init, 104)
+    seen = dict.fromkeys(("duplicate", "count_255", "full_bucket", "race"),
+                         0)
+    for (_, st, length, *_), want in rows:
+        kc = want[0][1]
+        for tc, k, log2b in ((st.s_tc, cfg.smer_len, cfg.smer_log2_buckets),
+                             (st.b_tc, cfg.bmer_len, cfg.bmer_log2_buckets)):
+            for case, n in _update_cases(cfg, tc, kc, length, k,
+                                         log2b).items():
+                seen[case] += n
+    assert all(n > 0 for n in seen.values()), seen
 
 
 @pytest.mark.cuda
@@ -205,7 +273,10 @@ def test_k2_batch_launches_once_a_row_and_never_the_plain_scan(monkeypatch):
 
     monkeypatch.setattr(dna, "dna_decode_row_plain", refuse)
     before = dna.K2_LAUNCHES
-    got = dna.dna_decode_batch(cfg, state, lengths, words, init, 104)
+    # K2 updates the tables in place: it gets copies
+    got = dna.dna_decode_batch(
+        cfg, state._replace(s_tc=state.s_tc.clone(), b_tc=state.b_tc.clone()),
+        lengths, words, init, 104)
     assert dna.K2_LAUNCHES == before + 2
     monkeypatch.setattr(dna, "dna_decode_row", plain)
     want = dna.dna_decode_batch(cfg, state, lengths, words, init, 104)
@@ -217,6 +288,33 @@ def test_k2_batch_launches_once_a_row_and_never_the_plain_scan(monkeypatch):
                     (wcodes, wx, wptr, *wextras, wst.siv, wst.s_tc, wst.b_tc,
                      wst.model)):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k2_batch_runs_no_torch_table_update(monkeypatch):
+    """On the card the row's s/b table update is K2's: dna_decode_batch
+    calls neither _apply_sb_updates nor the table module's k2_update, and
+    its state holds the tables K2 updated in place."""
+    from fqsqueezer_tpu_torch.ops import tables
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    _card()
+    cfg, state, lengths, words, init = dna_decode_inputs(7, 256, 2, 104,
+                                                         "cuda")
+
+    def refuse(*a, **k):
+        raise AssertionError("a torch table update ran on CUDA tensors")
+
+    for mod, name in ((dna, "_apply_sb_updates"), (tables, "k2_update"),
+                      (tables, "ktable_update")):
+        monkeypatch.setattr(mod, name, refuse)
+    s_tc, b_tc = state.s_tc, state.b_tc
+    before = (s_tc.clone(), b_tc.clone())
+    _, st, *_ = dna.dna_decode_batch(cfg, state, lengths, words, init, 104)
+    assert st.s_tc is s_tc and st.b_tc is b_tc
+    assert not torch.equal(s_tc, before[0])
+    assert not torch.equal(b_tc, before[1])
 
 
 @pytest.mark.cuda
@@ -256,6 +354,7 @@ def test_k2_refuses_instead_of_falling_back():
                  bad(1, st._replace(siv=st.siv.int())),
                  bad(1, st._replace(s_tc=unaligned)),   # 8-byte aligned rows
                  bad(1, st._replace(b_tc=st.b_tc[:3])),  # not 2^k rows
+                 bad(1, st._replace(b_tc=st.s_tc)),     # the tables overlap
                  bad(0, dataclasses.replace(cfg, n_lanes=4096))):
         with pytest.raises(ValueError):
             dna.dna_decode_row(*args)

@@ -31,7 +31,7 @@ from fqsqueezer_tpu.streams import quality as jq
 from fqsqueezer_tpu.utils.corpus import make_genome, sample_reads
 from fqsqueezer_tpu_torch import params as tparams
 from fqsqueezer_tpu_torch import pipeline
-from fqsqueezer_tpu_torch.ops import rans
+from fqsqueezer_tpu_torch.ops import kmers, rans, tables
 from fqsqueezer_tpu_torch.state import state_from_numpy, state_to_numpy
 from fqsqueezer_tpu_torch.streams import dna, meta, quality
 from fqsqueezer_tpu_torch.utils.dna_batches import bench_dna_config
@@ -359,3 +359,68 @@ def test_k2_step_predicates_equal_the_static_segmentation(prefix_len,
     for width in range(41):
         assert ([kind(i) for i in range(width)]
                 == dna._decode_segments(cfg, width))
+
+
+def _k2_step_events(kc, length, k, log2_base, log2_rows, S, R):
+    """csrc/dna_decode.cu's insert events restated in torch: the registers
+    S (the k-1 bases before i, masked) and R (its reverse complement) roll
+    with each position's kc from whatever they carried in; at
+    k - 1 <= i < length the event is the find's canonical query of (S, R)
+    with kc as its candidate. Returns [N, L] (valid, bucket row, tag word,
+    rotation j)."""
+    N, width = kc.shape
+    w = k - 1
+    m2 = (1 << 2 * (k - 2)) - 1
+    out = []
+    for i in range(width):
+        b = kc[:, i]
+        wv, rw = S & m2, (R >> 2) & m2
+        s = rw < wv
+        mid = torch.where(s, rw, wv)
+        mlo, mhi = mid & 0xFFFFFFFF, mid >> 32
+        mt = kmers.hash_tag(mlo, mhi) & ~0xF
+        row = kmers.hash_bucket(mlo, mhi, log2_base)
+        if log2_rows > log2_base:
+            row = row | (((mt >> 23) & ((1 << (log2_rows - log2_base)) - 1))
+                         << log2_base)
+        c0 = (S >> 2 * (k - 2)) & 3
+        slot = torch.where(s, 4 * (3 - b) + (3 - c0), 4 * c0 + b)
+        tw = ((((mt >> 23) & 0xF) << 4 | ((mt >> 4) & 0x7FFF) << 8
+               | 1 << 23) << 8) | slot << 8
+        j = ((tw >> 25) ^ (tw >> 8)) & 3
+        out.append(((i >= w) & (i < length), row, tw, j))
+        S = ((S << 2) | b) & ((1 << 2 * w) - 1)
+        R = (R >> 2) | ((3 - b) << 2 * (w - 1))
+    return tuple(torch.stack(t, dim=1) for t in zip(*out))
+
+
+@pytest.mark.parametrize("grow", [0, 2])
+def test_k2_row_events_equal_sb_canon_events(grow):
+    """Kernel K2 takes the row's s/b insert events from the registers it
+    rolls (carried across rows) and the find's query; they equal
+    sb_canon_events of the row's kc plane — bucket row (with the growth bits
+    of a grown table), cell tag word and slot rotation — at every width
+    20-40, for the bench geometry."""
+    cfg = bench_dna_config(6)
+    rng = np.random.default_rng(grow)
+    for width in range(20, 41):
+        kc = torch.from_numpy(rng.integers(0, 4, (6, width)))
+        length = torch.tensor([0, 1, width, width - 1, 19, width // 2])
+        pos = torch.arange(width)[None, :]
+        for k, log2b in ((cfg.smer_len, cfg.smer_log2_buckets),
+                         (cfg.bmer_len, cfg.bmer_log2_buckets)):
+            carried = torch.from_numpy(rng.integers(0, 1 << 2 * (k - 1),
+                                                    (2, 6)))
+            valid, row, tw, j = _k2_step_events(kc, length, k, log2b,
+                                                log2b + grow, *carried)
+            bkt, tag, vk = dna.sb_canon_events(cfg, kc, pos < length[:, None],
+                                               k, log2b)
+            c0 = k - 1
+            assert torch.equal(valid[:, c0:].reshape(-1), vk)
+            assert torch.equal(row[:, c0:].reshape(-1)[vk],
+                               tables.kbucket_of(tag, bkt, log2b + grow,
+                                                 log2b)[vk])
+            assert torch.equal(tw[:, c0:].reshape(-1)[vk],
+                               (tables.k2tag(tag) << 8)[vk])
+            assert torch.equal(j[:, c0:].reshape(-1)[vk],
+                               (((tag >> 13) ^ tag) & 3)[vk])
