@@ -27,15 +27,31 @@ Phases, one line each; any failure raises and the script exits non-zero:
                pipeline.compress_file, warm-up + timed run; prints reads/s,
                bits/base, wall time and peak CUDA memory, holds the archive
                to DIGEST_100K and K1 to at least one launch a group flush.
-  6. k3      — kernel K3 (the quality decode scan) against its plain torch
+  6. modes   — every other SE original-order mode: the 20k corpus through
+               the CLI's e and d with -qm 4 -im i and -qm 2 -qt 20 -im n,
+               the 100k corpus through pipeline.compress_file and
+               decompress_file (warm-up + timed run) with -qm o -im o (2048
+               lanes) and -qm n -im o (1024 lanes); each archive's sha256
+               must equal the reference writer's, each decode the input's
+               bytes (lossless) or the reference decoder's sha256; K3 must
+               launch once a batch where there is a quality stream and
+               never without one, K2 once a read row. Prints reads/s both
+               ways.
+  7. verify  — the repository's Tier-1 verify corpus (3,000 x 80 bp, seed
+               9) through the CLI with -qm o -im o -gs 1: the archive's
+               sha256 must be the reference writer's, and its decode the
+               input's bytes (BYTE-EXACT).
+  8. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
-               consumed): N in {8, 256, 2048} x L in {40, 104} x r_pl in
-               {1, 2} on random batches whose lengths include 0, 1 and L,
-               and the main path's second batch (4096 reads, 2 read rows,
-               104 columns) of the 20k archive, with the quality model the
-               first batch left. Then K3 and the plain scan timed on that
-               batch, the chain floor (K3 on 32 lanes) and its bound.
-  7. k2      — kernel K2 (one read row of the DNA decode — the scan and
+               consumed), for every symbol count it takes (2, 4, 8, 96):
+               random batches whose lengths include 0, 1 and L (N in {8,
+               1024, 2048}; for 8 symbols also N in {8, 256, 2048} x L in
+               {40, 104} x r_pl in {1, 2}), and the second batch (4096
+               reads, 2 read rows, 104 columns) of a real archive of each
+               mode, with the quality model the first batch left. Then on
+               that batch K3 and the plain scan timed, the chain floor (K3
+               on 32 lanes) and the bound.
+  9. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -50,20 +66,23 @@ Phases, one line each; any failure raises and the script exits non-zero:
                to the row-start ones before each repetition, outside the
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound.
-  8. decode  — the 20k archive through the port's CLI `d` with no
+ 10. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
                (DIGEST_D20K, DIGEST_D100K), K3 must have launched at
                least once a batch and K2 once a read row. Prints decode
                reads/s, wall time, peak CUDA memory and the launches.
-The last two lines are the kernels' JSON record and the result line.
+Then the run's wall time; the last two lines are the kernels' JSON record
+(K1, K2, and K3 for each symbol count) and the result line.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
 compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
-seed=42) at bench_params(); the decode digests are sha256 sums of
+seed=42) at bench_params() (DIGEST_20K, DIGEST_100K), or at the Params the
+reference CLI's parse_args makes of a mode row's flags (MODES_20K,
+MODES_100K, VERIFY); the decode digests are sha256 sums of
 fqsqueezer_tpu.pipeline.decompress_file's FASTQ output for those archives.
-Both were computed with the reference package on a CPU.
+All were computed with the reference package on a CPU.
 """
 from __future__ import annotations
 
@@ -96,12 +115,47 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate, for the ops bound
 K1_OPS_PER_SLOT = 12       # compare, shift, select, mulhi, 3 mul-adds, ...
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5")
-# (N, r_pl, L) of the K3 checks on random batches
+# (N, r_pl, L) of the K3 checks on random batches: every symbol count, and
+# more shapes for the main path's 8
+K3_MODE_SHAPES = ((8, 1, 40), (1024, 2, 104), (2048, 2, 104))
 K3_SHAPES = tuple((n, r, l) for n in (8, 256, 2048) for l in (40, 104)
                   for r in (1, 2))
-K3_OPS_PER_POS = 120   # an active lane-step: the row's loads and 8 adds,
-                       # a divide, 8 x (mulhi, correction, compare,
-                       # selects), the state update, its share of the scan
+# K3's operations an active position, counted from the function and not
+# from how the kernel computes it: besides the row's cells summed once
+# (n_sym adds; the prefix sums fall out of the sum) and a binary search for
+# the symbol (log2(n_sym) + 1 steps of a multiply and a compare), the
+# symbol's two boundary divides, the state update and renormalisation, and
+# the next context
+K3_OPS_PER_POS = 16
+# K3's symbol counts: (quality mode, the archive of phase_digest or
+# phase_modes whose second batch is the mode's real batch)
+K3_MODES = ((8, "illumina_8", "bench_20000.fqst"),
+            (4, "illumina_4", "qm4_imi_20000.fqst"),
+            (2, "binary", "qm2_imn_20000.fqst"),
+            (96, "lossless", "qmo_imo_100000.fqst"))
+# (tag, flags, archive sha256, decoded FASTQ sha256 or None: the input's
+# bytes, for lossless qualities and ids)
+MODES_20K = (
+    ("qm4_imi", ("-s", "-om", "o", "-qm", "4", "-im", "i", "-gs", "5"),
+     "1f12499d209e1a440ea96a602e4ac5e984f3f5379a93ac31597cb4003f0d8f9f",
+     "80e0c55d495f2dbc96f509db858423a3eae67c1292cb8b07c8506494d176c8fd"),
+    ("qm2_imn", ("-s", "-om", "o", "-qm", "2", "-qt", "20", "-im", "n",
+                 "-gs", "5"),
+     "4e2164d189ecac81783e0f5878bb67388d1c57fd0e1b1338919645f3263715bf",
+     "89d7e488fce6512df461cd6b37c413283bb27923491deb6ba829c7f079819de6"),
+)
+MODES_100K = (
+    ("qmo_imo", ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5"),
+     "a97530fe3ecc2e8ba702cd121509e044c3b6a8dc530a08d4a3e4c0bbfc0c46b8",
+     None),
+    ("qmn_imo", ("-s", "-om", "o", "-qm", "n", "-im", "o", "-gs", "5"),
+     "f8601adcce2843c2a706198668447880a2a9f7e89aecf7f46a677df5da0d0042",
+     "797290b02e07d317bd69f0806ad292a34c5ad1bc92b1b748ac799f89615b974a"),
+)
+# the repository's Tier-1 verify recipe: write_fastq_corpus(path, 3000, 80,
+# 100_000, seed=9), e -s -om o -qm o -im o -gs 1
+VERIFY = (("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "1"),
+          "d6b6894ec34ad38bb238629a2d83b06a3598c9bf1b5cdf622fb053fe02f228e0")
 # (N, r_pl, L, grown tables, short word stream) of the K2 checks on encoded
 # random batches
 K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
@@ -284,12 +338,13 @@ def phase_k1():
 
 
 def _corpus(n_reads):
-    """(bench corpus path, archive path) for n_reads reads."""
+    """(bench corpus path, archive path) for n_reads reads; the corpus is
+    written once a run."""
+    from fqsqueezer_tpu_torch.tools.bench_gpu import corpus
     from fqsqueezer_tpu_torch.utils.corpus import write_fastq_corpus
 
-    src = os.path.join(WORK, f"bench_{n_reads}.fastq")
-    if not os.path.exists(src):
-        write_fastq_corpus(src, n_reads, 100, 4_600_000, seed=42)
+    src = corpus(os.path.join(WORK, f"bench_{n_reads}.fastq"),
+                 write_fastq_corpus, n_reads)
     return src, os.path.join(WORK, f"bench_{n_reads}.fqst")
 
 
@@ -386,6 +441,139 @@ def phase_full():
     return launches
 
 
+def _launch_counts():
+    """(K3, K2) launches since the last _reset_launches."""
+    from fqsqueezer_tpu_torch.streams import dna, quality
+
+    return quality.K3_LAUNCHES, dna.K2_LAUNCHES
+
+
+def _reset_launches():
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.streams import dna, quality
+
+    rans.K1_LAUNCHES = quality.K3_LAUNCHES = dna.K2_LAUNCHES = 0
+
+
+def _check_decode_launches(arc, has_quality, what):
+    """K3 once a batch with a quality stream and never without one, K2 once
+    a read row, in the decode just run; returns (K3, K2) launches."""
+    k3, k2 = _launch_counts()
+    batches, rows = _batches_and_rows(arc)
+    if k3 != (batches if has_quality else 0) or k2 != rows:
+        raise RuntimeError(f"{what}: K3 launched {k3} times for {batches} "
+                           f"batches (quality stream: {has_quality}), K2 "
+                           f"{k2} times for {rows} read rows")
+    return k3, k2
+
+
+def phase_modes():
+    """Every other SE original-order mode: the 20k corpus through the CLI,
+    the 100k corpus through pipeline (warm-up + timed run). Returns the K3
+    launches of each mode's decode, by symbol count."""
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.io import fastq
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed, timed_peak
+
+    k3 = {}
+    for tag, flags, want, want_dec in MODES_20K:
+        src, _ = _corpus(DIGEST_READS)
+        arc = os.path.join(WORK, f"{tag}_{DIGEST_READS}.fqst")
+        out = os.path.join(WORK, f"{tag}_{DIGEST_READS}.dec.fastq")
+        _reset_launches()
+        rc, dt = timed(lambda: cli.main(["e", *flags, "-v", "0", "-out",
+                                          arc, src]))
+        sha = _sha256(arc)
+        if rc != 0 or sha != want:
+            raise RuntimeError(f"{tag}: the CLI's e returned {rc}, archive "
+                               f"sha256 {sha} != reference {want}")
+        _reset_launches()
+        rc, ddt = timed(lambda: cli.main(["d", "-v", "0", "-out", out,
+                                           arc]))
+        dsha = _sha256(out)
+        if rc != 0 or dsha != want_dec:
+            raise RuntimeError(f"{tag}: the CLI's d returned {rc}, FASTQ "
+                               f"sha256 {dsha} != reference decoder's "
+                               f"{want_dec}")
+        n3, n2 = _check_decode_launches(arc, True, tag)
+        k3[pipeline.make_configs(cli.parse_args(
+            ["e", *flags, src]))[1].n_sym] = n3
+        print(f"[modes] {DIGEST_READS} reads `{' '.join(flags)}` through "
+              f"the CLI: archive sha256 == reference, decode sha256 == "
+              f"reference decoder; e {dt:.2f} s, d {ddt:.2f} s; K3 "
+              f"launches {n3}, K2 {n2}")
+    for tag, flags, want, want_dec in MODES_100K:
+        src, _ = _corpus(FULL_READS)
+        arc = os.path.join(WORK, f"{tag}_{FULL_READS}.fqst")
+        out = os.path.join(WORK, f"{tag}_{FULL_READS}.dec.fastq")
+        data = fastq.read_fastq(src)
+
+        def compress():
+            return pipeline.compress_file(cli.parse_args(
+                ["e", *flags, "-v", "0", src]), src, arc, data=data)
+
+        compress()                                 # warm-up
+        stats, dt, peak = timed_peak(compress)
+        sha = _sha256(arc)
+        if sha != want:
+            raise RuntimeError(f"{tag}: 100k archive sha256 {sha} != "
+                               f"reference {want}")
+        p = cli.parse_args(["e", *flags, src])
+        qcfg = pipeline.make_configs(p)[1]
+        pipeline.decompress_file(Params(), arc, out)   # warm-up
+        _reset_launches()
+        dstats, ddt, dpeak = timed_peak(
+            lambda: pipeline.decompress_file(Params(), arc, out))
+        n3, n2 = _check_decode_launches(arc, qcfg is not None, tag)
+        dsha = _sha256(out)
+        if dsha != (want_dec or _sha256(src)):
+            raise RuntimeError(f"{tag}: decoded 100k FASTQ sha256 {dsha} != "
+                               + ("the input's" if want_dec is None else
+                                  f"reference decoder's {want_dec}"))
+        if qcfg is not None:
+            k3[qcfg.n_sym] = n3
+        n = stats["n_reads"]
+        print(f"[modes] {n} reads `{' '.join(flags)}` ({p.n_lanes} lanes): "
+              f"compress {n / dt:.1f} reads/s (wall {dt:.3f} s, peak "
+              f"{peak:.3f} GiB), {stats['bits_per_base']:.4f} bits/base, "
+              f"archive sha256 == reference; decode "
+              f"{dstats['n_reads'] / ddt:.1f} reads/s (wall {ddt:.3f} s, "
+              f"peak {dpeak:.3f} GiB), "
+              + ("the input's bytes" if want_dec is None else
+                 "sha256 == reference decoder")
+              + f"; K3 launches {n3}, K2 {n2}")
+    if set(k3) != set(quality.K3_SYM) - {8}:
+        raise RuntimeError(f"K3 ran for symbol counts {sorted(k3)}")
+    return k3
+
+
+def phase_verify():
+    """The Tier-1 verify recipe through the port's CLI on the card."""
+    from fqsqueezer_tpu_torch import cli
+    from fqsqueezer_tpu_torch.utils.corpus import write_fastq_corpus
+
+    flags, want = VERIFY
+    src = os.path.join(WORK, "vfy.fastq")
+    arc, out = os.path.join(WORK, "vfy.fqst"), os.path.join(WORK,
+                                                           "vfy_rt.fastq")
+    write_fastq_corpus(src, 3000, 80, 100_000, seed=9)
+    rc = cli.main(["e", *flags, "-v", "0", "-out", arc, src])
+    sha = _sha256(arc)
+    if rc != 0 or sha != want:
+        raise RuntimeError(f"verify: the CLI's e returned {rc}, archive "
+                           f"sha256 {sha} != reference {want}")
+    rc = cli.main(["d", "-v", "0", "-out", out, arc])
+    with open(src, "rb") as f, open(out, "rb") as g:
+        same = f.read() == g.read()
+    if rc != 0 or not same:
+        raise RuntimeError(f"verify: the CLI's d returned {rc}; decode "
+                           f"equals the input: {same}")
+    print(f"[verify] 3000 reads `{' '.join(flags)}` through the CLI: "
+          f"archive sha256 == reference, decode BYTE-EXACT")
+
+
 def _k3_check(cfg, model, lengths, words, init, L, what):
     """K3 == the plain scan on the card, exactly; returns K3's outputs."""
     import torch
@@ -406,9 +594,11 @@ def _k3_check(cfg, model, lengths, words, init, L, what):
 
 def _k3_bound_ms(cfg, model, lengths, syms, words_used, L):
     """(ms, 'bytes' | 'operations'): the least time the card could take for
-    one batch's scan — the model rows it reads (each distinct row once),
-    lengths, the consumed words and the states in, u8 symbols, states and
-    the pointer out; operations K3_OPS_PER_POS an active position."""
+    one batch's scan — the model rows it reads (each distinct row once,
+    4 * n_sym bytes), lengths, the consumed words and the states in, u8
+    symbols, states and the pointer out; operations for each active
+    position: n_sym adds, 2 * (ceil(log2(n_sym)) + 1) for the search and
+    K3_OPS_PER_POS."""
     import torch
 
     from fqsqueezer_tpu_torch.streams import quality
@@ -422,14 +612,16 @@ def _k3_bound_ms(cfg, model, lengths, syms, words_used, L):
     nbytes = (rows * cfg.n_sym * 4 + R * 4 + words_used * 4 + N * 8
               + R * L + N * 8 + 8)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = int(active.sum()) * K3_OPS_PER_POS / INT_OPS_PER_S * 1e3
+    search = 2 * ((cfg.n_sym - 1).bit_length() + 1)
+    ops = int(active.sum()) * (cfg.n_sym + search + K3_OPS_PER_POS)
+    by_ops = ops / INT_OPS_PER_S * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def phase_k3():
-    """K3 == its plain version, exact, on every shape and on the main
-    path's real batch; returns the numbers of the kernels line."""
+def _k3_one(n_sym, mode, arc_name):
+    """K3 for one symbol count: exact on random batches and on a real
+    archive's batch; then its numbers on that batch."""
     import torch
 
     from fqsqueezer_tpu_torch.streams import quality
@@ -438,16 +630,19 @@ def phase_k3():
                                                        real_quality_batch)
     from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
 
-    for N, r_pl, L in K3_SHAPES:
-        cfg = quality.QualConfig(n_lanes=N)
-        arrs = quality_batch(N * 7 + L + r_pl, N, r_pl, L, cfg.n_ctx,
-                             cfg.n_sym, N * r_pl * L // 2)
+    shapes = K3_MODE_SHAPES + (K3_SHAPES if n_sym == 8 else ())
+    for N, r_pl, L in shapes:
+        cfg = quality.QualConfig(mode=mode, n_lanes=N)
+        arrs = quality_batch(N * 7 + L + r_pl + n_sym, N, r_pl, L,
+                             cfg.n_ctx, cfg.n_sym, N * r_pl * L // 2)
         _k3_check(cfg, *(torch.from_numpy(a).cuda() for a in arrs), L,
-                  f"N={N} r_pl={r_pl} L={L}")
-    _, arc = _corpus(DIGEST_READS)
-    cfg, model, lengths, words, init, L = real_quality_batch(arc)
+                  f"{n_sym} symbols, N={N} r_pl={r_pl} L={L}")
+    cfg, model, lengths, words, init, L = real_quality_batch(
+        os.path.join(WORK, arc_name))
+    if cfg.n_sym != n_sym:
+        raise RuntimeError(f"{arc_name} holds {cfg.n_sym}-symbol qualities")
     syms, _, ptr = _k3_check(cfg, model, lengths, words, init, L,
-                             "the main path's batch")
+                             f"the {mode} archive's batch")
     args = (cfg, model, lengths, words, init, L)
     ms = _ms(lambda: quality.qual_decode_scan(*args), 20)
     chain = chain_batch(args)
@@ -456,15 +651,24 @@ def phase_k3():
     bound_ms, bound_by = _k3_bound_ms(cfg, model, lengths, syms, int(ptr),
                                       L)
     R = lengths.shape[0]
-    print(f"[k3] exact on {len(K3_SHAPES)} random shapes and the main "
-          f"path's batch (N={cfg.n_lanes}, r_pl={R // cfg.n_lanes}, L={L}, "
-          f"{int(ptr)} words): K3 {ms:.4f} ms "
-          f"({ms / (R // cfg.n_lanes * L) * 1e3:.2f} us a step), chain "
-          f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
-          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+    print(f"[k3] {n_sym} symbols ({mode}): exact on {len(shapes)} random "
+          f"shapes and the real batch ({arc_name}: N={cfg.n_lanes}, "
+          f"r_pl={R // cfg.n_lanes}, L={L}, {int(ptr)} words): K3 "
+          f"{ms:.4f} ms ({ms / (R // cfg.n_lanes * L) * 1e3:.2f} us a "
+          f"step), chain floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, "
+          f"plain torch {plain_ms:.2f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "chain_floor_ms": floor_ms}
+
+
+def phase_k3():
+    """K3 == its plain version, exact, for every symbol count, on random
+    shapes and on real batches; returns the numbers of the kernels line,
+    by symbol count."""
+    return {n_sym: _k3_one(n_sym, mode, arc) for n_sym, mode, arc in
+            K3_MODES}
 
 
 def phase_k2():
@@ -614,19 +818,23 @@ def main() -> int:
                          f"({e})")
     import torch
 
+    t0 = time.time()
     phase_device()
     os.makedirs(WORK, exist_ok=True)
     phase_build()
     k1 = phase_k1()
     phase_digest()
     launches = phase_full()
+    k3_launches = phase_modes()
+    phase_verify()
     k3 = phase_k3()
     k2 = phase_k2()
-    k3_launches, k2_launches = phase_decode()
+    k3_launches[8], k2_launches = phase_decode()
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "fqsqueezer_tpu"))
     if foreign:
         raise RuntimeError(f"the port's run imported {foreign[:5]}")
+    print(f"[done] every phase passed in {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "rans_encode_walk (K1)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
@@ -635,11 +843,13 @@ def main() -> int:
         "name": "dna_decode_row (K2)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
-        "launches": k2_launches, **k2}, {
-        "name": "qual_decode_scan (K3)", "route": "cuda",
+        "launches": k2_launches, **k2}] + [{
+        "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode})",
+        "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/quality.py:171",
-        "launches": k3_launches, **k3}]}))
+        "launches": k3_launches[n_sym], **k3[n_sym]}
+        for n_sym, mode, _ in K3_MODES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

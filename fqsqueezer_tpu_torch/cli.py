@@ -23,11 +23,13 @@ it), plus one option of the port's own:
 
     python -m fqsqueezer_tpu_torch.cli d -out X.fastq X.fqst
 
-Single-end original order with Illumina-8 quality and no ids is ported, for
-`e` and for `d` (whose modes come from the archive's header). Every other
-mode exits 1 with one line naming it, as does a file that is not an
-archive. The work runs on the first CUDA card; a machine without a visible
-card exits 1 with one line unless `--device cpu` asks for the CPU.
+Single-end original order is ported in every quality mode (-qm o|8|4|2|n,
+with -qt) and id mode (-im o|i|n; the default is -im i), for `e` and for
+`d` (whose modes come from the archive's header). Sorted order (-om s),
+paired-end (-p), multi-chip meshes (-dp/-tp) and inputs above 256 MiB
+exit 1 with one line naming them, as does a file that is not an archive.
+The work runs on the first CUDA card; a machine without a visible card
+exits 1 with one line unless `--device cpu` asks for the CPU.
 """
 from __future__ import annotations
 

@@ -13,6 +13,10 @@
 // and the lanes that renormalize take consecutive words of ONE stream in
 // lane order: an exclusive scan over all N lanes at every step.
 //
+// Every quality mode runs it: the model row has n_sym = 2 (binary), 4
+// (Illumina-4), 8 (Illumina-8) or 96 (lossless) cells, one instantiation
+// of the kernel each.
+//
 // What bounds it on an H100: neither bytes nor operations over the card.
 // The bytes it must move (the model rows it reads, the words it consumes,
 // u8 symbols out) take microseconds at 3.35 TB/s; the time is the chain of
@@ -28,21 +32,29 @@
 //  * The scan (cluster_scan.cuh, shared with K2): each warp's ballot
 //    total is stored into every block's shared memory, double-buffered by
 //    step parity, then ONE cluster barrier a step.
-//  * A model row (8 int32 cells, Illumina-8's symbols) is two 16-byte
-//    loads: the load unit pays per row a warp touches, and eight 4-byte
-//    loads took about a third more time a batch than two 16-byte ones.
-//  * cdf boundaries come from one reciprocal of the row total a lane and
-//    step, q' = umulhi(num, floor((2^32-1)/total)), exact after one
-//    correction (as K1's divide); the lookup is the reference's masked
-//    max/min over the 8 boundaries, so zero-width steps resolve as there.
+//  * A model row of 2, 4 or 8 cells is one 8-byte, one 16-byte or two
+//    16-byte loads: the load unit pays per row a warp touches, and eight
+//    4-byte loads took about a third more time a batch than two 16-byte
+//    ones. A lossless row (96 cells, 384 B) is walked in 16-byte pieces,
+//    twice: once for its total, once for the lookup, which stops at the
+//    piece that holds the symbol; no 96-entry array is kept in registers.
+//  * The lookup needs no divide a boundary. Boundary k + 1 is
+//    floor(run_k << SB / total), run_k the smoothed counts of cells 0..k,
+//    and floor(run << SB / total) <= slot exactly when
+//    run << SB < (slot + 1) * total: a multiply and a compare. The symbol
+//    is the count of boundaries <= slot — the reference's cdf_lookup, so
+//    a zero-width step resolves as there — and only its two boundaries
+//    take a divide, through one reciprocal of the row total,
+//    q' = umulhi(num, floor((2^32-1)/total)), exact after one correction
+//    (as K1's divide).
 //  * Masked positions read no model row. A read past the stream's end
 //    clamps to its last word, as the reference's gather does.
 // Preconditions: the model is 16-byte aligned (the wrapper checks), and
-// total << SB fits 32 bits (models.model_update keeps smoothed row totals
-// at most 2^13).
+// (slot + 1) * total fits 32 bits: models.model_update keeps smoothed row
+// totals at most 2^13 + n_sym, and SB <= 16.
 // Later work: the model is frozen for the batch, so a wide kernel could
-// build every row's cdf once and the scan would read 8 u16 boundaries
-// with no divide.
+// build every row's cdf once and the scan would read u16 boundaries with
+// no divide.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,7 +71,6 @@ constexpr int kWarps = kThreads / 32;
 static_assert(kThreads % 32 == 0 && kMaxLanes / kThreads <= 16 &&
                   kMaxLanes / 32 <= fqtz::kScanMaxWarps,
               "a cluster of at most 16 blocks holds every lane");
-constexpr int kSym = 8;              // K3_SYM in streams/quality.py
 constexpr uint32_t kRansL = 1u << 16;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -68,44 +79,97 @@ __device__ __forceinline__ uint32_t pos_bucket(int i) {
   return static_cast<uint32_t>(b < 15 ? b : 15);
 }
 
+// floor(num / total) for num < 2^32, from m = floor((2^32 - 1) / total).
+__device__ __forceinline__ uint32_t div_by(uint32_t num, uint32_t total,
+                                           uint32_t m) {
+  uint32_t q = __umulhi(num, m);
+  q += (num - q * total) >= total ? 1u : 0u;
+  return q;
+}
+
+// A row's cells, smoothed (+1 each: ALPHA), in one or two wide loads.
+template <int kSym>
+__device__ __forceinline__ void load_row(const int32_t* __restrict__ model,
+                                         uint32_t ctx, uint32_t (&v)[kSym]) {
+  static_assert(kSym == 2 || kSym == 4 || kSym == 8, "a short row");
+  if constexpr (kSym == 2) {
+    const int2 a = __ldg(reinterpret_cast<const int2*>(model) + ctx);
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    const int4* row = reinterpret_cast<const int4*>(model) + (kSym / 4) * ctx;
+#pragma unroll
+    for (int p = 0; p < kSym / 4; ++p) {
+      const int4 a = __ldg(row + p);
+      v[4 * p] = a.x; v[4 * p + 1] = a.y; v[4 * p + 2] = a.z;
+      v[4 * p + 3] = a.w;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSym; ++k) v[k] += 1u;
+}
+
+// One cell of the lookup: run takes the cell's smoothed count; while the
+// boundary after it is <= slot, the symbol counts it and lo moves to it,
+// and the first boundary above the slot is hi.
+__device__ __forceinline__ void look(uint32_t cell, uint32_t lim, int sb,
+                                     uint32_t& run, uint32_t& sym,
+                                     uint32_t& lo, uint32_t& hi) {
+  run += cell;
+  const bool le = (run << sb) < lim;
+  sym += le ? 1u : 0u;
+  lo = le ? run : lo;
+  hi = !le && run < hi ? run : hi;
+}
+
 // One lane's symbol lookup and state update before renormalization.
-// Returns the symbol (0 when masked); x becomes the pre-renorm state. The
-// row's 8 cells arrive as two 16-byte loads: a warp-wide load of 32
-// scattered rows costs the SM's load unit per row touched, so fewer,
-// wider loads are cheaper than eight 4-byte ones.
+// Returns the symbol (0 when masked); x becomes the pre-renorm state.
+template <int kSym>
 __device__ __forceinline__ uint32_t lane_step(
     const int32_t* __restrict__ model, uint32_t ctx, bool active,
     uint32_t& x, int sb) {
   const uint32_t slot = x & ((1u << sb) - 1u);
   uint32_t f = 1u << sb, c = 0, sym = 0;
   if (active) {
-    const int4* row = reinterpret_cast<const int4*>(model) + 2 * ctx;
-    const int4 lo = __ldg(row);
-    const int4 hi = __ldg(row + 1);
-    const int v[kSym] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    uint32_t total = 0;
+    uint32_t total = 0, run = 0, lo = 0, hi;
+    if constexpr (kSym <= 8) {
+      uint32_t v[kSym];
+      load_row<kSym>(model, ctx, v);
 #pragma unroll
-    for (int k = 0; k < kSym; ++k) total += static_cast<uint32_t>(v[k]) + 1u;
-    const uint32_t m = kFull / total;
-    uint32_t run = 0, cum = 0, nxt = static_cast<uint32_t>(kSym + 1) << 16;
+      for (int k = 0; k < kSym; ++k) total += v[k];
+      const uint32_t lim = (slot + 1u) * total;
+      hi = total;
 #pragma unroll
-    for (int k = 0; k < kSym; ++k) {
-      run += static_cast<uint32_t>(v[k]) + 1u;
-      const uint32_t num = run << sb;
-      uint32_t q = __umulhi(num, m);
-      q += (num - q * total) >= total ? 1u : 0u;     // boundary k + 1
-      const bool le = q <= slot;
-      sym += le ? 1u : 0u;
-      cum = le && q > cum ? q : cum;
-      nxt = !le && q < nxt ? q : nxt;
+      for (int k = 0; k < kSym; ++k) look(v[k], lim, sb, run, sym, lo, hi);
+    } else {
+      static_assert(kSym % 4 == 0, "a long row is walked in 16-byte pieces");
+      const int4* row = reinterpret_cast<const int4*>(model) + (kSym / 4) * ctx;
+#pragma unroll 4
+      for (int p = 0; p < kSym / 4; ++p) {
+        const int4 a = __ldg(row + p);
+        total += static_cast<uint32_t>(a.x) + static_cast<uint32_t>(a.y) +
+                 static_cast<uint32_t>(a.z) + static_cast<uint32_t>(a.w) + 4u;
+      }
+      const uint32_t lim = (slot + 1u) * total;
+      hi = total;
+      // the last boundary (run = total) is above every slot, so the walk
+      // ends at the piece where hi first moves
+      for (int p = 0; p < kSym / 4 && hi == total; ++p) {
+        const int4 a = __ldg(row + p);
+        look(static_cast<uint32_t>(a.x) + 1u, lim, sb, run, sym, lo, hi);
+        look(static_cast<uint32_t>(a.y) + 1u, lim, sb, run, sym, lo, hi);
+        look(static_cast<uint32_t>(a.z) + 1u, lim, sb, run, sym, lo, hi);
+        look(static_cast<uint32_t>(a.w) + 1u, lim, sb, run, sym, lo, hi);
+      }
     }
-    f = nxt - cum;
-    c = cum;
+    const uint32_t m = kFull / total;
+    c = div_by(lo << sb, total, m);
+    f = div_by(hi << sb, total, m) - c;
   }
   x = f * (x >> sb) + slot - c;
   return active ? sym : 0u;
 }
 
+template <int kSym>
 __global__ void __launch_bounds__(kThreads)
     qual_decode_kernel(const int32_t* __restrict__ model, int hist_bits,
                        int n_hist,
@@ -136,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t hist = hist_mask;
     uint8_t* out = syms + read * L;
     for (int i = 0; i < L; ++i) {
-      const uint32_t sym = lane_step(model, hist | pos_bucket(i) << pos_shift,
-                                     i < len, x, sb);
+      const uint32_t sym = lane_step<kSym>(
+          model, hist | pos_bucket(i) << pos_shift, i < len, x, sb);
       const bool take = live && x < kRansL;
       // exclusive scan of the renormalizing lanes, in lane order
       const fqtz::TakeScan sc = fqtz::cluster_take_scan(
@@ -162,26 +226,37 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Launches K3 on `stream` for one batch of R = N * r_pl reads: model int32
-// [n_ctx, 8] (16-byte aligned), lengths int32 [R] (read r = lane * r_pl +
-// row), words int32 [n_words] (u16 values), init int64 [N] (u32 states);
-// writes syms u8 [R, L], fin int64 [N] and ptr_out int64 [1] (words
-// consumed). Returns the cudaError of the launch (0 = launched).
+// [n_ctx, A] (16-byte aligned; A = 2, 4, 8 or 96 cells a row), lengths
+// int32 [R] (read r = lane * r_pl + row), words int32 [n_words] (u16
+// values), init int64 [N] (u32 states); writes syms u8 [R, L], fin int64
+// [N] and ptr_out int64 [1] (words consumed). Returns the cudaError of the
+// launch (0 = launched).
 extern "C" int fqtz_qual_decode(const void* model, int A, int hist_bits,
                                 int n_hist, const void* lengths, int r_pl,
                                 int L, const void* words, int n_words,
                                 const void* init, int N, int sb, void* syms,
                                 void* fin, void* ptr_out, void* stream) {
-  if (N < 1 || N > kMaxLanes || A != kSym || sb < 1 || sb > 16 ||
-      n_words < 1 || r_pl < 0 || L < 0 || hist_bits < 1 || n_hist < 1 ||
+  if (N < 1 || N > kMaxLanes || sb < 1 || sb > 16 || n_words < 1 ||
+      r_pl < 0 || L < 0 || hist_bits < 1 || n_hist < 1 ||
       hist_bits * n_hist > 26 ||
       (reinterpret_cast<uintptr_t>(model) & 15u) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = (N + kThreads - 1) / kThreads;
-  return static_cast<int>(fqtz::launch_one_cluster(
-      qual_decode_kernel, n_blocks, kThreads,
-      static_cast<cudaStream_t>(stream), static_cast<const int32_t*>(model),
-      hist_bits, n_hist, static_cast<const int32_t*>(lengths), r_pl, L,
-      static_cast<const int32_t*>(words), n_words,
-      static_cast<const int64_t*>(init), N, sb, static_cast<uint8_t*>(syms),
-      static_cast<int64_t*>(fin), static_cast<int64_t*>(ptr_out)));
+  const auto launch = [&](auto kernel) {
+    return static_cast<int>(fqtz::launch_one_cluster(
+        kernel, n_blocks, kThreads, static_cast<cudaStream_t>(stream),
+        static_cast<const int32_t*>(model), hist_bits, n_hist,
+        static_cast<const int32_t*>(lengths), r_pl, L,
+        static_cast<const int32_t*>(words), n_words,
+        static_cast<const int64_t*>(init), N, sb,
+        static_cast<uint8_t*>(syms), static_cast<int64_t*>(fin),
+        static_cast<int64_t*>(ptr_out)));
+  };
+  switch (A) {   // K3_SYM in streams/quality.py
+    case 2: return launch(qual_decode_kernel<2>);
+    case 4: return launch(qual_decode_kernel<4>);
+    case 8: return launch(qual_decode_kernel<8>);
+    case 96: return launch(qual_decode_kernel<96>);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -33,6 +33,15 @@ def model_cdf(freqs: torch.Tensor, ctx: torch.Tensor,
     return _rows_to_cdf(freqs[ctx] + ALPHA, scale_bits)
 
 
+def model_cdf_masked(freqs: torch.Tensor, alpha_lut: torch.Tensor,
+                     ctx: torch.Tensor, scale_bits: int) -> torch.Tensor:
+    """model_cdf with a per-context ALPHA mask (alpha_lut: [n_ctx, A] 0/1):
+    a context smooths only the symbols it can code, so the others quantize
+    to zero-width cdf steps (cdf_lookup resolves those as the reference
+    does). The id stream's cdf (codec v2)."""
+    return _rows_to_cdf(freqs[ctx] + alpha_lut[ctx], scale_bits)
+
+
 def _mix_rows(f, g, w: int, b: int, A: int):
     """Two-level mix of a fine row f and a coarse row g (see
     fqsqueezer_tpu.ops.models.model_cdf_mix): the coarse row contributes

@@ -1,14 +1,17 @@
 """Compress and decompress orchestration — single-end original order.
 
-Port of fqsqueezer_tpu/pipeline.py's SE path. Batches are modeled forward on
+Port of fqsqueezer_tpu/pipeline.py's SE path, every quality mode (-qm
+o|8|4|2|n) and id mode (-im o|i|n). Batches are modeled forward on
 the device (tables and models evolve), their (freq, cum) grids are kept on
 the device, and at each group flush every stream's grids are entropy-coded
 as one reverse rANS walk each — all streams in one launch of kernel K1 on a
 CUDA device — so lane states chain across the group and one state block per
 stream is stored. Decompression replays it batch by batch: each batch's
 words are decoded forward from the lane states the previous batch left
-(meta, then DNA, then quality — K3 on a CUDA device), the state evolves as
-the encoder's did, and the group end replays the encoder's table growth.
+(meta, then DNA, then quality — K3 on a CUDA device — then ids), the state
+evolves as the encoder's did, and the group end replays the encoder's
+table growth. Ids are tokenized on the host into per-read planes chained
+in file order (streams/ids.py); the chain restarts at every group.
 The header, container, batch geometry and group boundaries are the
 reference package's (through this package's own copies of params,
 archive and io.fastq), so the archives are byte-identical to
@@ -31,13 +34,14 @@ from . import archive
 from .io import fastq
 from .ops import models, rans, tables
 from .params import DnaMode, IdMode, Params, QualityMode
-from .streams import common, dna, meta, quality
+from .streams import common, dna, ids, meta, quality
 
 
 class CodecState(NamedTuple):
     dna: dna.DnaState
     meta: torch.Tensor
     qual: Optional[torch.Tensor]
+    id: Optional[torch.Tensor] = None
 
 
 def unported_modes(p: Params) -> list:
@@ -46,18 +50,17 @@ def unported_modes(p: Params) -> list:
     if p.dna_mode != DnaMode.SE_ORIGINAL:
         out.append({DnaMode.SE_SORTED: "sorted order (-om s)"}.get(
             p.dna_mode, "paired-end (-p)"))
-    if p.id_mode != IdMode.NONE:
-        out.append(f"id mode {p.id_mode.value} (-im o|i)")
-    if p.quality_mode != QualityMode.ILLUMINA_8:
-        out.append(f"quality mode {p.quality_mode.value} (-qm o|4|2|n)")
+    if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
+        out.append(f"id codec v{p.id_codec_v} (legacy id_codec_v header "
+                   f"value)")
     if p.mesh_dp * p.mesh_tp > 1:
         out.append("multi-chip mesh (-dp/-tp)")
     return out
 
 
 def make_configs(p: Params):
-    """(DnaConfig, QualConfig | None, MetaConfig) from Params — the same
-    mapping as fqsqueezer_tpu.pipeline.make_configs."""
+    """(DnaConfig, QualConfig | None, MetaConfig, IdConfig | None) from
+    Params — the same mapping as fqsqueezer_tpu.pipeline.make_configs."""
     is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
     row_global = p.dna_row_global > 0
     dcfg = dna.DnaConfig(
@@ -99,23 +102,32 @@ def make_configs(p: Params):
         scale_bits=p.scale_bits, n_lanes=p.n_lanes,
         with_lcp=p.dna_mode in (DnaMode.SE_SORTED, DnaMode.PE_SORTED),
         lcp_stride=2 if is_pe else 1)
-    return dcfg, qcfg, mcfg
+    icfg = None
+    if p.id_mode != IdMode.NONE:
+        icfg = ids.IdConfig(max_id_len=p.max_id_len,
+                            n_fields=p.id_n_fields, scale_bits=p.scale_bits,
+                            n_lanes=p.n_lanes, codec_v=p.id_codec_v)
+    return dcfg, qcfg, mcfg, icfg
 
 
-def state_create(dcfg, qcfg, device=None) -> CodecState:
+def state_create(dcfg, qcfg, icfg=None, device=None) -> CodecState:
     return CodecState(
         dna=dna.dna_state_create(dcfg, device),
         meta=meta.meta_state_create(device),
         qual=None if qcfg is None else quality.qual_state_create(qcfg,
-                                                                 device))
+                                                                 device),
+        id=None if icfg is None else ids.id_state_create(device))
 
 
-def _model_batch(dcfg, qcfg, mcfg, state: CodecState, codes: torch.Tensor,
-                 qsyms: torch.Tensor, lengths: torch.Tensor):
+def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
+                 codes: torch.Tensor, qsyms: Optional[torch.Tensor],
+                 lengths: torch.Tensor, id_batch=(), n_valid=None):
     """Modeling + state evolution of one batch. codes: [R, L8] int64 base
-    codes (N = 4), qsyms: [R, L8] int64 quantized qualities, lengths: [R]
-    int64. Returns ([(freq, cum) int32 [T, N] lane grids per stream], new
-    state)."""
+    codes (N = 4), qsyms: [R, L8] int64 quantized qualities (None without
+    a quality stream), lengths: [R] int64, id_batch: the encode_ids_host
+    planes as tensors (with an id stream), n_valid: the batch's real reads.
+    Returns ([(freq, cum) int32 [T, N] lane grids per stream: meta, dna,
+    then qual and id where present], new state)."""
     kcodes = torch.where(codes >= 4, 0, codes)
 
     m_ctx, m_syms, m_f, m_c = meta.meta_modeling(mcfg, state.meta, lengths)
@@ -143,26 +155,50 @@ def _model_batch(dcfg, qcfg, mcfg, state: CodecState, codes: torch.Tensor,
             state.qual, q_ctx.reshape(-1), qsyms.reshape(-1),
             q_act.reshape(-1))
         grids.append((grid(q_f, qcfg.n_lanes), grid(q_c, qcfg.n_lanes)))
-    return grids, CodecState(dna=d_state, meta=m_model, qual=q_model)
+    i_model = None
+    if icfg is not None:
+        i_ctx, i_syms, i_f, i_c, i_act = ids.id_modeling(
+            icfg, state.id, *id_batch, n_valid=n_valid)
+        i_model = models.model_update(
+            state.id, i_ctx.reshape(-1), i_syms.reshape(-1),
+            i_act.reshape(-1))
+        grids.append((grid(i_f, icfg.n_lanes), grid(i_c, icfg.n_lanes)))
+    return grids, CodecState(dna=d_state, meta=m_model, qual=q_model,
+                             id=i_model)
 
 
-def _decode_batch(dcfg, qcfg, mcfg, R: int, L: int, state: CodecState,
-                  m_words, m_states, d_words, d_states, q_words, q_states):
-    """Decode one padded batch of R reads and L columns. Returns (lengths
-    [R] int64, codes [R, L] uint8, qsyms [R, L] uint8, new state, (meta,
-    dna, qual) final lane states) — the last chain into the group's next
-    batch."""
+def _decode_batch(dcfg, qcfg, mcfg, icfg, R: int, L: int,
+                  state: CodecState, streams, n_valid: int):
+    """Decode one padded batch of R reads and L columns. streams: (words,
+    initial lane states) of each stream the batch has, in archive order
+    (meta, dna, then qual and id where present). Returns (lengths [R]
+    int64, codes [R, L] uint8, qsyms [R, L] uint8 or None, the id planes
+    or None, new state, the streams' final lane states) — the last chain
+    into the group's next batch."""
+    (m_words, m_states), (d_words, d_states), *rest = streams
     lengths, m_model, m_x, _ = meta.meta_decode_batch(
         mcfg, state.meta, R, m_words, m_states)
     lengths = torch.clamp(lengths, max=L)
     codes, d_state, d_x, _, _ = dna.dna_decode_batch(
         dcfg, state.dna, lengths, d_words, d_states, L)
-    qsyms, q_model, q_x, _ = quality.qual_decode_batch(
-        qcfg, state.qual, lengths, q_words, q_states, L)
-    # u8 planes keep the device-to-host pull at about a byte a base
-    return (lengths, codes.to(torch.uint8), qsyms.to(torch.uint8),
-            CodecState(dna=d_state, meta=m_model, qual=q_model),
-            (m_x, d_x, q_x))
+    final = [m_x, d_x]
+    qsyms = q_model = None
+    if qcfg is not None:
+        q_words, q_states = rest.pop(0)
+        qsyms, q_model, q_x, _ = quality.qual_decode_batch(
+            qcfg, state.qual, lengths, q_words, q_states, L)
+        # u8 planes keep the device-to-host pull at about a byte a base
+        qsyms = qsyms.to(torch.uint8)
+        final.append(q_x)
+    id_planes = i_model = None
+    if icfg is not None:
+        i_words, i_states = rest.pop(0)
+        (*id_planes, i_model, i_x, _) = ids.id_decode_batch(
+            icfg, state.id, R, i_words, i_states, n_valid)
+        final.append(i_x)
+    return (lengths, codes.to(torch.uint8), qsyms, id_planes,
+            CodecState(dna=d_state, meta=m_model, qual=q_model, id=i_model),
+            final)
 
 
 def _group_grid(fcs, scale_bits: int, n_lanes: int):
@@ -303,7 +339,8 @@ def compress_file(p: Params, in_path: str, out_path: str,
     """SE original-order compression of an in-RAM input (`data`, or the
     parsed `in_path`) into `out_path`, on `device` (default: the first CUDA
     card; see resolve_device). Returns the same stats dict as the reference
-    package."""
+    package. With an id stream, p.max_id_len and p.id_n_fields are set
+    from the input before the header is written, as the reference does."""
     missing = unported_modes(p)
     if missing:
         raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
@@ -315,11 +352,21 @@ def compress_file(p: Params, in_path: str, out_path: str,
         data = (fastq.concat_fastq([fastq.read_fastq(f) for f in in_paths])
                 if len(in_paths) > 1 else fastq.read_fastq(in_paths[0]))
 
-    dcfg, qcfg, mcfg = make_configs(p)
-    state = state_create(dcfg, qcfg, device)
-    n_streams = 2 + (qcfg is not None)
+    id_list = data.ids
+    if p.id_mode == IdMode.INSTRUMENT:
+        id_list = ids.instrument_prefix(id_list)
+    id_chain = None
+    if p.id_mode != IdMode.NONE:
+        p.max_id_len = max(8, max((len(s) for s in id_list), default=8))
+        p.id_n_fields = ids.count_fields(id_list)
+        id_chain = [None]   # one file-order chain (ids.read_lanes)
+
+    dcfg, qcfg, mcfg, icfg = make_configs(p)
+    state = state_create(dcfg, qcfg, icfg, device)
+    skeys = (["meta", "dna"] + (["qual"] if qcfg else [])
+             + (["id"] if icfg else []))
+    n_streams = len(skeys)
     qfwd = quality.qual_maps(qcfg.mode, qcfg.qt)[0] if qcfg else None
-    skeys = ["meta", "dna"] + (["qual"] if qcfg else [])
 
     writer = archive.ArchiveWriter(out_path, p.store_params())
     stream_bytes = {"meta": 0, "dna": 0, "qual": 0, "id": 0, "pe": 0,
@@ -360,6 +407,10 @@ def compress_file(p: Params, in_path: str, out_path: str,
             payload_crc=group_crc)
         group_crc = 0
         group_fc, group_meta, group_bytes = [], [], 0
+        if id_chain is not None:
+            # groups stay independently decodable: the id chain restarts,
+            # so a group's first read escapes to raw bytes
+            id_chain[:] = [None] * len(id_chain)
         state = state._replace(
             dna=grow_tables(dcfg, state.dna, p.verbosity, stats=fills))
 
@@ -372,18 +423,29 @@ def compress_file(p: Params, in_path: str, out_path: str,
         codes_u8 = _pad_batch(data.codes[start:start + take], padded)
         lengths = _pad_batch(data.lengths[start:start + take],
                              padded).astype(np.int32)
-        quals_u8 = _pad_batch(data.quals[start:start + take], padded)
         # columns padded to a multiple of 8: the width the reference models,
         # writes as the batch's max_len and covers with the crc
         L = codes_u8.shape[1]
         L8 = -(-L // 8) * 8
-        if L8 != L:
-            codes_u8 = np.pad(codes_u8, ((0, 0), (0, L8 - L)))
-            quals_u8 = np.pad(quals_u8, ((0, 0), (0, L8 - L)))
+        codes_u8 = np.pad(codes_u8, ((0, 0), (0, L8 - L)))
         group_crc = payload_crc(group_crc, codes_u8[:take], lengths[:take])
-        qsyms = qfwd[np.minimum(quals_u8, 95)]
-        grids, state = _model_batch(dcfg, qcfg, mcfg, state, to_dev(codes_u8),
-                                    to_dev(qsyms), to_dev(lengths))
+        qsyms = None
+        if qcfg is not None:
+            quals_u8 = np.pad(_pad_batch(data.quals[start:start + take],
+                                         padded), ((0, 0), (0, L8 - L)))
+            qsyms = to_dev(qfwd[np.minimum(quals_u8, 95)])
+        id_batch = ()
+        if icfg is not None:
+            id_batch = tuple(torch.from_numpy(a).to(device) for a in
+                             ids.encode_ids_host(
+                                 id_list[start:start + take]
+                                 + [b""] * (padded - take),
+                                 ids.read_lanes(padded, p.n_lanes),
+                                 icfg.n_fields, icfg.max_id_len, id_chain,
+                                 n_valid=take))
+        grids, state = _model_batch(dcfg, qcfg, mcfg, icfg, state,
+                                    to_dev(codes_u8), qsyms, to_dev(lengths),
+                                    id_batch, take)
         group_fc.append(grids)
         group_meta.append((take, L8))
         # u16 bytes per grid entry, whatever dtype the grids are held in
@@ -455,16 +517,17 @@ def fit_words(words: np.ndarray, cap: int, device) -> torch.Tensor:
 
 
 def _decode_groups(p: Params, reader, writer, device) -> None:
-    dcfg, qcfg, mcfg = make_configs(p)
-    state = state_create(dcfg, qcfg, device)
-    qrev = quality.qual_maps(qcfg.mode, qcfg.qt)[1]
+    dcfg, qcfg, mcfg, icfg = make_configs(p)
+    state = state_create(dcfg, qcfg, icfg, device)
+    qrev = quality.qual_maps(qcfg.mode, qcfg.qt)[1] if qcfg else None
+    id_chain = [None] if icfg is not None else None
     first = _first_batch(p.n_lanes, p.max_batch_reads, 0, p.n_lanes)
     cuda = device.type == "cuda"
 
     def pull(t):
         """Start the device-to-host copy of a batch output; the host reads
         it only after the batch's event (see drain)."""
-        return t.to("cpu", non_blocking=cuda)
+        return None if t is None else t.to("cpu", non_blocking=cuda)
 
     gi = -1
     while True:
@@ -474,6 +537,8 @@ def _decode_groups(p: Params, reader, writer, device) -> None:
         gi += 1
         gstates, batches, want_crc = rec
         got_crc = 0
+        if id_chain is not None:
+            id_chain[:] = [None] * len(id_chain)   # mirrors flush_group
         cur = [torch.from_numpy(st.astype(np.int64)).to(device)
                for st in gstates]
         pending = None
@@ -482,7 +547,7 @@ def _decode_groups(p: Params, reader, writer, device) -> None:
             """Render one decoded batch; runs while the device works on
             the next (one-batch lookahead)."""
             nonlocal got_crc
-            take, done, lengths, codes, qsyms = pend
+            take, padded, done, lengths, codes, qsyms, id_planes = pend
             if done is not None:
                 done.synchronize()
             lengths = lengths.numpy()
@@ -492,21 +557,39 @@ def _decode_groups(p: Params, reader, writer, device) -> None:
             codes = np.where(poscols < lengths[:, None], codes, 0).astype(
                 np.uint8)
             got_crc = payload_crc(got_crc, codes, lengths)
-            writer.write_batch(codes, qrev[qsyms.numpy()].astype(np.uint8),
-                               lengths)
+            if qrev is not None:
+                quals = qrev[qsyms.numpy()].astype(np.uint8)
+            else:
+                quals = np.full(codes.shape, p.quality_thr, np.uint8)
+            id_out = None
+            if id_planes is not None:
+                # host detokenization replays the encoder's chain
+                id_out = ids.decode_ids_host(
+                    *(a.numpy() for a in id_planes),
+                    ids.read_lanes(padded, p.n_lanes), id_chain,
+                    n_valid=take)[:take]
+            writer.write_batch(codes, quals, lengths, ids=id_out)
 
         for take, L, streams in batches:
             padded = canonical_padded(take, first, p.max_batch_reads,
                                       p.n_lanes)
             cap = padded * max(L, 2)
-            (m_words, _), (d_words, _), (q_words, _) = streams
-            (lengths, codes, qsyms, state, cur) = _decode_batch(
-                dcfg, qcfg, mcfg, padded, L, state,
-                fit_words(m_words, mcfg.n_per_read * padded, device), cur[0],
-                fit_words(d_words, cap, device), cur[1],
-                fit_words(q_words, cap, device), cur[2])
+            caps = [mcfg.n_per_read * padded, cap]
+            if qcfg is not None:
+                caps.append(cap)
+            if icfg is not None:
+                caps.append(padded * icfg.w_all + 4 * p.n_lanes)
+            if len(streams) != len(caps) or len(cur) != len(caps):
+                raise ValueError(f"group {gi}: {len(streams)} streams, the "
+                                 f"header's modes code {len(caps)}")
+            (lengths, codes, qsyms, id_planes, state, cur) = _decode_batch(
+                dcfg, qcfg, mcfg, icfg, padded, L, state,
+                [(fit_words(w, c, device), x)
+                 for (w, _), c, x in zip(streams, caps, cur)], take)
             out = (pull(lengths[:take].to(torch.int32)), pull(codes[:take]),
-                   pull(qsyms[:take]))
+                   pull(None if qsyms is None else qsyms[:take]),
+                   None if id_planes is None else
+                   [pull(a) for a in id_planes])
             done = None
             if cuda:
                 done = torch.cuda.Event()
@@ -514,7 +597,7 @@ def _decode_groups(p: Params, reader, writer, device) -> None:
             # the device starts on this batch while the host drains the last
             if pending is not None:
                 drain(pending)
-            pending = (take, done) + out
+            pending = (take, padded, done) + out
         # the fill statistics are queued before the last drain, so their
         # pull waits on no more than it must
         fills = fill_stats_device(dcfg, state.dna)

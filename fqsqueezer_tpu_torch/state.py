@@ -2,9 +2,10 @@
 
 The numpy form is a dict of the arrays of fqsqueezer_tpu.pipeline.CodecState
 after jax.device_get, with the reference's dtypes: "siv", "s_tc", "b_tc"
-(uint32, from CodecState.dna), "model" (int32, CodecState.dna.model), "meta"
-and "qual" (int32, "qual" may be None). It lets both packages start from the
-same mid-stream state, and is the format group snapshots will share.
+(uint32, from CodecState.dna), "model" (int32, CodecState.dna.model), "meta",
+"qual" and "id" (int32; "qual" and "id" may be None or absent). It lets both
+packages start from the same mid-stream state, and is the format group
+snapshots will share.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from .pipeline import CodecState
 from .streams.dna import DnaState
 
 _U32 = ("siv", "s_tc", "b_tc")
-_I32 = ("model", "meta", "qual")
+_I32 = ("model", "meta", "qual", "id")
 
 
 def state_from_numpy(d: dict, device=None) -> CodecState:
@@ -34,14 +35,14 @@ def state_from_numpy(d: dict, device=None) -> CodecState:
     return CodecState(
         dna=DnaState(siv=t("siv"), s_tc=t("s_tc"), b_tc=t("b_tc"),
                      model=t("model")),
-        meta=t("meta"), qual=t("qual"))
+        meta=t("meta"), qual=t("qual"), id=t("id"))
 
 
 def state_to_numpy(state: CodecState) -> dict:
     """dict of numpy arrays in the reference package's dtypes."""
     src = {"siv": state.dna.siv, "s_tc": state.dna.s_tc,
            "b_tc": state.dna.b_tc, "model": state.dna.model,
-           "meta": state.meta, "qual": state.qual}
+           "meta": state.meta, "qual": state.qual, "id": state.id}
     return {k: None if v is None else
             v.cpu().numpy().astype(np.uint32 if k in _U32 else np.int32)
             for k, v in src.items()}

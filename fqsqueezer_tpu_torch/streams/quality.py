@@ -138,7 +138,9 @@ def qual_modeling(cfg: QualConfig, model: torch.Tensor, qsyms: torch.Tensor,
 # scan never counts.
 K3_LAUNCHES = 0
 K3_MAX_LANES = 2048   # one cluster holds every lane (kMaxLanes in the source)
-K3_SYM = 8            # symbols a model row: Illumina-8 (kSym in the source)
+# symbols a model row K3 takes: binary, Illumina-4, Illumina-8, lossless (one
+# instantiation each in the source)
+K3_SYM = (2, 4, 8, 96)
 
 
 def qual_decode_scan_plain(cfg: QualConfig, model: torch.Tensor,
@@ -189,9 +191,9 @@ def _check_k3(cfg, model, lengths, words, init_states, L):
     if not 1 <= N <= K3_MAX_LANES:
         raise ValueError(f"K3: {N} lanes, one cluster takes "
                          f"1..{K3_MAX_LANES}")
-    if cfg.n_sym != K3_SYM:
-        raise ValueError(f"K3: quality mode {cfg.mode} is not taken (it "
-                         f"takes {K3_SYM}-symbol models)")
+    if cfg.n_sym not in K3_SYM:
+        raise ValueError(f"K3: {cfg.n_sym}-symbol models are not taken (it "
+                         f"takes {', '.join(map(str, K3_SYM))})")
     want = (("model", model, torch.int32, (cfg.n_ctx, cfg.n_sym)),
             ("lengths", lengths, torch.int32, None),
             ("words", words, torch.int32, None),

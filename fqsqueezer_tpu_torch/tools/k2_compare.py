@@ -70,8 +70,8 @@ def real_dna_batch(arc, device="cuda"):
     if len(batches) < 2:
         raise ValueError(f"{arc}: its first group holds fewer than 2 "
                          f"batches")
-    dcfg, qcfg, mcfg = pipeline.make_configs(p)
-    state = pipeline.state_create(dcfg, qcfg, device)
+    dcfg, qcfg, mcfg, _ = pipeline.make_configs(p)
+    state = pipeline.state_create(dcfg, qcfg, device=device)
     m_model, d_state = state.meta, state.dna
     m_x, d_x = (torch.from_numpy(gstates[k].astype("int64")).to(device)
                 for k in (0, 1))

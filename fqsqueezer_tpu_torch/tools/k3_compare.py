@@ -1,7 +1,8 @@
 """Time kernel K3 against other sources of the quality decode scan, in
 turns, on one card, and its chain floor.
 
-    python3 -m fqsqueezer_tpu_torch.tools.k3_compare [--other other.cu ...]
+    python3 -m fqsqueezer_tpu_torch.tools.k3_compare [--qm 8]
+        [--other other.cu ...]
 
 Each `--other` is a CUDA source with K3's C entry point
 (`fqtz_qual_decode`, the signature of csrc/qual_decode.cu), for example an
@@ -9,7 +10,8 @@ earlier revision of that file (`git show
 0b0dbb7:fqsqueezer_tpu_torch/csrc/qual_decode.cu`) or a candidate
 redesign. The input is the main path's real batch: the bench corpus's
 first 20,000 reads (chip_smoke.py's) compressed on the card at the bench
-primary row, and the quality decode inputs of the archive's second batch
+primary row with quality mode `--qm` (8, 4, 2 or o: 8, 4, 2 or 96 symbols
+a model row), and the quality decode inputs of the archive's second batch
 (real_quality_batch). Every scan is checked equal to the plain torch scan
 and then timed with CUDA events in turns (every scan, then every scan
 again in reverse order), each call allocating its outputs as the wrapper
@@ -34,8 +36,9 @@ from ..params import Params
 from ..streams import meta, quality
 from ..utils.corpus import write_fastq_corpus
 
-# the bench primary row, as chip_smoke.py gives it to the CLI
-BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
+# the bench primary row, as chip_smoke.py gives it to the CLI, without its
+# quality mode
+BENCH_ROW = ("-s", "-om", "o", "-im", "n", "-gs", "5", "-v", "0")
 
 
 def real_quality_batch(arc, device="cuda"):
@@ -53,8 +56,8 @@ def real_quality_batch(arc, device="cuda"):
     if len(batches) < 2:
         raise ValueError(f"{arc}: its first group holds fewer than 2 "
                          f"batches")
-    dcfg, qcfg, mcfg = pipeline.make_configs(p)
-    state = pipeline.state_create(dcfg, qcfg, device)
+    dcfg, qcfg, mcfg, _ = pipeline.make_configs(p)
+    state = pipeline.state_create(dcfg, qcfg, device=device)
     m_model, q_model = state.meta, state.qual
     m_x, q_x = (torch.from_numpy(gstates[k].astype("int64")).to(device)
                 for k in (0, 2))
@@ -126,6 +129,8 @@ def _load_other(src, tag):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--qm", default="8", choices=("o", "8", "4", "2"),
+                    help="quality mode of the real batch")
     ap.add_argument("--other", action="append", default=[],
                     help="CUDA source of a scan to compare with (repeatable)")
     args = ap.parse_args()
@@ -138,8 +143,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
         write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
-        pipeline.compress_file(cli.parse_args(["e", *BENCH_ROW, src]), src,
-                               arc)
+        pipeline.compress_file(
+            cli.parse_args(["e", *BENCH_ROW, "-qm", args.qm, src]), src, arc)
         batch = real_quality_batch(arc)
     cfg, L = batch[0], batch[-1]
     steps = batch[2].shape[0] // cfg.n_lanes * L

@@ -1,9 +1,11 @@
 """Where a decompress spends its time, on one card.
 
     python3 -m fqsqueezer_tpu_torch.tools.profile_decode [--reads 100000]
+        [--qm 8] [--im n]
 
 Compresses the bench corpus (chip_smoke.py's: 100 bp reads of a 4.6 Mbp
-genome, seed 42, the bench primary row's Params), then decompresses it
+genome, seed 42, the bench primary row's Params with the quality and id
+modes given: `-qm 8 -im n` by default), then decompresses it
 warm: once without timers, once with a `torch.cuda.synchronize()` timer
 around each function of the decode (K2, `dna_decode_row`, is the row's
 scan and table update), and prints seconds, calls and the share of the
@@ -29,11 +31,12 @@ from .. import cli, pipeline
 from ..io import fastq
 from ..ops import tables
 from ..params import Params
-from ..streams import dna, meta, quality
+from ..streams import dna, ids, meta, quality
 from ..utils.corpus import write_fastq_corpus
 
-# the bench primary row, as chip_smoke.py gives it to the CLI
-BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
+# the bench primary row, as chip_smoke.py gives it to the CLI, without its
+# quality and id modes
+BENCH_ROW = ("-s", "-om", "o", "-gs", "5", "-v", "0")
 
 # dna_decode_row is K2 on the card: the row's scan and its s/b table
 # update; _apply_sb_updates and k2_update (the torch update) stay listed to
@@ -42,7 +45,8 @@ TIMED = ((pipeline, "_decode_batch"), (meta, "meta_decode_batch"),
          (dna, "dna_decode_batch"), (dna, "dna_decode_row"),
          (dna, "_apply_sb_updates"), (tables, "k2_update"),
          (dna, "dna_collect_updates"), (quality, "qual_decode_batch"),
-         (quality, "qual_decode_scan"), (pipeline, "payload_crc"),
+         (quality, "qual_decode_scan"), (ids, "id_decode_batch"),
+         (ids, "decode_ids_host"), (pipeline, "payload_crc"),
          (fastq.FastqWriter, "write_batch"),
          (pipeline, "fill_stats_device"), (pipeline, "grow_tables"))
 
@@ -68,27 +72,43 @@ def _device_us(prof) -> float:
     return total
 
 
+def _profiled(fn):
+    """(fn's result, wall s, device s, device records) of one call under
+    torch.profiler with CUDA activity."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return (res, wall, _device_us(prof) * 1e-6,
+            sum(e.count for e in prof.key_averages()))
+
+
 def _profile_one_batch(arc, out):
     """Decode the archive with the profiler on around its third batch (the
-    first full 4096-read one). Returns (wall s, device s, kernels, L)."""
+    first full 4096-read one), and around that batch's id scan alone when
+    the archive has ids. Returns ((wall s, device s, device records, read
+    rows, L), (wall s, device s, device records, steps) of the id scan or
+    None)."""
     seen = [0]
-    got = {}
+    got = {"ids": None}
     real = pipeline._decode_batch
 
-    def probe(dcfg, qcfg, mcfg, R, L, *rest):
+    def probe(dcfg, qcfg, mcfg, icfg, R, L, *rest):
         seen[0] += 1
         if seen[0] != 3:
-            return real(dcfg, qcfg, mcfg, R, L, *rest)
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            res = real(dcfg, qcfg, mcfg, R, L, *rest)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        got["batch"] = (wall, _device_us(prof) * 1e-6,
-                        sum(e.count for e in prof.key_averages()),
-                        R // dcfg.n_lanes, L)
+            return real(dcfg, qcfg, mcfg, icfg, R, L, *rest)
+        if icfg is not None:
+            state, streams, n_valid = rest
+            words, states = streams[-1]
+            _, wall, dev_s, n = _profiled(lambda: ids.id_decode_batch(
+                icfg, state.id, R, words, states, n_valid))
+            got["ids"] = (wall, dev_s, n, R // icfg.n_lanes * icfg.w_all)
+        res, wall, dev_s, n = _profiled(
+            lambda: real(dcfg, qcfg, mcfg, icfg, R, L, *rest))
+        got["batch"] = (wall, dev_s, n, R // dcfg.n_lanes, L)
         return res
 
     pipeline._decode_batch = probe
@@ -96,12 +116,14 @@ def _profile_one_batch(arc, out):
         pipeline.decompress_file(Params(), arc, out)
     finally:
         pipeline._decode_batch = real
-    return got["batch"]
+    return got["batch"], got["ids"]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=100_000)
+    ap.add_argument("--qm", default="8", help="quality mode (o|8|4|2|n)")
+    ap.add_argument("--im", default="n", help="id mode (o|i|n)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device is visible")
@@ -113,8 +135,8 @@ def main() -> int:
         src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
         out = os.path.join(d, "o.fastq")
         write_fastq_corpus(src, args.reads, 100, 4_600_000, seed=42)
-        pipeline.compress_file(cli.parse_args(["e", *BENCH_ROW, src]), src,
-                               arc)
+        pipeline.compress_file(cli.parse_args(
+            ["e", *BENCH_ROW, "-qm", args.qm, "-im", args.im, src]), src, arc)
 
         def run():
             torch.cuda.synchronize()
@@ -135,8 +157,10 @@ def main() -> int:
         finally:
             for o, n, fn in saved:
                 setattr(o, n, fn)
-        wall, dev_s, kernels, rows, L = _profile_one_batch(arc, out)
-    print(f"{args.reads} reads, warm decompress: {plain:.4f} s without "
+        (wall, dev_s, kernels, rows, L), id_scan = _profile_one_batch(
+            arc, out)
+    print(f"{args.reads} reads, -qm {args.qm} -im {args.im}, warm "
+          f"decompress: {plain:.4f} s without "
           f"timers ({args.reads / plain:.1f} reads/s), {timed:.4f} s with "
           f"them")
     print("function | s | calls | share of the timed wall")
@@ -147,6 +171,11 @@ def main() -> int:
           f"({100 * dev_s / wall:.2f}% busy, {100 - 100 * dev_s / wall:.2f}"
           f"% idle), {kernels} device records, {kernels / (rows * L):.1f} "
           f"a position")
+    if id_scan is not None:
+        wall, dev_s, n, steps = id_scan
+        print(f"that batch's id scan alone (id_decode_batch, {steps} "
+              f"steps): wall {wall:.4f} s, device busy {dev_s:.4f} s, {n} "
+              f"device records, {n / steps:.1f} a step")
     return 0
 
 

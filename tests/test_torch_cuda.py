@@ -7,6 +7,8 @@ card and neither of them:
     python -m pytest tests/test_torch_cuda.py -q
 
 Without a card every test skips (the kernel has no CPU mode)."""
+import types
+
 import pytest
 import torch
 
@@ -103,27 +105,30 @@ def test_k1_refuses_instead_of_falling_back():
 
 # --- K3: the quality decode scan ----------------------------------------------
 
-def _k3_inputs(seed, N, r_pl, L, n_words):
+def _k3_inputs(seed, N, r_pl, L, n_words, mode="illumina_8"):
     from fqsqueezer_tpu_torch.streams import quality
     from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
 
-    cfg = quality.QualConfig(n_lanes=N)
+    cfg = quality.QualConfig(mode=mode, n_lanes=N)
     arrs = quality_batch(seed, N, r_pl, L, cfg.n_ctx, cfg.n_sym, n_words)
     return cfg, [torch.from_numpy(a).cuda() for a in arrs]
 
 
+K3_CASES = [(8, 1, 40, 400), (8, 2, 104, 5), (100, 2, 40, 8000),
+            (256, 1, 104, 30), (1024, 2, 40, 90_000), (2048, 2, 104, 400_000),
+            (2047, 1, 1, 10)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,r_pl,L,n_words", [
-    (8, 1, 40, 400), (8, 2, 104, 5), (100, 2, 40, 8000), (256, 1, 104, 30),
-    (1024, 2, 40, 90_000), (2048, 2, 104, 400_000), (2047, 1, 1, 10)])
-def test_k3_equals_plain_scan(N, r_pl, L, n_words):
+@pytest.mark.parametrize("N,r_pl,L,n_words", K3_CASES)
+def test_k3_equals_plain_scan(N, r_pl, L, n_words, mode="illumina_8"):
     """Symbols, final states and words consumed, exactly; lengths 0, 1 and
     L among them, and short word arrays whose reads clamp."""
     from fqsqueezer_tpu_torch.streams import quality
 
     _card()
     cfg, (model, lengths, words, init) = _k3_inputs(N + L, N, r_pl, L,
-                                                    n_words)
+                                                    n_words, mode)
     before = quality.K3_LAUNCHES
     got = quality.qual_decode_scan(cfg, model, lengths, words, init, L)
     assert quality.K3_LAUNCHES == before + 1
@@ -133,6 +138,14 @@ def test_k3_equals_plain_scan(N, r_pl, L, n_words):
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == w.dtype
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["binary", "illumina_4", "lossless"])
+@pytest.mark.parametrize("N,r_pl,L,n_words", K3_CASES)
+def test_k3_equals_plain_scan_other_modes(N, r_pl, L, n_words, mode):
+    """The same cases with 2-, 4- and 96-symbol models."""
+    test_k3_equals_plain_scan(N, r_pl, L, n_words, mode)
 
 
 @pytest.mark.cuda
@@ -154,11 +167,15 @@ def test_k3_refuses_instead_of_falling_back():
                             device="cuda")[1:].view(model.shape)
     with pytest.raises(ValueError):                # 4-byte aligned rows
         quality.qual_decode_scan(cfg, unaligned, lengths, words, init, 16)
-    with pytest.raises(ValueError):                # 4 symbols, not 8
+    # a symbol count K3 does not take (16), in a config of the same layout
+    odd = types.SimpleNamespace(**{
+        k: getattr(cfg, k) for k in ("mode", "qt", "scale_bits", "n_lanes",
+                                     "with_local", "hist_bits", "n_hist",
+                                     "hist_mask", "n_ctx")}, n_sym=16)
+    with pytest.raises(ValueError, match="16-symbol"):
         quality.qual_decode_scan(
-            quality.QualConfig(mode="illumina_4", n_lanes=8),
-            torch.zeros((1 << 18, 4), dtype=torch.int32, device="cuda"),
-            lengths, words, init, 16)
+            odd, torch.zeros((cfg.n_ctx, 16), dtype=torch.int32,
+                             device="cuda"), lengths, words, init, 16)
     big = quality.QualConfig(n_lanes=4096)
     with pytest.raises(ValueError):
         quality.qual_decode_scan(

@@ -304,6 +304,40 @@ def test_write_fastq_corpus_equals_reference(tmp_path):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+def test_write_fastq_corpus_realistic_equals_reference(tmp_path):
+    """The structured-genome generator (bench_gpu's se_real corpus): repeat
+    families, homopolymer runs and composition blocks all present at 1.2
+    Mbp."""
+    g1 = jcorpus.make_genome_realistic(1_200_000, 7)
+    g2 = tcorpus.make_genome_realistic(1_200_000, 7)
+    assert g2.dtype == g1.dtype and np.array_equal(g1, g2)
+    jpath, tpath = str(tmp_path / "j.fastq"), str(tmp_path / "t.fastq")
+    jcorpus.write_fastq_corpus_realistic(jpath, 200, 60, 1_200_000, seed=7)
+    tcorpus.write_fastq_corpus_realistic(tpath, 200, 60, 1_200_000, seed=7)
+    with open(jpath, "rb") as f, open(tpath, "rb") as g:
+        assert g.read() == f.read()
+
+
+def test_bench_pairs_summary_counts_medians_quartiles_and_wins():
+    """bench_pairs' summary line: each side's median and quartiles of
+    compress and decode reads/s, and the pairs the change won; a tie wins
+    for neither side."""
+    from fqsqueezer_tpu_torch.tools import bench_pairs
+
+    def row(c, d):
+        return {"value": c, "decode_reads_per_s": d}
+
+    pairs = [(row(10, 5), row(12, 5)), (row(11, 6), row(9, 7)),
+             (row(13, 4), row(14, 3)), (row(12, 8), row(12, 9))]
+    s = bench_pairs.summarize(pairs)
+    assert s["value"]["parent"] == {"median": 11.5, "q1": 10.25,
+                                    "q3": 12.75, "runs": [10, 11, 13, 12]}
+    assert s["value"]["change"]["median"] == 12
+    assert s["value"]["change_wins"] == 2
+    assert s["decode_reads_per_s"]["change_wins"] == 2
+    assert s["decode_reads_per_s"]["pairs"] == 4
+
+
 # --- imports ----------------------------------------------------------------
 
 _FORBIDDEN = ("jax", "jaxlib", "fqsqueezer_tpu")

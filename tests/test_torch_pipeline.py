@@ -250,16 +250,54 @@ def _header_only_archive(path, **fields):
     return str(path)
 
 
-@pytest.mark.parametrize("fields,what", [
-    ({"quality_mode": jparams.QualityMode.LOSSLESS}, "quality mode"),
+def _decodes_to_empty_fastq(arc, out):
+    """A header-only archive of a ported mode decodes, through the CLI and
+    through pipeline.decompress_file, to an empty FASTQ."""
+    assert pipeline.unported_archive(
+        tparams.Params.load_params(_header_blob(arc))) == []
+    assert cli.main(["d", "--device", "cpu", "-out", out, arc]) == 0
+    assert os.path.getsize(out) == 0
+    os.remove(out)
+    assert pipeline.decompress_file(tparams.Params(), arc, out,
+                                    device="cpu") == {"n_reads": 0}
+    assert os.path.getsize(out) == 0
+
+
+def _header_blob(arc):
+    from fqsqueezer_tpu_torch.archive import ArchiveReader
+
+    rd = ArchiveReader(arc)
+    try:
+        return rd.header_blob
+    finally:
+        rd.close()
+
+
+# `what` None: a mode this package decodes (the cases keep their ids)
+_D_CASES = [
+    ({"quality_mode": jparams.QualityMode.LOSSLESS}, None),
     ({"dna_mode": jparams.DnaMode.SE_SORTED}, "sorted"),
     ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, "paired-end"),
-    ({"id_mode": jparams.IdMode.INSTRUMENT}, "id mode"),
+    ({"id_mode": jparams.IdMode.INSTRUMENT}, None),
     ({"mesh_dp": 2}, "mesh"),
     ({"dna_row_global": 0}, "row-global"),
-])
+    ({"id_mode": jparams.IdMode.LOSSLESS, "id_codec_v": 1}, "id codec v1"),
+]
+
+
+@pytest.mark.parametrize(
+    "fields,what", _D_CASES,
+    ids=["fields0-quality mode", "fields1-sorted", "fields2-paired-end",
+         "fields3-id mode", "fields4-mesh", "fields5-row-global",
+         "fields6-id codec v1"])
 def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
+    """Each header the port lacks is refused with one line; the quality and
+    id modes it has decode instead (an archive with no group: an empty
+    FASTQ)."""
     arc = _header_only_archive(tmp_path / "a.fqst", **fields)
+    if what is None:
+        _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(["d", "--device", "cpu", "-out", str(tmp_path / "o.fq"),
                   arc])
@@ -276,8 +314,9 @@ def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
 def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     """No visible card and no --device (in a fresh process, which shows
     the exit code and that no traceback is printed); a file that is not
-    an archive; an archive of a mode the port lacks; a missing file. Each
-    is exit 1 with one line, and writes no output file."""
+    an archive; an archive of a mode the port lacks (sorted order); a
+    missing file. Each is exit 1 with one line, and writes no output
+    file."""
     arc = _header_only_archive(tmp_path / "ok.fqst")
     out = str(tmp_path / "o.fq")
     res = subprocess.run(
@@ -289,10 +328,10 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     assert "no CUDA device" in lines[0]
     bad = tmp_path / "bad.fqst"
     bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
-    lossless = _header_only_archive(
-        tmp_path / "qo.fqst", quality_mode=jparams.QualityMode.LOSSLESS)
+    sorted_arc = _header_only_archive(
+        tmp_path / "so.fqst", dna_mode=jparams.DnaMode.SE_SORTED)
     for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
-                       (lossless, "quality mode"),
+                       (sorted_arc, "sorted order"),
                        (str(tmp_path / "none.fqst"), "none.fqst")):
         with pytest.raises(SystemExit) as e:
             cli.main(["d", "--device", "cpu", "-out", out, path])
@@ -304,19 +343,42 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
 _SE = ["-s", "-om", "o", "-qm", "8", "-im", "n"]
 
 
-@pytest.mark.parametrize("argv,what", [
+# `what` None: a mode this package has (the cases keep their ids)
+_E_CASES = [
     (["e", "-p", "-om", "o", "-qm", "8", "-im", "n", "a.fq", "b.fq"],
      "paired-end"),
     (["e", "-s", "-om", "s", "-qm", "8", "-im", "n", "a.fq"], "sorted"),
-    (["e", "-s", "-om", "o", "-qm", "o", "-im", "n", "a.fq"], "quality"),
-    (["e", "-s", "-om", "o", "-qm", "4", "-im", "n", "a.fq"], "quality"),
-    (["e", "-s", "-om", "o", "-qm", "2", "-im", "n", "a.fq"], "quality"),
-    (["e", "-s", "-om", "o", "-qm", "n", "-im", "n", "a.fq"], "quality"),
-    (["e", "-s", "-om", "o", "-qm", "8", "-im", "o", "a.fq"], "id mode"),
-    (["e", "-s", "-om", "o", "-qm", "8", "a.fq"], "id mode"),
+    (["e", "-s", "-om", "o", "-qm", "o", "-im", "n", "a.fq"], None),
+    (["e", "-s", "-om", "o", "-qm", "4", "-im", "n", "a.fq"], None),
+    (["e", "-s", "-om", "o", "-qm", "2", "-im", "n", "a.fq"], None),
+    (["e", "-s", "-om", "o", "-qm", "n", "-im", "n", "a.fq"], None),
+    (["e", "-s", "-om", "o", "-qm", "8", "-im", "o", "a.fq"], None),
+    (["e", "-s", "-om", "o", "-qm", "8", "a.fq"], None),
     (["e", *_SE, "-dp", "2", "a.fq"], "mesh"),
-])
-def test_cli_unported_modes_exit_with_one_line(argv, what):
+]
+
+
+@pytest.mark.parametrize(
+    "argv,what", _E_CASES,
+    ids=["argv0-paired-end", "argv1-sorted", "argv2-quality",
+         "argv3-quality", "argv4-quality", "argv5-quality", "argv6-id mode",
+         "argv7-id mode", "argv8-mesh"])
+def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
+    """Each mode the port lacks exits 1 with one line; the quality and id
+    modes it has pass its mode check, and a header-only archive of their
+    Params decodes to an empty FASTQ."""
+    if what is None:
+        from fqsqueezer_tpu_torch.archive import ArchiveWriter
+
+        p = cli.parse_args(argv)
+        assert pipeline.unported_modes(p) == []
+        # the default -gs 3100 sizes its tables at 2^26 buckets: keep the
+        # decoder's state small, its modes as they are
+        p.smer_log2_buckets = p.bmer_log2_buckets = 8
+        arc = str(tmp_path / "a.fqst")
+        ArchiveWriter(arc, p.store_params()).close()
+        _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
+        return
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
     msg = e.value.code
