@@ -37,21 +37,38 @@ Phases, one line each; any failure raises and the script exits non-zero:
                launch once a batch where there is a quality stream and
                never without one, K2 once a read row. Prints reads/s both
                ways.
-  7. verify  — the repository's Tier-1 verify corpus (3,000 x 80 bp, seed
+  7. sorted  — sorted read order (-om s), the CLI's default path: (a) the
+               20k corpus through the CLI's e with only -gs 5 (so -s -om s
+               -qm 8 -im i, 1024 lanes) and d, the archive's and the
+               decode's sha256 held to the reference package's
+               (SORTED_CLI); (b) the 100k corpus at the bench's sorted row
+               (-om s -qm 8 -im n -gs 5) through pipeline.compress_file and
+               decompress_file, warm-up + timed run, both digests held
+               (SORTED_100K) and bits/base 2.5914; (c) the 20k corpus
+               block-streamed (STREAM_CHUNK) at -om s -im n (the external
+               bin sort) and at -om o -im o (the header prescan), each
+               archive's sha256 held to the in-RAM archive's. K2 must
+               launch once a read row (4 a batch at 1024 lanes), K3 once a
+               batch, K1 at least once a group flush. Prints reads/s both
+               ways and peak CUDA memory.
+  8. verify  — the repository's Tier-1 verify corpus (3,000 x 80 bp, seed
                9) through the CLI with -qm o -im o -gs 1: the archive's
                sha256 must be the reference writer's, and its decode the
                input's bytes (BYTE-EXACT).
-  8. k3      — kernel K3 (the quality decode scan) against its plain torch
+  9. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
-               1024, 2048}; for 8 symbols also N in {8, 256, 2048} x L in
-               {40, 104} x r_pl in {1, 2}), and the second batch (4096
+               1024, 2048} and sorted order's 1024 lanes x 4 rows; for 8
+               symbols also N in {8, 256, 2048} x L in {40, 104} x r_pl in
+               {1, 2}), and the second batch (4096
                reads, 2 read rows, 104 columns) of a real archive of each
-               mode, with the quality model the first batch left. Then on
+               mode, with the quality model the first batch left, and for
+               8 symbols that of the sorted archive (1024 lanes, 4 read
+               rows, timed beside its chain floor). Then on
                that batch K3 and the plain scan timed, the chain floor (K3
                on 32 lanes) and the bound.
-  9. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 10. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -60,13 +77,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
                lengths 0, 1 and L among them, grown tables, short word
                streams), an adversarial batch (K2_ADVERSARIAL: most
                buckets full, counts at 255, keys in two cells, new keys
-               racing for one empty cell) and the main path's second batch
-               of the 20k archive with the DNA state the first batch left.
-               Then on that batch K2's launches timed (the tables restored
+               racing for one empty cell), sorted batches whose rows copy
+               shared prefixes (K2_LCP_SHAPES: lcp from 0 to the whole
+               read, a duplicate lane, the cap of 255 on reads of 264), the
+               main path's second batch of the 20k archive with the DNA
+               state the first batch left, and the same batch of the 20k
+               sorted archive (1024 lanes, 4 rows, prefixes copied). Then
+               on each real batch K2's launches timed (the tables restored
                to the row-start ones before each repetition, outside the
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound.
- 10. decode  — the 20k archive through the port's CLI `d` with no
+ 11. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -74,14 +95,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
                least once a batch and K2 once a read row. Prints decode
                reads/s, wall time, peak CUDA memory and the launches.
 Then the run's wall time; the last two lines are the kernels' JSON record
-(K1, K2, and K3 for each symbol count) and the result line.
+(K1, K2 at the main path's and at sorted order's shape, and K3 for each
+symbol count) and the result line. K1's launches are those of the two
+timed compresses (the main path's and the sorted row's), K3's for 8
+symbols those of the two timed decodes.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
 compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
 seed=42) at bench_params() (DIGEST_20K, DIGEST_100K), or at the Params the
 reference CLI's parse_args makes of a mode row's flags (MODES_20K,
-MODES_100K, VERIFY); the decode digests are sha256 sums of
-fqsqueezer_tpu.pipeline.decompress_file's FASTQ output for those archives.
+MODES_100K, VERIFY, SORTED_CLI, SORTED_100K); the decode digests are
+sha256 sums of fqsqueezer_tpu.pipeline.decompress_file's FASTQ output for
+those archives.
 All were computed with the reference package on a CPU.
 """
 from __future__ import annotations
@@ -117,7 +142,8 @@ K1_OPS_PER_SLOT = 12       # compare, shift, select, mulhi, 3 mul-adds, ...
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5")
 # (N, r_pl, L) of the K3 checks on random batches: every symbol count, and
 # more shapes for the main path's 8
-K3_MODE_SHAPES = ((8, 1, 40), (1024, 2, 104), (2048, 2, 104))
+K3_MODE_SHAPES = ((8, 1, 40), (1024, 2, 104), (2048, 2, 104),
+                  (1024, 4, 104))
 K3_SHAPES = tuple((n, r, l) for n in (8, 256, 2048) for l in (40, 104)
                   for r in (1, 2))
 # K3's operations an active position, counted from the function and not
@@ -152,6 +178,20 @@ MODES_100K = (
      "f8601adcce2843c2a706198668447880a2a9f7e89aecf7f46a677df5da0d0042",
      "797290b02e07d317bd69f0806ad292a34c5ad1bc92b1b748ac799f89615b974a"),
 )
+# sorted order: (flags, archive sha256, decoded FASTQ sha256) of the CLI's
+# defaults at -gs 5 on the 20k corpus, and of the bench's sorted row on the
+# 100k corpus, whose archive is 2.5914 bits a base (bench.py's sorted row)
+SORTED_CLI = (("-gs", "5"),
+              "7e028edf547c61c04be04f46a88f0acce87dee74112ffd20b0ae477aa78ac50e",
+              "632807c18ecedc88e9db6a40dfd742860d65023b5f83c21368ca9ac911c15c17")
+SORTED_100K = (("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5"),
+               "516442007a861aa9f086c664d5ffa1c4c45eee051c9bf714105e73e777879921",
+               "9d9d844128eccc4f0af2c23bf0601d16f67007b52775c9ce40c2f98dfb8029b4")
+SORTED_BITS_PER_BASE = 2.5914
+# the streamed compress's chunk: the 20k corpus (about 4.6 MB) in 5 chunks
+STREAM_CHUNK = 1 << 20
+STREAMED_20K = (("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5"),
+                ("-s", "-om", "o", "-qm", "8", "-im", "o", "-gs", "5"))
 # the repository's Tier-1 verify recipe: write_fastq_corpus(path, 3000, 80,
 # 100_000, seed=9), e -s -om o -qm o -im o -gs 1
 VERIFY = (("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "1"),
@@ -163,6 +203,8 @@ K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
              (2048, 2, 104, False, False), (2048, 2, 104, True, True))
 # (N, r_pl, L) of the K2 check on adversarial tables
 K2_ADVERSARIAL = (256, 2, 104)
+# (N, r_pl, L) of the K2 checks on sorted batches (shared prefixes)
+K2_LCP_SHAPES = ((8, 3, 40), (256, 2, 104), (1024, 4, 104), (2048, 2, 264))
 
 
 def bench_params():
@@ -549,6 +591,111 @@ def phase_modes():
     return k3
 
 
+def phase_sorted():
+    """Sorted order, the CLI's default path: the 20k corpus through the
+    CLI's e (only -gs 5) and d, the 100k corpus at the bench's sorted row
+    through pipeline (warm-up + timed run), and the 20k corpus streamed.
+    Returns the launches of the timed 100k run: (K1 in the compress, K3
+    and K2 in the decode)."""
+    import torch
+
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.io import fastq
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed, timed_peak
+
+    # (a) the CLI's defaults
+    flags, want, want_dec = SORTED_CLI
+    src, _ = _corpus(DIGEST_READS)
+    arc = os.path.join(WORK, f"sorted_cli_{DIGEST_READS}.fqst")
+    out = os.path.join(WORK, f"sorted_cli_{DIGEST_READS}.dec.fastq")
+    _reset_launches()
+    rc, dt = timed(lambda: cli.main(["e", *flags, "-v", "0", "-out", arc,
+                                      src]))
+    n1 = rans.K1_LAUNCHES
+    sha = _sha256(arc)
+    if rc != 0 or sha != want:
+        raise RuntimeError(f"sorted: the CLI's e {' '.join(flags)} returned "
+                           f"{rc}, archive sha256 {sha} != reference {want}")
+    _reset_launches()
+    rc, ddt = timed(lambda: cli.main(["d", "-v", "0", "-out", out, arc]))
+    dsha = _sha256(out)
+    if rc != 0 or dsha != want_dec:
+        raise RuntimeError(f"sorted: the CLI's d returned {rc}, FASTQ "
+                           f"sha256 {dsha} != reference decoder's {want_dec}")
+    n3, n2 = _check_decode_launches(arc, True, "sorted (CLI defaults)")
+    print(f"[sorted] {DIGEST_READS} reads `e {' '.join(flags)}` (the CLI's "
+          f"defaults: -s -om s -qm 8 -im i, "
+          f"{cli.parse_args(['e', *flags, src]).n_lanes} lanes): archive "
+          f"sha256 == reference, decode sha256 == reference decoder; e "
+          f"{dt:.2f} s (K1 launches {n1}), d {ddt:.2f} s (K3 launches {n3}, "
+          f"K2 {n2})")
+
+    # (b) the bench's sorted row, 100k reads
+    flags, want, want_dec = SORTED_100K
+    src, _ = _corpus(FULL_READS)
+    arc = os.path.join(WORK, f"sorted_{FULL_READS}.fqst")
+    out = os.path.join(WORK, f"sorted_{FULL_READS}.dec.fastq")
+    data = fastq.read_fastq(src)
+
+    def compress():
+        return pipeline.compress_file(cli.parse_args(
+            ["e", *flags, "-v", "0", src]), src, arc, data=data)
+
+    compress()                                     # warm-up
+    _reset_launches()
+    stats, dt, peak = timed_peak(compress)
+    k1 = rans.K1_LAUNCHES
+    groups = _n_groups(arc, cli.parse_args(["e", *flags, src]).n_lanes)
+    sha = _sha256(arc)
+    bpb = round(stats["bits_per_base"], 4)
+    if sha != want or bpb != SORTED_BITS_PER_BASE:
+        raise RuntimeError(f"sorted: 100k archive sha256 {sha} (reference "
+                           f"{want}), {bpb} bits/base (want "
+                           f"{SORTED_BITS_PER_BASE})")
+    if k1 < groups or k1 < 1:
+        raise RuntimeError(f"sorted: K1 launched {k1} times in {groups} "
+                           f"group flushes")
+    pipeline.decompress_file(Params(), arc, out)   # warm-up
+    _reset_launches()
+    dstats, ddt, dpeak = timed_peak(
+        lambda: pipeline.decompress_file(Params(), arc, out))
+    k3, k2 = _check_decode_launches(arc, True, "sorted 100k")
+    dsha = _sha256(out)
+    if dsha != want_dec:
+        raise RuntimeError(f"sorted: decoded 100k FASTQ sha256 {dsha} != "
+                           f"reference decoder's {want_dec}")
+    n = stats["n_reads"]
+    print(f"[sorted] {n} reads `{' '.join(flags)}`: compress "
+          f"{n / dt:.1f} reads/s (wall {dt:.3f} s, peak {peak:.3f} GiB), "
+          f"{stats['bits_per_base']:.4f} bits/base, archive sha256 == "
+          f"reference, K1 launches {k1} in {groups} flush(es); decode "
+          f"{dstats['n_reads'] / ddt:.1f} reads/s (wall {ddt:.3f} s, peak "
+          f"{dpeak:.3f} GiB), sha256 == reference decoder, K3 launches "
+          f"{k3}, K2 {k2}")
+
+    # (c) the streamed path against the in-RAM one
+    src, _ = _corpus(DIGEST_READS)
+    for flags in STREAMED_20K:
+        shas = []
+        for chunk in (0, STREAM_CHUNK):
+            arc = os.path.join(WORK, f"streamed_{chunk}.fqst")
+            pipeline.compress_file(
+                cli.parse_args(["e", *flags, "-v", "0", src]), src, arc,
+                stream_chunk_bytes=chunk)
+            shas.append(_sha256(arc))
+        if shas[0] != shas[1]:
+            raise RuntimeError(f"sorted: the streamed archive of "
+                               f"`{' '.join(flags)}` differs from the "
+                               f"in-RAM one")
+        print(f"[sorted] {DIGEST_READS} reads `{' '.join(flags)}` streamed "
+              f"in {STREAM_CHUNK} B chunks: archive sha256 == the in-RAM "
+              f"archive's")
+    torch.cuda.synchronize()
+    return k1, k3, k2
+
+
 def phase_verify():
     """The Tier-1 verify recipe through the port's CLI on the card."""
     from fqsqueezer_tpu_torch import cli
@@ -663,12 +810,36 @@ def _k3_one(n_sym, mode, arc_name):
             "chain_floor_ms": floor_ms}
 
 
+def _k3_sorted():
+    """K3 on sorted order's real batch: the 20k CLI-default archive's
+    second batch (1024 lanes, 4 read rows), exact against the plain scan,
+    and its time beside the chain floor."""
+    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.tools.k3_compare import (chain_batch,
+                                                       real_quality_batch)
+
+    args = real_quality_batch(os.path.join(
+        WORK, f"sorted_cli_{DIGEST_READS}.fqst"))
+    cfg, _, lengths, _, _, L = args
+    _k3_check(*args, "the sorted archive's batch")
+    ms = _ms(lambda: quality.qual_decode_scan(*args), 20)
+    chain = chain_batch(args)
+    floor_ms = _ms(lambda: quality.qual_decode_scan(*chain), 20)
+    r_pl = lengths.shape[0] // cfg.n_lanes
+    print(f"[k3] 8 symbols, sorted order's batch (N={cfg.n_lanes}, "
+          f"r_pl={r_pl}, L={L}): exact; K3 {ms:.4f} ms "
+          f"({ms / (r_pl * L) * 1e3:.2f} us a step), chain floor "
+          f"{floor_ms:.4f} ms")
+
+
 def phase_k3():
     """K3 == its plain version, exact, for every symbol count, on random
-    shapes and on real batches; returns the numbers of the kernels line,
-    by symbol count."""
-    return {n_sym: _k3_one(n_sym, mode, arc) for n_sym, mode, arc in
-            K3_MODES}
+    shapes and on real batches (sorted order's too); returns the numbers
+    of the kernels line, by symbol count."""
+    out = {n_sym: _k3_one(n_sym, mode, arc) for n_sym, mode, arc in
+           K3_MODES}
+    _k3_sorted()
+    return out
 
 
 def phase_k2():
@@ -687,25 +858,40 @@ def phase_k2():
     k2c.check_rows(*dna_decode_inputs(11, N, r_pl, L, "cuda",
                                       adversarial=True), L,
                    what="the adversarial tables")
-    _, arc = _corpus(DIGEST_READS)
-    batch = k2c.real_dna_batch(arc)
-    rows = k2c.check_rows(*batch, what="the main path's batch")
-    args = [a for a, _ in rows]
-    ms = k2c.replay_ms(args, reps=20)
-    floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
-    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a) for a in args], 2)
-    bound_ms, bound_by = k2c.k2_bound_ms(rows)
-    cfg, L = batch[0], batch[-1]
-    steps = len(rows) * L
+    for seed, (N, r_pl, L) in enumerate(K2_LCP_SHAPES):
+        *batch, lcp = dna_decode_inputs(20 + seed, N, r_pl, L, "cuda",
+                                        sorted_reads=True)
+        k2c.check_rows(*batch, L, lcp,
+                       what=f"sorted N={N} r_pl={r_pl} L={L}")
+    out = {}
+    for key, arc in (("main", _corpus(DIGEST_READS)[1]),
+                     ("sorted", os.path.join(
+                         WORK, f"sorted_cli_{DIGEST_READS}.fqst"))):
+        batch = k2c.real_dna_batch(arc)
+        rows = k2c.check_rows(*batch, what=f"the {key} path's batch")
+        args = [a for a, _ in rows]
+        ms = k2c.replay_ms(args, reps=20)
+        floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
+        plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a)
+                                for a in args], 2)
+        bound_ms, bound_by = k2c.k2_bound_ms(rows)
+        cfg, L, lcp = batch[0], batch[5], batch[6]
+        steps = len(rows) * L
+        copied = ("" if lcp is None else
+                  f", {int(lcp.sum())} of {int(batch[2].sum())} bases "
+                  f"copied")
+        print(f"[k2] the {key} path's batch (N={cfg.n_lanes}, {len(rows)} "
+              f"rows, L={L}{copied}): K2 {ms:.4f} ms a batch "
+              f"({ms / steps * 1e3:.2f} us a step), chain floor "
+              f"({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
+              f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+        out[key] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": None, "chain_floor_ms": floor_ms}
     print(f"[k2] exact on {len(K2_SHAPES)} random batches, the adversarial "
-          f"tables and the main path's batch (N={cfg.n_lanes}, "
-          f"{len(rows)} rows, L={L}), tables included: K2 {ms:.4f} ms a "
-          f"batch ({ms / steps * 1e3:.2f} us a step), chain floor "
-          f"({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
-          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
-    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "chain_floor_ms": floor_ms}
+          f"tables, {len(K2_LCP_SHAPES)} sorted batches and both real "
+          f"batches, tables included")
+    return out
 
 
 def _batches_and_rows(arc):
@@ -826,10 +1012,12 @@ def main() -> int:
     phase_digest()
     launches = phase_full()
     k3_launches = phase_modes()
+    sorted_k1, sorted_k3, sorted_k2 = phase_sorted()
     phase_verify()
     k3 = phase_k3()
     k2 = phase_k2()
     k3_launches[8], k2_launches = phase_decode()
+    k3_launches[8] += sorted_k3
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "fqsqueezer_tpu"))
     if foreign:
@@ -839,11 +1027,16 @@ def main() -> int:
         "name": "rans_encode_walk (K1)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
         "replaces": "fqsqueezer_tpu/ops/rans.py:100",
-        "launches": launches, **k1}, {
+        "launches": launches + sorted_k1, **k1}, {
         "name": "dna_decode_row (K2)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
-        "launches": k2_launches, **k2}] + [{
+        "launches": k2_launches, **k2["main"]}, {
+        "name": "dna_decode_row (K2, sorted order: prefix copy)",
+        "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": sorted_k2, **k2["sorted"]}] + [{
         "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode})",
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",

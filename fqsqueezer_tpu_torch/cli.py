@@ -23,10 +23,14 @@ it), plus one option of the port's own:
 
     python -m fqsqueezer_tpu_torch.cli d -out X.fastq X.fqst
 
-Single-end original order is ported in every quality mode (-qm o|8|4|2|n,
-with -qt) and id mode (-im o|i|n; the default is -im i), for `e` and for
-`d` (whose modes come from the archive's header). Sorted order (-om s),
-paired-end (-p), multi-chip meshes (-dp/-tp) and inputs above 256 MiB
+Single-end reads are ported in original and sorted order (-om o|s; the
+default is sorted), every quality mode (-qm o|8|4|2|n, with -qt) and id
+mode (-im o|i|n; the default is -im i), for `e` and for `d` (whose modes
+come from the archive's header): `e -gs 5 -out X.fqst in.fastq` runs the
+defaults, -s -om s -qm 8 -im i. As in the reference CLI, an input above
+256 MiB is block-streamed in 256 MiB chunks when its mode streams
+(original order, or sorted order with -im n); sorted order with ids
+loads the whole file. Paired-end (-p) and multi-chip meshes (-dp/-tp)
 exit 1 with one line naming them, as does a file that is not an archive.
 The work runs on the first CUDA card; a machine without a visible card
 exits 1 with one line unless `--device cpu` asks for the CPU.
@@ -58,8 +62,10 @@ options:
   -v <n>         verbosity 0-2
 """
 
-# inputs above this total size are block-streamed by the reference CLI
+# inputs above this total size are block-streamed, in chunks of
+# STREAM_CHUNK_BYTES, when their mode streams (the reference CLI's rule)
 STREAM_THRESHOLD = 256 << 20
+STREAM_CHUNK_BYTES = 256 << 20
 
 
 def parse_args(argv) -> Params:
@@ -165,6 +171,19 @@ def take_device(argv):
     return device, argv
 
 
+def stream_chunk_bytes(p: Params) -> int:
+    """The chunk size `e` streams p.file_names in, or 0 to load them: above
+    STREAM_THRESHOLD in all, single-end original order streams in every id
+    mode and sorted order with -im n (its external bin sort carries no
+    ids)."""
+    total = sum(os.path.getsize(f) for f in p.file_names
+                if os.path.exists(f))
+    streams = (p.dna_mode == DnaMode.SE_ORIGINAL
+               or (p.dna_mode == DnaMode.SE_SORTED
+                   and p.id_mode == IdMode.NONE))
+    return STREAM_CHUNK_BYTES if streams and total > STREAM_THRESHOLD else 0
+
+
 def _not_ported(what: str):
     return SystemExit(f"error: {what} not yet ported to fqsqueezer_tpu_torch")
 
@@ -180,10 +199,6 @@ def main(argv=None) -> int:
 
     if compress:
         missing = pipeline.unported_modes(p)
-        total = sum(os.path.getsize(f) for f in p.file_names
-                    if os.path.exists(f))
-        if not missing and total > STREAM_THRESHOLD:
-            missing = [f"streamed input above {STREAM_THRESHOLD >> 20} MiB"]
         if missing:
             raise _not_ported(", ".join(missing))
     try:
@@ -197,7 +212,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     if compress:
         src = p.file_names if len(p.file_names) > 1 else p.file_names[0]
-        stats = pipeline.compress_file(p, src, p.out_path, device=device)
+        stats = pipeline.compress_file(
+            p, src, p.out_path, device=device,
+            stream_chunk_bytes=stream_chunk_bytes(p))
         if p.verbosity >= 1:
             print(f"reads: {stats['n_reads']}  in: {stats['in_bytes']}  "
                   f"out: {stats['out_bytes']}  ratio: {stats['ratio']:.3f}  "

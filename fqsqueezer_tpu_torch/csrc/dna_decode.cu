@@ -24,6 +24,14 @@
 //   decode   the masked max/min lookup, x = f*(x >> SB) + slot - c, and the
 //            lanes that renormalize take consecutive words of ONE stream in
 //            lane order: an exclusive scan over all N lanes at every step
+//   prefix   sorted mode: at i < lcp[n] (the prefix the read shares with
+//            the previous read of its lane) the position is not coded — no
+//            word, x unchanged — and its base is copied from src[n, i], the
+//            previous row's base plane; everything else of the step (the
+//            finds, the context and the lookup, repair, the events, the
+//            rolls) runs as at a coded position, and the rank history
+//            counts coded positions only. A template parameter (kLcp)
+//            keeps the prefix code out of original order's kernel.
 //   repair   on the cascade's counts from before the rough rescue, at most
 //            once a row; then the rolls of pkey, the s/b windows, their
 //            reverse complements, the letters and rank histories
@@ -79,8 +87,8 @@
 //    events a lane would not fit a block's shared memory; a lane loads
 //    eight of them at once, then issues their atomics
 //    (fire-and-forget reductions).
-// Preconditions (the wrapper checks the shapes; the values are what the
-// codec stores): K2 cells, SIV words, states and window registers are u32
+// Preconditions (the wrapper checks the shapes and 0 <= lcp <= length; the
+// other values are what the codec stores): K2 cells, SIV words, states and window registers are u32
 // values (the registers masked to their windows); model rows are
 // model_update's, smoothed totals at most 2^13, so with w*b < 2^31 and
 // w <= 2^18 every product and boundary of the cdf fits 32 bits; the s and
@@ -128,6 +136,10 @@ struct Args {
   const int64_t* x_in;      // [N]
   const int64_t* ptr_in;    // [1]
   const int64_t* regs_in;   // [9, N]
+  // sorted mode: this row's prefix lengths [N] (0 <= lcp <= length) and the
+  // previous row's base plane [N, L]; both null in original order
+  const int64_t* lcp;
+  const int64_t* src;
   int64_t* base;            // [N, L]
   int64_t* kc;
   int64_t* ctx;
@@ -356,6 +368,8 @@ __device__ __forceinline__ void apply_events(const uint64_t* ev,
   }
 }
 
+// kLcp: the row copies prefixes (sorted order; a.lcp and a.src are set).
+template <bool kLcp>
 __global__ void __launch_bounds__(kThreads)
     dna_decode_row_kernel(const Args a) {
   __shared__ fqtz::ScanSmem scan_sm;
@@ -390,7 +404,7 @@ __global__ void __launch_bounds__(kThreads)
   // carried registers
   uint32_t x = kRansL;
   uint64_t pkey = 0, S = 0, B = 0, RS = 0, RB = 0;
-  int64_t length = 0;
+  int64_t length = 0, lcp = 0;
   if (live) {
     const int64_t* rg = a.regs_in + lane;
     x = static_cast<uint32_t>(a.x_in[lane]);
@@ -403,6 +417,7 @@ __global__ void __launch_bounds__(kThreads)
     RB = static_cast<uint64_t>(rg[8 * N]) << 32 |
          static_cast<uint64_t>(rg[7 * N]);
     length = a.lengths[lane];
+    if (kLcp) lcp = a.lcp[lane];
   }
   int64_t ptr = a.ptr_in[0];
   // reset each row
@@ -413,12 +428,17 @@ __global__ void __launch_bounds__(kThreads)
   int64_t* out_kc = a.kc + static_cast<size_t>(lane) * L;
   int64_t* out_ctx = a.ctx + static_cast<size_t>(lane) * L;
   int64_t* out_sym = a.sym + static_cast<size_t>(lane) * L;
+  // one lane a thread: a strided read, L * 8 bytes between lanes
+  const int64_t* src_row =
+      kLcp ? a.src + static_cast<size_t>(lane) * L : nullptr;
   uint64_t* ev_s = a.events + lane;                     // [L, N] each
   uint64_t* ev_b = a.events + static_cast<size_t>(L) * N + lane;
 
   cluster.sync();   // every block has started before any remote store
   for (int i = 0; i < L; ++i) {
     const bool active = live && i < length;
+    const bool in_prefix = kLcp && active && i < lcp;   // copied
+    const bool coded = active && !in_prefix;
     const bool vs = active && i >= s_w;
     const bool vb = active && i >= b_w;
     // what the step's second half reads of the first
@@ -592,8 +612,8 @@ __global__ void __launch_bounds__(kThreads)
         cum = le && bnd > cum ? bnd : cum;
         nxt = !le && bnd < nxt ? bnd : nxt;
       }
-      const uint32_t f = active ? nxt - cum : 1u << sb;
-      const uint32_t c = active ? cum : 0u;
+      const uint32_t f = coded ? nxt - cum : 1u << sb;
+      const uint32_t c = coded ? cum : 0u;
       x = f * (x >> sb) + slot - c;
       take = x < kRansL;
     }
@@ -625,6 +645,7 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       base = sym;
     }
+    if (in_prefix) base = static_cast<uint32_t>(src_row[i]);
     if (!active) base = 0;
     uint32_t kc = base >= 4 ? 0u : base;
     {
@@ -660,7 +681,7 @@ __global__ void __launch_bounds__(kThreads)
     RS = RS >> 2 | comp << (2 * (s_w - 1));
     RB = RB >> 2 | comp << (2 * (b_w - 1));
     lh = (lh << 3 | base) & kLhMask;
-    const uint32_t rbit = use_code && sym > 0 && active ? 1u : 0u;
+    const uint32_t rbit = use_code && sym > 0 && coded ? 1u : 0u;
     rh = (rh << 1 | rbit) & 0xFu;
     prevc = use_code ? (level == kRsmer ? 3u : level >= kSmer ? 2u : 1u) : 0u;
 
@@ -723,13 +744,14 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
       a.b_log2_rows > 30 || a.mix_w < 1 || a.mix_w > (1 << 18) ||
       a.mix_b < 1 || a.mix_w * a.mix_b >= (1ll << 31) ||
       a.N * a.L >= (1ll << 31) || (s_at & 15u) != 0 || (b_at & 15u) != 0 ||
-      a.events == nullptr ||
+      a.events == nullptr || (a.lcp == nullptr) != (a.src == nullptr) ||
       (reinterpret_cast<uintptr_t>(a.events) & 7u) != 0 ||
       (s_at < b_at + (32ull << a.b_log2_rows) &&
        b_at < s_at + (32ull << a.s_log2_rows)))   // the tables overlap
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = static_cast<int>((a.N + kThreads - 1) / kThreads);
+  void (*kernel)(Args) = a.lcp != nullptr ? &dna_decode_row_kernel<true>
+                                           : &dna_decode_row_kernel<false>;
   return static_cast<int>(fqtz::launch_one_cluster(
-      dna_decode_row_kernel, n_blocks, kThreads,
-      static_cast<cudaStream_t>(stream), a));
+      kernel, n_blocks, kThreads, static_cast<cudaStream_t>(stream), a));
 }

@@ -3,9 +3,10 @@
 The port's own copy of fqsqueezer_tpu/io/fastq.py's in-RAM reader and
 writers: the whole input is scanned once with vectorized newline finding
 and gathered into padded [R, L] integer matrices the device consumes
-directly. The native scanner (io/native.py) and the pure-numpy path give
-the same arrays. The block-streamed reader and the sorted-order helpers
-are copied when the slices that need them come.
+directly, or block-streamed in chunks (stream_fastq) for inputs above
+the CLI's streaming threshold. The native scanner (io/native.py) and the
+pure-numpy path give the same arrays. sort_order and the external bin
+sort (external_sort_stream) give sorted mode's read order.
 
 Symbols: A,C,G,T,N -> 0..4; any other sequence byte maps to N. Qualities
 are stored as (byte - 33), clipped to [0, 95].
@@ -118,6 +119,112 @@ def read_fastq(path: str, use_native: bool = True) -> FastqData:
     return parse_fastq_bytes(data)
 
 
+def stream_fastq(paths, chunk_bytes: int = 64 << 20, use_native: bool = True):
+    """Yield FastqData chunks of ~chunk_bytes from one or more FASTQ files —
+    the block-streamed input path (reference 16 MiB read blocks,
+    reads_block.h:35-76, io.h:31-120): host memory stays O(chunk) no matter
+    the file size. Records never straddle a chunk: each block is cut at the
+    last complete 4-line record and the tail is carried into the next."""
+    if isinstance(paths, (str, bytes)):
+        paths = [paths]
+    from . import native
+
+    def parse(buf: bytes) -> FastqData:
+        data = np.frombuffer(buf, np.uint8)
+        if use_native:
+            out = native.parse_fastq_bytes_native(data)
+            if out is not None:
+                return out
+        return parse_fastq_bytes(data)
+
+    for path in paths:
+        with open(path, "rb") as f:
+            tail = b""
+            while True:
+                blob = f.read(chunk_bytes)
+                if not blob:
+                    if tail:
+                        yield parse(tail)
+                    break
+                buf = tail + blob
+                nl = np.flatnonzero(np.frombuffer(buf, np.uint8) == 10)
+                cut_nl = nl.size - (nl.size % 4)
+                if cut_nl == 0:       # no complete record yet: keep reading
+                    tail = buf
+                    continue
+                cut = int(nl[cut_nl - 1]) + 1
+                tail = buf[cut:]
+                yield parse(buf[:cut])
+
+
+def _sort_bin_ids(codes: np.ndarray, lengths: np.ndarray,
+                  prefix: int = 4) -> np.ndarray:
+    """Bin index = the leading `prefix` bytes of the sort key (collated
+    base + 1, 0 past the read end) as a base-5 integer. The bin id is the
+    major key of sort_order, so processing bins in id order, each sorted
+    in RAM, is a full external sort (reference 256-bin split,
+    application.cpp:349-506, bin_name :1595-1609)."""
+    R, L = codes.shape
+    collated = np.where(codes == 4, 3, codes).astype(np.int32) + 1
+    out = np.zeros(R, np.int32)
+    for i in range(prefix):
+        byte = np.where(i < lengths, collated[:, i] if i < L else 0, 0)
+        out = out * 5 + byte
+    return out
+
+
+def external_sort_stream(paths, chunk_bytes: int = 64 << 20,
+                         tmpdir: str | None = None, prefix: int = 4):
+    """Sorted-mode input at WGS scale: stream chunks, scatter records into
+    5^prefix on-disk bins by sort-key prefix, then yield each bin (sorted in
+    RAM) in key order. Host memory stays O(chunk + largest bin). Ties keep
+    file order at every step, so the concatenated output equals the in-RAM
+    sort_order permutation exactly. ids are NOT preserved (callers restrict
+    to id-mode NONE)."""
+    import os
+    import tempfile
+
+    td = tempfile.mkdtemp(prefix="fqtz_bins_", dir=tmpdir)
+    n_bins = 5 ** prefix
+    handles: dict = {}
+    try:
+        for chunk in stream_fastq(paths, chunk_bytes):
+            if chunk.n_reads == 0:
+                continue
+            bins = _sort_bin_ids(chunk.codes, chunk.lengths, prefix)
+            order = np.argsort(bins, kind="stable")
+            bs = bins[order]
+            uniq, starts = np.unique(bs, return_index=True)
+            bounds = list(starts[1:]) + [len(bs)]
+            for b, s, e in zip(uniq, starts, bounds):
+                rows = order[s:e]
+                buf = render_fastq(chunk.codes[rows], chunk.quals[rows],
+                                   chunk.lengths[rows],
+                                   np.zeros(0, np.uint8),
+                                   np.zeros(len(rows), np.int64))
+                f = handles.get(int(b))
+                if f is None:
+                    f = open(os.path.join(td, f"{int(b):05d}.bin"), "wb")
+                    handles[int(b)] = f
+                f.write(buf.tobytes())
+        for f in handles.values():
+            f.close()
+        for b in sorted(handles):
+            path = os.path.join(td, f"{b:05d}.bin")
+            d = read_fastq(path)
+            os.remove(path)
+            order = sort_order(d.codes, d.lengths)
+            yield FastqData(d.codes[order], d.quals[order],
+                            d.lengths[order], [d.ids[i] for i in order])
+    finally:
+        for f in handles.values():
+            if not f.closed:
+                f.close()
+        for name in os.listdir(td):
+            os.remove(os.path.join(td, name))
+        os.rmdir(td)
+
+
 def render_fastq(codes: np.ndarray, quals: np.ndarray, lengths: np.ndarray,
                  id_src: np.ndarray, id_lens: np.ndarray) -> np.ndarray:
     """Render records to a flat uint8 byte buffer (vectorized).
@@ -210,3 +317,28 @@ class FastqWriter:
 
     def close(self) -> None:
         self.f.close()
+
+
+def sort_order(codes: np.ndarray, lengths: np.ndarray) -> np.ndarray:
+    """Lexicographic read ordering for sorted mode: sequence bytes with N
+    collated as T, then length, then exact bytes (reference CSortedFASTQFile
+    sort, io.h:499-528). Returns the permutation."""
+    R, L = codes.shape
+    if R == 0:
+        return np.zeros(0, np.int64)
+    collated = np.where(codes == 4, 3, codes).astype(np.uint8)
+    pos = np.arange(L)[None, :]
+    valid = pos < lengths[:, None]
+    # pad with 0 (< any real code + 1) so a read that is a strict prefix of
+    # another sorts first, matching std::lexicographical_compare semantics
+    key = np.where(valid, collated + 1, 0).astype(np.uint8)
+    exact = np.where(valid, codes, 0).astype(np.uint8)
+    # ONE memcmp-based argsort over fixed-width byte strings [key | exact]
+    # instead of np.lexsort's 2L stable counting passes (minutes at 1M x 150).
+    # numpy 'S' compare strips trailing NULs — order-preserving here, since 0
+    # is the padding byte and the minimum value.
+    comp = np.empty((R, 2 * L), np.uint8)
+    comp[:, :L] = key
+    comp[:, L:] = exact
+    as_str = np.frombuffer(comp.tobytes(), dtype=f"S{2 * L}")
+    return np.argsort(as_str, kind="stable")

@@ -1,7 +1,13 @@
-"""Compress and decompress orchestration — single-end original order.
+"""Compress and decompress orchestration — single-end reads.
 
-Port of fqsqueezer_tpu/pipeline.py's SE path, every quality mode (-qm
-o|8|4|2|n) and id mode (-im o|i|n). Batches are modeled forward on
+Port of fqsqueezer_tpu/pipeline.py's SE path, original and sorted read
+order (-om o|s), every quality mode (-qm o|8|4|2|n) and id mode (-im
+o|i|n), from RAM or block-streamed (original order in every id mode,
+sorted order with -im n through the external bin sort). Sorted order
+sorts the reads (io.fastq.sort_order), codes each read's shared prefix
+with the previous read of its lane as a meta symbol (meta.compute_lcp)
+and leaves those bases out of the DNA stream; the decoder copies them
+from the previous read row. Batches are modeled forward on
 the device (tables and models evolve), their (freq, cum) grids are kept on
 the device, and at each group flush every stream's grids are entropy-coded
 as one reverse rANS walk each — all streams in one launch of kernel K1 on a
@@ -47,9 +53,8 @@ class CodecState(NamedTuple):
 def unported_modes(p: Params) -> list:
     """Names of the Params' modes this package cannot compress yet."""
     out = []
-    if p.dna_mode != DnaMode.SE_ORIGINAL:
-        out.append({DnaMode.SE_SORTED: "sorted order (-om s)"}.get(
-            p.dna_mode, "paired-end (-p)"))
+    if p.dna_mode not in (DnaMode.SE_ORIGINAL, DnaMode.SE_SORTED):
+        out.append("paired-end (-p)")
     if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
         out.append(f"id codec v{p.id_codec_v} (legacy id_codec_v header "
                    f"value)")
@@ -129,15 +134,18 @@ def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
     Returns ([(freq, cum) int32 [T, N] lane grids per stream: meta, dna,
     then qual and id where present], new state)."""
     kcodes = torch.where(codes >= 4, 0, codes)
+    lcp = (meta.compute_lcp(codes, lengths, mcfg.n_lanes, mcfg.lcp_stride)
+           if mcfg.with_lcp else None)
 
-    m_ctx, m_syms, m_f, m_c = meta.meta_modeling(mcfg, state.meta, lengths)
+    m_ctx, m_syms, m_f, m_c = meta.meta_modeling(mcfg, state.meta, lengths,
+                                                 lcp)
     m_model = models.model_update(
         state.meta, m_ctx.reshape(-1), m_syms.reshape(-1),
         torch.ones(m_ctx.numel(), dtype=torch.bool, device=codes.device))
 
     (eff, d_ctx, d_sym, d_f, d_c, d_act, s_tc,
      b_tc) = dna.dna_process_batch_rg(dcfg, state.dna, codes, kcodes,
-                                      lengths)
+                                      lengths, lcp=lcp)
     d_state = dna.dna_collect_updates(
         dcfg, state.dna._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
         d_ctx, d_sym, d_act)
@@ -176,11 +184,12 @@ def _decode_batch(dcfg, qcfg, mcfg, icfg, R: int, L: int,
     or None, new state, the streams' final lane states) — the last chain
     into the group's next batch."""
     (m_words, m_states), (d_words, d_states), *rest = streams
-    lengths, m_model, m_x, _ = meta.meta_decode_batch(
+    lengths, lcp, m_model, m_x, _ = meta.meta_decode_batch(
         mcfg, state.meta, R, m_words, m_states)
     lengths = torch.clamp(lengths, max=L)
     codes, d_state, d_x, _, _ = dna.dna_decode_batch(
-        dcfg, state.dna, lengths, d_words, d_states, L)
+        dcfg, state.dna, lengths, d_words, d_states, L,
+        lcp=lcp if mcfg.with_lcp else None, lcp_stride=mcfg.lcp_stride)
     final = [m_x, d_x]
     qsyms = q_model = None
     if qcfg is not None:
@@ -316,6 +325,113 @@ def _pad_batch(arr: np.ndarray, padded: int):
     return np.concatenate([arr, np.zeros(pad_shape, arr.dtype)], axis=0)
 
 
+# --- block-streamed input (single-end) -----------------------------------
+
+def _fifo_pop(pend: list, take: int) -> fastq.FastqData:
+    """Pop exactly `take` reads off a FIFO of FastqData chunks (splitting the
+    head chunk if needed) as one FastqData."""
+    got, need = [], take
+    while need:
+        d = pend[0]
+        if d.n_reads <= need:
+            got.append(d)
+            pend.pop(0)
+            need -= d.n_reads
+        else:
+            got.append(fastq.FastqData(d.codes[:need], d.quals[:need],
+                                       d.lengths[:need], d.ids[:need]))
+            pend[0] = fastq.FastqData(d.codes[need:], d.quals[need:],
+                                      d.lengths[need:], d.ids[need:])
+            need = 0
+    return got[0] if len(got) == 1 else fastq.concat_fastq(got)
+
+
+def _stream_ids(paths, chunk_bytes: int):
+    """The ids of the files' complete records, a list a chunk of about
+    chunk_bytes, as stream_fastq's parser keeps them (the header line
+    without its first byte and a trailing CR): only header lines become
+    Python objects. A last line without a newline counts, as in the
+    parser; an unfinished last record does not."""
+    for path in paths:
+        with open(path, "rb") as f:
+            tail, line_no, pending = b"", 0, []
+            while True:
+                blob = f.read(chunk_bytes)
+                if not blob and not tail:
+                    break
+                buf = tail + (blob or b"\n")   # the parser ends a last line
+                arr = np.frombuffer(buf, np.uint8)
+                nl = np.flatnonzero(arr == 10)
+                starts = np.concatenate([[0], nl + 1])[:nl.size]
+                ln = line_no + np.arange(nl.size)
+                for a, b in zip(starts[ln % 4 == 0].tolist(),
+                                nl[ln % 4 == 0].tolist()):
+                    if b > a and buf[b - 1] == 13:
+                        b -= 1
+                    # headers and record ends alternate: a header waits for
+                    # the end of its record's fourth line
+                    pending.append(buf[a + 1:b])
+                done = int((ln % 4 == 3).sum())
+                out, pending = pending[:done], pending[done:]
+                line_no += nl.size
+                tail = buf[int(nl[-1]) + 1:] if nl.size else buf
+                if out:
+                    yield out
+                if not blob:
+                    break
+
+
+def _prescan_ids_stream(paths, p: Params, chunk_bytes: int):
+    """Id template prescan over block-streamed input: the max id length and
+    numeric-field count the archive header fixes — what the in-RAM path
+    reads off the whole id list, and the values of the reference package's
+    prescan — from the files' header lines alone (_stream_ids), host memory
+    O(chunk). Instrument mode measures the transformed prefixes."""
+    max_len, nf = 8, 1
+    for idl in _stream_ids(paths, chunk_bytes):
+        if p.id_mode == IdMode.INSTRUMENT:
+            idl = ids.instrument_prefix(idl)
+        max_len = max(max_len, max(len(s) for s in idl))
+        nf = max(nf, ids.count_fields(idl))
+    return max_len, nf
+
+
+def _stream_batches(paths, p: Params, chunk_bytes: int):
+    """Doubling-schedule batches from block-streamed single-end input, the
+    sizes batch_schedule gives, so the archive equals the in-RAM path's:
+    FASTQ chunks (stream_fastq, or external_sort_stream in sorted order)
+    are buffered FIFO and cut into batches; host memory stays O(chunk +
+    batch). Yields (FastqData batch, take, padded)."""
+    first = _first_batch(p.n_lanes, p.max_batch_reads, 0, p.n_lanes)
+    size = first
+    pend: list = []    # FIFO of parsed chunks not yet batched
+    n_pend = 0
+    source = (fastq.external_sort_stream(paths, chunk_bytes)
+              if p.dna_mode == DnaMode.SE_SORTED
+              else fastq.stream_fastq(paths, chunk_bytes))
+
+    def pop(take):
+        nonlocal n_pend
+        n_pend -= take
+        return _fifo_pop(pend, take)
+
+    for chunk in source:
+        if chunk.n_reads == 0:
+            continue
+        pend.append(chunk)
+        n_pend += chunk.n_reads
+        while n_pend >= size:
+            yield (pop(size), size,
+                   canonical_padded(size, first, p.max_batch_reads,
+                                    p.n_lanes))
+            size = min(size * 2, p.max_batch_reads)
+    while n_pend > 0:
+        take = min(size, n_pend)
+        yield (pop(take), take,
+               canonical_padded(take, first, p.max_batch_reads, p.n_lanes))
+        size = min(size * 2, p.max_batch_reads)
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: `device`, or the first CUDA card
     when the caller names none. Raises RuntimeError when a CUDA device is
@@ -335,30 +451,54 @@ def resolve_device(device=None) -> torch.device:
 
 def compress_file(p: Params, in_path: str, out_path: str,
                   data: Optional[fastq.FastqData] = None,
-                  group_mem_bytes: int = 512 << 20, device=None) -> dict:
-    """SE original-order compression of an in-RAM input (`data`, or the
-    parsed `in_path`) into `out_path`, on `device` (default: the first CUDA
-    card; see resolve_device). Returns the same stats dict as the reference
-    package. With an id stream, p.max_id_len and p.id_n_fields are set
-    from the input before the header is written, as the reference does."""
+                  group_mem_bytes: int = 512 << 20, device=None,
+                  stream_chunk_bytes: int = 0) -> dict:
+    """SE compression, original or sorted order, of an in-RAM input
+    (`data`, or the parsed `in_path`) into `out_path`, on `device`
+    (default: the first CUDA card; see resolve_device). Returns the same
+    stats dict as the reference package. With an id stream, p.max_id_len
+    and p.id_n_fields are set from the input before the header is
+    written, as the reference does.
+
+    stream_chunk_bytes > 0 (and no `data`) block-streams the input in
+    chunks of about that size instead of loading it: original order in
+    every id mode (a prescan of the header lines fixes the id geometry
+    first), sorted order through the external bin sort, which carries no
+    ids, so only with -im n. The archive is the in-RAM path's, byte for
+    byte."""
     missing = unported_modes(p)
     if missing:
         raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
                          + ", ".join(missing))
-    device = resolve_device(device)
     in_paths = list(in_path) if isinstance(in_path, (list, tuple)) else [
         in_path]
-    if data is None:
+    streaming = stream_chunk_bytes > 0 and data is None
+    if (streaming and p.dna_mode == DnaMode.SE_SORTED
+            and p.id_mode != IdMode.NONE):
+        raise ValueError(
+            "streamed sorted-mode compression requires -im n "
+            "(the external bin sort does not carry ids)")
+    device = resolve_device(device)
+    if data is None and not streaming:
         data = (fastq.concat_fastq([fastq.read_fastq(f) for f in in_paths])
                 if len(in_paths) > 1 else fastq.read_fastq(in_paths[0]))
+    if data is not None and p.dna_mode == DnaMode.SE_SORTED:
+        order = fastq.sort_order(data.codes, data.lengths)
+        data = fastq.FastqData(
+            codes=data.codes[order], quals=data.quals[order],
+            lengths=data.lengths[order], ids=[data.ids[i] for i in order])
 
-    id_list = data.ids
+    id_list = data.ids if data is not None else []
     if p.id_mode == IdMode.INSTRUMENT:
         id_list = ids.instrument_prefix(id_list)
     id_chain = None
     if p.id_mode != IdMode.NONE:
-        p.max_id_len = max(8, max((len(s) for s in id_list), default=8))
-        p.id_n_fields = ids.count_fields(id_list)
+        if streaming:
+            p.max_id_len, p.id_n_fields = _prescan_ids_stream(
+                in_paths, p, stream_chunk_bytes)
+        else:
+            p.max_id_len = max(8, max((len(s) for s in id_list), default=8))
+            p.id_n_fields = ids.count_fields(id_list)
         id_chain = [None]   # one file-order chain (ids.read_lanes)
 
     dcfg, qcfg, mcfg, icfg = make_configs(p)
@@ -418,11 +558,29 @@ def compress_file(p: Params, in_path: str, out_path: str,
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(
             device)
 
-    for start, take, padded in batch_schedule(data.n_reads, p.n_lanes,
-                                              p.max_batch_reads):
-        codes_u8 = _pad_batch(data.codes[start:start + take], padded)
-        lengths = _pad_batch(data.lengths[start:start + take],
-                             padded).astype(np.int32)
+    if streaming:
+        def ids_of(d):
+            if icfg is None:
+                return []
+            return (ids.instrument_prefix(d.ids)
+                    if p.id_mode == IdMode.INSTRUMENT else d.ids)
+
+        batches = ((d.codes, d.quals, d.lengths, ids_of(d), take, padded)
+                   for d, take, padded in _stream_batches(
+                       in_paths, p, stream_chunk_bytes))
+    else:
+        batches = ((data.codes[start:start + take],
+                    data.quals[start:start + take],
+                    data.lengths[start:start + take],
+                    id_list[start:start + take], take, padded)
+                   for start, take, padded in batch_schedule(
+                       data.n_reads, p.n_lanes, p.max_batch_reads))
+    n_reads = n_bases = 0
+    for codes_raw, quals_raw, lengths_raw, ids_raw, take, padded in batches:
+        n_reads += take
+        n_bases += int(lengths_raw.sum())
+        codes_u8 = _pad_batch(codes_raw, padded)
+        lengths = _pad_batch(lengths_raw, padded).astype(np.int32)
         # columns padded to a multiple of 8: the width the reference models,
         # writes as the batch's max_len and covers with the crc
         L = codes_u8.shape[1]
@@ -431,15 +589,14 @@ def compress_file(p: Params, in_path: str, out_path: str,
         group_crc = payload_crc(group_crc, codes_u8[:take], lengths[:take])
         qsyms = None
         if qcfg is not None:
-            quals_u8 = np.pad(_pad_batch(data.quals[start:start + take],
-                                         padded), ((0, 0), (0, L8 - L)))
+            quals_u8 = np.pad(_pad_batch(quals_raw, padded),
+                              ((0, 0), (0, L8 - L)))
             qsyms = to_dev(qfwd[np.minimum(quals_u8, 95)])
         id_batch = ()
         if icfg is not None:
             id_batch = tuple(torch.from_numpy(a).to(device) for a in
                              ids.encode_ids_host(
-                                 id_list[start:start + take]
-                                 + [b""] * (padded - take),
+                                 ids_raw + [b""] * (padded - take),
                                  ids.read_lanes(padded, p.n_lanes),
                                  icfg.n_fields, icfg.max_id_len, id_chain,
                                  n_valid=take))
@@ -458,12 +615,11 @@ def compress_file(p: Params, in_path: str, out_path: str,
 
     in_bytes = sum(os.path.getsize(f) for f in in_paths if os.path.exists(f))
     out_bytes = os.path.getsize(out_path)
-    n_bases = int(data.lengths.sum())
     if p.verbosity >= 2:
         det = "  ".join(f"{k}: {v:,}" for k, v in stream_bytes.items())
         print(f"streams: {det}")
     return {
-        "n_reads": data.n_reads, "in_bytes": in_bytes, "out_bytes": out_bytes,
+        "n_reads": n_reads, "in_bytes": in_bytes, "out_bytes": out_bytes,
         "bits_per_base": 8.0 * out_bytes / max(1, n_bases),
         "ratio": in_bytes / max(1, out_bytes),
         "stream_bytes": stream_bytes,

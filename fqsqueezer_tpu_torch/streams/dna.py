@@ -2,7 +2,8 @@
 
 Port of fqsqueezer_tpu/streams/dna.py, the row-global encode path of the
 header defaults (canonical K2 s/b tables, rough 1-substitution rescue, ctx
-v2, prefix ramp, two-level model mix, packed model view). The method is the
+v2, prefix ramp, two-level model mix, packed model view), in original and
+sorted read order. The method is the
 reference's (see that module's docstring): per-base next-symbol counts come
 from a cascade of k-mer counter stores, the actual base is coded as its rank
 among count-sorted candidates under a count-conditioned context, and a
@@ -11,7 +12,11 @@ letters model covers the read prefix and positions with no counts.
 Encode runs one batch as a Python loop over its read rows (row rd = read rd
 of every lane): per row, greedy repair against the row-fresh tables, the
 cascade, contexts and (freq, cum), then the row's s/b insert events — the
-order the decoder replays. Every op inside a row is [N, L]-wide.
+order the decoder replays. Every op inside a row is [N, L]-wide. In
+sorted order a read's first lcp positions (meta.compute_lcp: the prefix it
+shares with the previous read of its lane) are not coded: the decoder
+copies them from the previous read row; they still feed repair, the
+cascade's windows and the row's insert events.
 
 Decode (dna_decode_batch) replays that order one position at a time for
 all lanes: per read row a scan over the L positions, each step the cascade,
@@ -24,8 +29,9 @@ tables in place; on CPU tensors dna_decode_row_plain, the same scan as
 torch ops on the lanes' [N] tensors, then _apply_sb_updates. The batch's
 model and SIV update stays torch.
 
-Not ported yet: sorted-mode LCP, paired-end anchors, the legacy
-(non-row-global, non-canonical, u16-cell) paths.
+Not ported yet: paired-end anchors, sorted-mode position contexts
+(dna_sorted_ctx), the legacy (non-row-global, non-canonical, u16-cell)
+paths.
 """
 from __future__ import annotations
 
@@ -585,25 +591,31 @@ def _let_pb(cfg, pb):
 
 
 def _pos_buckets(cfg, pos, lens):
-    """[R, L] position buckets of original-order single-end reads (the
-    sorted-mode and paired-end coordinate maps come with those modes)."""
+    """[R, L] position buckets of single-end reads, in original and sorted
+    order (check_supported refuses the sorted-mode buckets of
+    dna_sorted_ctx and the paired-end coordinate map)."""
     return _pos_bucket(pos, lens)
 
 
 def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
-                         lengths, be=tables.LOCAL):
+                         lengths, be=tables.LOCAL, lcp=None):
     """Row-global encoder pass: a loop over the r_pl read rows carrying the
     s/b tables. Per row: greedy repair against the row-fresh tables, the
     cascade find (+ rough rescue), context/rank modeling against the
     batch-frozen model, then the row's s/b insert events.
 
-    codes/kcodes: [R, L] int64 (N = 4 in codes, 0 in kcodes); lengths [R].
+    codes/kcodes: [R, L] int64 (N = 4 in codes, 0 in kcodes); lengths [R];
+    lcp (sorted order): [R], positions below it are not coded (f, c are
+    no-ops and the rank history skips them) while repair, the finds and
+    the insert events keep every in-length position.
     Returns (eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc)."""
     R, L = codes.shape
     dev = codes.device
     pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     lens = lengths[:, None]
     code_active = pos < lens
+    if lcp is not None:
+        code_active = code_active & (pos >= lcp[:, None])
     pb = _pos_buckets(cfg, pos, lens)
     let_ctx = _letters_plane(cfg, codes, pos, pb)
 
@@ -769,22 +781,27 @@ K2_MAX_LANES = 2048   # one cluster of 16 blocks x 128 (the source's kMaxLanes)
 K2_NREGS = 9
 # the launch's int64 arguments, in the order of struct Args in the source
 K2_ARGS = ("siv", "s_tc", "b_tc", "model", "lengths", "words", "x_in",
-           "ptr_in", "regs_in", "base", "kc", "ctx", "sym", "x_out",
-           "ptr_out", "regs_out", "n_words", "N", "L", "siv_len", "smer_len",
-           "bmer_len", "prefix_len", "scale_bits", "s_log2_rows",
+           "ptr_in", "regs_in", "lcp", "src", "base", "kc", "ctx", "sym",
+           "x_out", "ptr_out", "regs_out", "n_words", "N", "L", "siv_len",
+           "smer_len", "bmer_len", "prefix_len", "scale_bits", "s_log2_rows",
            "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b",
            "events")
 
 
 def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
-                         ptr, regs, L: int, be=tables.LOCAL):
+                         ptr, regs, L: int, lcp=None, src=None,
+                         be=tables.LOCAL):
     """K2's plain torch version, on any device: one read row of the decode,
     the reference's whole `outer` step — its `inner` step for each of the
     row's static steps (_decode_segments), then the row's s/b insert events
     (_apply_sb_updates). state: the DnaState the row reads, its s/b tables
     fresh with every earlier row's events; length: [N] int64; words: [W]
     integer tensor of u16 values; x: [N] int64 lane states; ptr: 0-d int64
-    words consumed so far; regs: int64 [K2_NREGS, N] carried registers.
+    words consumed so far; regs: int64 [K2_NREGS, N] carried registers;
+    lcp (sorted order): [N] int64 prefix lengths, 0 <= lcp <= length, and
+    src: the previous read row's base plane, int64 [N, L] — a position
+    below lcp takes no word and copies its base from src, and is left out
+    of the rank history; None for original order.
     Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr, regs, s_tc,
     b_tc), the tables new tensors (the state's are left as they were)."""
     N = length.shape[0]
@@ -802,6 +819,8 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
     ys = []
     for i, ramp_q, rough_on in _decode_segments(cfg, L):
         active = i < length
+        in_prefix = active & (i < lcp) if lcp is not None else None
+        coded = active if lcp is None else active & ~in_prefix
         vp_i = i >= cfg.siv_len - 1
         if cfg.pmer_gate > 0:
             vp_i = vp_i and i < cfg.pmer_gate
@@ -852,11 +871,13 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
 
         cdf = _dna_cdf(cfg, state.model, ctx_all, sb)
         sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
-        f = torch.where(active, f, 1 << sb)
-        c = torch.where(active, c, 0)
+        f = torch.where(coded, f, 1 << sb)
+        c = torch.where(coded, c, 0)
         x, ptr = rans.rans_decode_advance(x, ptr, words, f, c, sb)
 
         base = torch.where(use_code, _base_of_rank(counts, sym), sym)
+        if lcp is not None:
+            base = torch.where(in_prefix, src[:, i], base)
         base = torch.where(active, base, 0)
         # repair triggers on the cascade's counts, before rough evidence
         trig, best = _repair_trigger(counts_g, level_g, base)
@@ -873,7 +894,7 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         rslo, rshi = kmers.or_top_base(*kmers.shr2(rslo, rshi), comp, s_w)
         rblo, rbhi = kmers.or_top_base(*kmers.shr2(rblo, rbhi), comp, b_w)
         lh = ((lh << 3) | base) & LH_MASK
-        rbit = (use_code & (sym > 0) & active).to(torch.int64)
+        rbit = (use_code & (sym > 0) & coded).to(torch.int64)
         rh = ((rh << 1) | rbit) & 0xF
         prevc = _level_class(cfg, level, use_code)
         ys.append((base, kc, ctx_all, sym))
@@ -885,7 +906,7 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         [pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi]), s_tc, b_tc
 
 
-def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
+def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
     check_supported(cfg)
     if be is not tables.LOCAL:
         raise ValueError("K2 reads whole tables on one device (the local "
@@ -906,6 +927,12 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
             ("x", x, torch.int64, (N,)),
             ("ptr", ptr, torch.int64, ()),
             ("regs", regs, torch.int64, (K2_NREGS, N)))
+    if (lcp is None) != (src is None):
+        raise ValueError("K2: lcp and src go together (sorted order) or "
+                         "are both None")
+    if lcp is not None:
+        want += (("lcp", lcp, torch.int64, (N,)),
+                 ("src", src, torch.int64, (N, L)))
     for name, t, dt, shape in want:
         if (t.dtype != dt or t.device != dev or not t.is_contiguous()
                 or (shape is None and t.dim() != 1)
@@ -927,6 +954,9 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
     if (s_at < b_at + state.b_tc.nbytes and b_at < s_at + state.s_tc.nbytes):
         raise ValueError("K2: the s and b tables overlap (K2 updates both "
                          "in place)")
+    # one pull a sorted row: the prefix copy must stay inside the read
+    if lcp is not None and bool(((lcp < 0) | (lcp > length)).any()):
+        raise ValueError("K2: an lcp outside 0..length")
     if (words.numel() < 1 or L < 1 or N * L >= 1 << 31
             or not 1 <= cfg.scale_bits <= 16 or not 3 <= cfg.siv_len <= 17
             or not 3 <= cfg.smer_len <= 33 or not 3 <= cfg.bmer_len <= 33
@@ -936,7 +966,8 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, be):
                          f"geometry outside the kernel's: {cfg}")
 
 
-def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
+def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
+               lcp=None, src=None):
     """Allocate one row's outputs and its event scratch and launch `entry`
     (a C function with K2's signature) on the current stream. No checks:
     _check_k2 first. Returns (planes, x, ptr, regs, s_tc, b_tc), the tables
@@ -954,7 +985,8 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
     vals = {
         "siv": state.siv, "s_tc": state.s_tc, "b_tc": state.b_tc,
         "model": state.model, "lengths": length, "words": words, "x_in": x,
-        "ptr_in": ptr, "regs_in": regs, "base": planes[0], "kc": planes[1],
+        "ptr_in": ptr, "regs_in": regs, "lcp": lcp, "src": src,
+        "base": planes[0], "kc": planes[1],
         "ctx": planes[2], "sym": planes[3], "x_out": x_out,
         "ptr_out": ptr_out, "regs_out": regs_out,
         "n_words": words.numel(), "N": N, "L": L, "siv_len": cfg.siv_len,
@@ -966,7 +998,7 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
         "b_log2_base": cfg.bmer_log2_buckets,
         "mix_w": cfg.mix_w, "mix_b": cfg.mix_b, "events": events}
     args = (ctypes.c_int64 * len(K2_ARGS))(*(
-        v.data_ptr() if isinstance(v, torch.Tensor) else v
+        v.data_ptr() if isinstance(v, torch.Tensor) else v or 0
         for v in (vals[k] for k in K2_ARGS)))
     with torch.cuda.device(dev):
         rc = entry(args, len(K2_ARGS),
@@ -977,21 +1009,22 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L):
             state.b_tc)
 
 
-def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, be):
+def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, lcp,
+                         src, be):
     """One K2 launch for one read row, its table update included. Checks
     everything before it builds or launches."""
     global K2_LAUNCHES
-    _check_k2(cfg, state, length, words, x, ptr, regs, L, be)
+    _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be)
     from ..ops import _build
 
     out = _k2_launch(_build.kernels().fqtz_dna_decode_row, cfg, state,
-                     length, words, x, ptr, regs, L)
+                     length, words, x, ptr, regs, L, lcp, src)
     K2_LAUNCHES += 1
     return out
 
 
 def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
-                   regs, L: int, be=tables.LOCAL):
+                   regs, L: int, lcp=None, src=None, be=tables.LOCAL):
     """One read row of the decode, its s/b table update included: on CUDA
     tensors kernel K2 (a failed build or launch raises; nothing falls back
     to the plain version), which updates state.s_tc and state.b_tc IN
@@ -1001,35 +1034,47 @@ def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
     kind = state.model.device.type
     if kind == "cuda":
         return _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs,
-                                    L, be)
+                                    L, lcp, src, be)
     if kind == "cpu":
         return dna_decode_row_plain(cfg, state, length, words, x, ptr, regs,
-                                    L, be)
+                                    L, lcp, src, be)
     raise ValueError(f"dna_decode_row: no scan for device "
                      f"{state.model.device}")
 
 
 def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
-                     init_states, L: int, be=tables.LOCAL):
-    """Decode a batch — the reference's dna_decode_batch for single-end,
-    original order, row-global canonical tables (no LCP, no PE, no local
-    tables). lengths: [R] int64 (R a multiple of n_lanes); words: [W]
-    integer tensor of u16 values; init_states: [N] int64 (the encoder's
-    final states).
+                     init_states, L: int, be=tables.LOCAL, lcp=None,
+                     lcp_stride: int = 1):
+    """Decode a batch — the reference's dna_decode_batch for single-end
+    reads in original or sorted order, row-global canonical tables (no PE,
+    no local tables). lengths: [R] int64 (R a multiple of n_lanes); words:
+    [W] integer tensor of u16 values; init_states: [N] int64 (the encoder's
+    final states); lcp (sorted order): [R] shared-prefix lengths, whose
+    positions each row copies from the previous read row of its lane
+    (lcp_stride 1: the single-end chain; paired-end's 2 is not ported).
 
     A loop over the read rows: each row is one dna_decode_row (K2 on a CUDA
     device) against the carried s/b tables, the row's s/b insert events
-    included; dna_collect_updates (model and SIV) runs once after the batch.
+    included, and in sorted order the previous row's base plane as its
+    prefix source (a zero plane for the batch's first row, whose lcp is 0);
+    dna_collect_updates (model and SIV) runs once after the batch.
     On a CUDA device the state's s/b tables are updated in place: the
     returned state holds the same tensors, and the given one no longer
     holds the batch's starting tables. Returns (codes [R, L] int64,
     new_state, final_states, n_words_consumed, (eff, ctx_all, sym,
     code_active))."""
     check_supported(cfg)
+    if lcp is not None and lcp_stride != 1:
+        raise NotImplementedError(f"LCP stride {lcp_stride} (paired-end) "
+                                  f"is not ported")
     N = cfg.n_lanes
     R = lengths.shape[0]
     dev = init_states.device
     len_rows = common.to_read_grid(lengths.to(torch.int64), N).t().contiguous()
+    lcp_rows = src = None
+    if lcp is not None:
+        lcp_rows = common.to_read_grid(lcp.to(torch.int64), N).t().contiguous()
+        src = torch.zeros((N, L), dtype=torch.int64, device=dev)
     words = words.to(torch.int32).contiguous()
     pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     x = init_states
@@ -1041,12 +1086,16 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
         length = len_rows[rd]
         planes, x, ptr, regs, s_tc, b_tc = dna_decode_row(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), length, words, x, ptr,
-            regs, L, be)
+            regs, L, None if lcp is None else lcp_rows[rd], src, be=be)
+        if lcp is not None:
+            src = planes[0]
         rows.append(planes)
 
     codes, eff, ctx_all, sym = (common.from_row_blocks(torch.stack(r))
                                 for r in zip(*rows))
     code_active = pos < lengths[:, None]
+    if lcp is not None:
+        code_active = code_active & (pos >= lcp[:, None])
     new_state = dna_collect_updates(
         cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
         ctx_all, sym, code_active, be)

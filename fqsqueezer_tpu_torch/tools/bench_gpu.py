@@ -8,11 +8,14 @@ compress reads/s of the bench primary row (`e -s -om o -qm 8 -im n -gs 5`,
 the host clock and ended by `torch.cuda.synchronize()`; decode reads/s,
 bits/base and the walls ride along, with the peak CUDA memory of the
 compress and of the decode. The ride-along rows follow bench.py:
-`se_ids` (`-qm n -im o`, 1024 lanes) and `se_real` (the primary row on the
-realistic-genome corpus) hold bits/base and bytes against the C++
-reference's archive; `sorted` and `pe`, modes the port lacks, hold the
-port's one-line refusal as `{"error": ...}`, and every row that failed is
-named on stderr as `RIDE-ALONG FAILURE`, as bench.py does.
+`sorted` (`-om s -qm 8 -im n`, 1024 lanes) holds compress and decode
+reads/s (warm-up, then a timed run each), bits/base and bytes against the
+C++ reference's archive; `se_ids` (`-qm n -im o`, 1024 lanes) and
+`se_real` (the primary row on the realistic-genome corpus) hold bits/base
+and bytes against the C++ reference's archive; `pe`, a mode the port
+lacks, holds the port's one-line refusal as `{"error": ...}`, and every
+row that failed is named on stderr as `RIDE-ALONG FAILURE`, as bench.py
+does.
 
 `--primary-only` prints the primary row alone. Its imports are absolute, so
 the same file run by path holds an earlier checkout of the package to the
@@ -161,18 +164,38 @@ def main() -> int:
         return 0
 
     # ---- ride-along rows: a failure never loses the primary line -------
-    # sorted order and PE: compress_file refuses the modes it lacks with
-    # one line before it writes anything; the row carries that line
-    for key, om, qm in (("sorted", DnaMode.SE_SORTED, QualityMode.ILLUMINA_8),
-                        ("pe", DnaMode.PE_ORIGINAL, QualityMode.NONE)):
-        try:
-            pipeline.compress_file(params(om, qm), src,
-                                   os.path.join(WORK, f"{key}.fqst"),
-                                   data=data)
-            out[key] = {"error": "compressed, but bench_gpu has no row for "
-                                 "this mode yet"}
-        except ValueError as e:
-            out[key] = {"error": f"{type(e).__name__}: {e}"[:200]}
+    try:
+        s_arc = os.path.join(WORK, "sorted.fqst")
+        s_out = os.path.join(WORK, "sorted_out.fastq")
+
+        def compress_sorted():
+            return pipeline.compress_file(params(om=DnaMode.SE_SORTED), src,
+                                          s_arc, data=data)
+
+        compress_sorted()
+        stats_s, dts = timed(compress_sorted)
+        pipeline.decompress_file(Params(), s_arc, s_out + ".warm")
+        dstats_s, ddts = timed(
+            lambda: pipeline.decompress_file(Params(), s_arc, s_out))
+        out["sorted"] = {
+            "compress_reads_per_s": round(stats_s["n_reads"] / dts, 1),
+            "decode_reads_per_s": round(dstats_s["n_reads"] / ddts, 1),
+            "bits_per_base": round(stats_s["bits_per_base"], 4),
+            "bytes_vs_ref": round(stats_s["out_bytes"] / REF_SORTED_BYTES,
+                                  4),
+        }
+    except Exception as e:  # noqa: BLE001 - diagnostic ride-along
+        out["sorted"] = {"error": f"{type(e).__name__}: {e}"[:200]}
+
+    # PE: compress_file refuses the mode with one line before it writes
+    # anything; the row carries that line
+    try:
+        pipeline.compress_file(params(DnaMode.PE_ORIGINAL, QualityMode.NONE),
+                               src, os.path.join(WORK, "pe.fqst"), data=data)
+        out["pe"] = {"error": "compressed, but bench_gpu has no row for "
+                              "this mode yet"}
+    except ValueError as e:
+        out["pe"] = {"error": f"{type(e).__name__}: {e}"[:200]}
 
     try:
         stats_i = pipeline.compress_file(

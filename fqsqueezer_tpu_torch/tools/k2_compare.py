@@ -2,12 +2,15 @@
 the row's s/b table update, one launch) on one card, against its plain
 torch version.
 
-    python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--other other.cu ...]
+    python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--sorted]
+        [--other other.cu ...]
 
 The input is the main path's real batch: the bench corpus's first 20,000
-reads (chip_smoke.py's) compressed on the card at the bench primary row,
-and the DNA decode inputs of the archive's second batch with the DNA state
-the first batch left (real_dna_batch). dna_decode_batch decodes it with
+reads (chip_smoke.py's) compressed on the card at the bench primary row
+(with --sorted at the bench's sorted row, -om s: 1024 lanes, 4 read rows
+a batch, each read's shared prefix copied by K2), and the DNA decode
+inputs of the archive's second batch with the DNA state the first batch
+left (real_dna_batch). dna_decode_batch decodes it with
 every read row run by K2 and by the plain row step on the same inputs and
 held equal, both updated tables included (check_rows). Then one batch's
 rows are timed with CUDA events, each call allocating its outputs as the
@@ -42,8 +45,10 @@ from ..params import Params
 from ..streams import dna, meta
 from ..utils.corpus import write_fastq_corpus
 
-# the bench primary row, as chip_smoke.py gives it to the CLI
+# the bench primary row, as chip_smoke.py gives it to the CLI, and the
+# bench's sorted row
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
+SORTED_ROW = ("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate
 K2_OPS_PER_POS = 700       # an active lane-step: two queries (hash, tag,
@@ -57,10 +62,12 @@ CHAIN_LANES = 32
 
 
 def real_dna_batch(arc, device="cuda"):
-    """The DNA decode inputs of the main path's second batch (4096 reads,
-    2 read rows) of an archive's first group: (DnaConfig, the DNA state the
-    first batch left, the batch's lengths (meta decoded, clamped to L), its
-    fitted int32 word plane, the lane states the first batch left, L)."""
+    """The DNA decode inputs of the second batch of an archive's first
+    group (4096 reads: 2 read rows at the main path's 2048 lanes, 4 at
+    sorted order's 1024): (DnaConfig, the DNA state the first batch left,
+    the batch's lengths (meta decoded, clamped to L), its fitted int32
+    word plane, the lane states the first batch left, L, its LCPs or None
+    in original order)."""
     rd = ArchiveReader(arc)
     try:
         p = Params.load_params(rd.header_blob)
@@ -80,16 +87,17 @@ def real_dna_batch(arc, device="cuda"):
         take, L, streams = batches[k]
         padded = pipeline.canonical_padded(take, first, p.max_batch_reads,
                                            p.n_lanes)
-        lengths, m_model, m_x, _ = meta.meta_decode_batch(
+        lengths, lcp, m_model, m_x, _ = meta.meta_decode_batch(
             mcfg, m_model, padded, pipeline.fit_words(
                 streams[0][0], mcfg.n_per_read * padded, device), m_x)
         lengths = torch.clamp(lengths, max=L)
+        lcp = lcp if mcfg.with_lcp else None
         d_words = pipeline.fit_words(streams[1][0], padded * max(L, 2),
                                      device)
         if k == 1:
-            return dcfg, d_state, lengths, d_words, d_x, L
+            return dcfg, d_state, lengths, d_words, d_x, L, lcp
         _, d_state, d_x, _, _ = dna.dna_decode_batch(
-            dcfg, d_state, lengths, d_words, d_x, L)
+            dcfg, d_state, lengths, d_words, d_x, L, lcp=lcp)
 
 
 _OUT_NAMES = ("base", "eff", "ctx", "sym", "final states", "ptr",
@@ -115,25 +123,29 @@ def max_abs_err(got, want):
     return worst
 
 
-def check_rows(cfg, state, lengths, words, init, L, what="the batch"):
-    """Decode one batch through dna.dna_decode_batch with every read row
-    run by both K2 (dna_decode_row on CUDA tensors, on copies of the
-    row-start tables, which it updates in place) and dna_decode_row_plain
-    on the same inputs, raising at the first difference in the planes,
-    final states, words consumed, registers or either updated table; the
-    batch goes on with the plain results, and the caller's state keeps its
-    tables. Returns, a row, (its dna_decode_row arguments, which hold the
-    row-start tables, and the plain result)."""
+def check_rows(cfg, state, lengths, words, init, L, lcp=None,
+               what="the batch"):
+    """Decode one batch through dna.dna_decode_batch (with the batch's LCPs
+    in sorted order) with every read row run by both K2 (dna_decode_row on
+    CUDA tensors, on copies of the row-start tables, which it updates in
+    place) and dna_decode_row_plain on the same inputs, raising at the
+    first difference in the planes (every position, copied prefixes
+    included), final states, words consumed, registers or either updated
+    table; the batch goes on with the plain results, and the caller's
+    state keeps its tables. Returns, a row, (its dna_decode_row arguments,
+    which hold the row-start tables and the prefix source, and the plain
+    result)."""
     k2 = dna.dna_decode_row
     rows = []
 
-    def both(cfg, state, length, words, x, ptr, regs, L, be=tables.LOCAL):
-        args = (cfg, state, length, words, x, ptr, regs, L)
-        want = dna.dna_decode_row_plain(*args, be)
+    def both(cfg, state, length, words, x, ptr, regs, L, lcp=None, src=None,
+             be=tables.LOCAL):
+        args = (cfg, state, length, words, x, ptr, regs, L, lcp, src)
+        want = dna.dna_decode_row_plain(*args, be=be)
         work = state._replace(s_tc=state.s_tc.clone(),
                               b_tc=state.b_tc.clone())
         before = dna.K2_LAUNCHES
-        got = k2(cfg, work, length, words, x, ptr, regs, L, be)
+        got = k2(cfg, work, *args[2:], be=be)
         if dna.K2_LAUNCHES != before + 1:
             raise RuntimeError("dna_decode_row did not launch K2")
         if got[4] is not work.s_tc or got[5] is not work.b_tc:
@@ -152,7 +164,7 @@ def check_rows(cfg, state, lengths, words, init, L, what="the batch"):
 
     dna.dna_decode_row = both
     try:
-        dna.dna_decode_batch(cfg, state, lengths, words, init, L)
+        dna.dna_decode_batch(cfg, state, lengths, words, init, L, lcp=lcp)
     finally:
         dna.dna_decode_row = k2
     return rows
@@ -161,23 +173,42 @@ def check_rows(cfg, state, lengths, words, init, L, what="the batch"):
 def chain_rows(rows, lanes=CHAIN_LANES):
     """The rows' K2 arguments cut to their first `lanes` lanes (the chain
     floor: the same dependent steps for one warp)."""
+    def cut(t):
+        return None if t is None else t[:lanes].contiguous()
+
     out = []
-    for (cfg, st, length, words, x, ptr, regs, L), _ in rows:
+    for (cfg, st, length, words, x, ptr, regs, L, lcp, src), _ in rows:
         out.append((dataclasses.replace(cfg, n_lanes=lanes), st,
-                    length[:lanes].contiguous(), words,
-                    x[:lanes].contiguous(), ptr,
-                    regs[:, :lanes].contiguous(), L))
+                    cut(length), words, cut(x), ptr,
+                    regs[:, :lanes].contiguous(), L, cut(lcp), cut(src)))
     return out
 
 
+def k2_launcher(entry=None):
+    """A dna_decode_row for rows already checked (dna._check_k2): it
+    launches `entry` (default K2's C entry point) with no checks and no
+    launch count. A sorted row's check pulls its LCPs to the host, which a
+    timed replay must not include."""
+    entry = entry or _build.kernels().fqtz_dna_decode_row
+
+    def launch(cfg, state, length, words, x, ptr, regs, L, lcp=None,
+               src=None, be=tables.LOCAL):
+        return dna._k2_launch(entry, cfg, state, length, words, x, ptr, regs,
+                              L, lcp, src)
+    return launch
+
+
 def replay_ms(args, launch=None, reps=20):
-    """ms a batch of `launch` (default dna.dna_decode_row: K2) over rows'
-    dna_decode_row arguments, the rows in order, timed with CUDA events.
-    Every repetition runs on work copies of each row's tables, restored
-    from the row-start ones before it and outside its timed region: K2
-    updates the tables in place, and a replay must not see its own
-    events."""
-    launch = launch or dna.dna_decode_row
+    """ms a batch of `launch` (default K2, each row checked once before
+    the timing) over rows' dna_decode_row arguments, the rows in order,
+    timed with CUDA events. Every repetition runs on work copies of each
+    row's tables, restored from the row-start ones before it and outside
+    its timed region: K2 updates the tables in place, and a replay must
+    not see its own events."""
+    if launch is None:
+        for a in args:
+            dna._check_k2(*a, tables.LOCAL)
+        launch = k2_launcher()
     work = [(a, a[1].s_tc.clone(), a[1].b_tc.clone()) for a in args]
     marks = [(torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True)) for _ in range(reps + 1)]
@@ -224,15 +255,9 @@ def cut_source(tag, cuts):
 
 
 def variant(src, tag):
-    """A dna_decode_row that launches K2 built from `src` (checks as the
-    wrapper's, no launch count)."""
-    entry = _build.load_other(src, tag).fqtz_dna_decode_row
-
-    def launch(cfg, state, length, words, x, ptr, regs, L, be=tables.LOCAL):
-        dna._check_k2(cfg, state, length, words, x, ptr, regs, L, be)
-        return dna._k2_launch(entry, cfg, state, length, words, x, ptr, regs,
-                              L)
-    return launch
+    """A dna_decode_row that launches K2 built from `src` (no checks, no
+    launch count: k2_launcher)."""
+    return k2_launcher(_build.load_other(src, tag).fqtz_dna_decode_row)
 
 
 def _distinct(t):
@@ -252,13 +277,14 @@ def k2_bound_ms(rows):
     its rough probes read, the distinct SIV words (8 B) that its finds and
     its prefix ramp read, the distinct model rows (fine and coarse, 20 B),
     the words it consumes (4 B), lengths, states, registers and the pointer
-    in and out, the four int64 [N, L] planes out, and the table cells its
-    update changes (8 B). Operations: K2_OPS_PER_POS an active
+    in and out, the four int64 [N, L] planes out, the table cells its
+    update changes (8 B), and in sorted order the LCPs and the prefix
+    source's copied bases (8 B each). Operations: K2_OPS_PER_POS an active
     lane-position and K2_OPS_PER_EVENT an insert event over the published
     32-bit rate."""
     nbytes = 0
     n_ops = 0
-    for (cfg, st, length, words, x, ptr, regs, L), want in rows:
+    for (cfg, st, length, words, x, ptr, regs, L, lcp, src), want in rows:
         (_, kc, ctx, _), _, ptr_end, _, s_new, b_new = want
         N = length.shape[0]
         pos = torch.arange(L, device=kc.device)[None, :]
@@ -305,6 +331,8 @@ def k2_bound_ms(rows):
                    + 4 * int(ptr_end - ptr) + 8 * N
                    + 2 * 8 * (N + dna.K2_NREGS * N + 1) + 4 * N * L * 8
                    + 8 * changed)
+        if lcp is not None:
+            nbytes += 8 * N + 8 * int(torch.minimum(lcp, length).sum())
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT_OPS_PER_S * 1e3
     return (max(by_bytes, by_ops),
@@ -313,6 +341,9 @@ def k2_bound_ms(rows):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sorted", action="store_true",
+                    help="the bench's sorted row (-om s) instead of the "
+                    "primary row")
     ap.add_argument("--other", action="append", default=[],
                     help="another CUDA source of K2 (its C entry point and "
                     "struct Args) to time beside it (repeatable)")
@@ -326,11 +357,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
         write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
-        pipeline.compress_file(cli.parse_args(["e", *BENCH_ROW, src]), src,
-                               arc)
+        row = SORTED_ROW if args.sorted else BENCH_ROW
+        pipeline.compress_file(cli.parse_args(["e", *row, src]), src, arc)
         batch = real_dna_batch(arc)
     rows = check_rows(*batch)
-    L = batch[-1]
+    L = batch[5]
     steps = len(rows) * L
     row_args = [a for a, _ in rows]
     runs = [("K2", None, True)]
@@ -364,7 +395,8 @@ def main() -> int:
     floor_ms = replay_ms(chain)
     plain_ms = replay_ms(row_args, dna.dna_decode_row_plain, 2)
     bound, by = k2_bound_ms(rows)
-    print(f"the main path's batch ({len(rows)} rows, {steps} steps): chain "
+    print(f"the {'sorted' if args.sorted else 'main'} path's batch "
+          f"({len(rows)} rows, {steps} steps): chain "
           f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {by}")
     return 0

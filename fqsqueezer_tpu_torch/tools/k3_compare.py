@@ -66,7 +66,7 @@ def real_quality_batch(arc, device="cuda"):
         take, L, streams = batches[k]
         padded = pipeline.canonical_padded(take, first, p.max_batch_reads,
                                            p.n_lanes)
-        lengths, m_model, m_x, _ = meta.meta_decode_batch(
+        lengths, _, m_model, m_x, _ = meta.meta_decode_batch(
             mcfg, m_model, padded, pipeline.fit_words(
                 streams[0][0], mcfg.n_per_read * padded, device), m_x)
         lengths = torch.clamp(lengths, max=L)

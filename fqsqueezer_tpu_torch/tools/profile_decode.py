@@ -1,11 +1,12 @@
 """Where a decompress spends its time, on one card.
 
     python3 -m fqsqueezer_tpu_torch.tools.profile_decode [--reads 100000]
-        [--qm 8] [--im n]
+        [--om o] [--qm 8] [--im n]
 
 Compresses the bench corpus (chip_smoke.py's: 100 bp reads of a 4.6 Mbp
-genome, seed 42, the bench primary row's Params with the quality and id
-modes given: `-qm 8 -im n` by default), then decompresses it
+genome, seed 42, the bench primary row's Params with the read order,
+quality and id modes given: `-om o -qm 8 -im n` by default), then
+decompresses it
 warm: once without timers, once with a `torch.cuda.synchronize()` timer
 around each function of the decode (K2, `dna_decode_row`, is the row's
 scan and table update), and prints seconds, calls and the share of the
@@ -14,8 +15,12 @@ timers serialize the device, so the untimed wall stands beside the timed
 one). Then one full batch (4096 reads) is decoded again under
 `torch.profiler` with CUDA activity: its wall, the device time of its
 kernels, the device's busy and idle shares, and the kernels launched a
-DNA decode position. Prints the card's name and power limit first. Needs
-a CUDA card.
+DNA decode position. With ids, that batch's id scan alone as well, and
+its bound: the least time the card could take for the scan's work (the
+cdf rows its slots read, the words it consumes, the states in and out,
+the symbols out, over 3.35 TB/s; a binary search of the row and the
+state update an active lane-slot over 67 Tops/s; the larger). Prints the
+card's name and power limit first. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -35,8 +40,14 @@ from ..streams import dna, ids, meta, quality
 from ..utils.corpus import write_fastq_corpus
 
 # the bench primary row, as chip_smoke.py gives it to the CLI, without its
-# quality and id modes
-BENCH_ROW = ("-s", "-om", "o", "-gs", "5", "-v", "0")
+# read order, quality and id modes
+BENCH_ROW = ("-s", "-gs", "5", "-v", "0")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate
+# an active lane-slot of the id scan besides its binary search: the
+# boundary divides, the state update and renormalisation, the word's
+# share of the scan (K3's count, chip_smoke.K3_OPS_PER_POS)
+ID_OPS_PER_SLOT = 16
 
 # dna_decode_row is K2 on the card: the row's scan and its s/b table
 # update; _apply_sb_updates and k2_update (the torch update) stay listed to
@@ -86,6 +97,30 @@ def _profiled(fn):
             sum(e.count for e in prof.key_averages()))
 
 
+def id_scan_bound_ms(icfg, model, R, n_valid, out):
+    """(ms, 'bytes' | 'operations') of one id_decode_batch call whose
+    result is `out`: bytes — each distinct cdf row its slots read once
+    ((n_sym + 1) int32), the words it consumed (4 B), the states in and
+    out (8 B), the R * w_all symbols out (1 B); operations — for each
+    active lane-slot a binary search of the row (2 (ceil(log2 n_sym) + 1))
+    and ID_OPS_PER_SLOT."""
+    flag, dsym, dmag, emat, elens, _, _, ptr = out
+    *_, active = ids.id_modeling(icfg, model, flag, dsym, dmag, emat, elens,
+                                 n_valid)
+    cdfs = ids._ctx_cdfs(icfg, model)
+    rows = len(set(ids._slot_ctx(icfg)))
+    N = icfg.n_lanes
+    nbytes = (rows * cdfs.shape[1] * 4 + int(ptr) * 4 + 2 * N * 8
+              + R * icfg.w_all)
+    n_sym = cdfs.shape[1] - 1
+    ops = int(active.sum()) * (2 * ((n_sym - 1).bit_length() + 1)
+                               + ID_OPS_PER_SLOT)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT_OPS_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def _profile_one_batch(arc, out):
     """Decode the archive with the profiler on around its third batch (the
     first full 4096-read one), and around that batch's id scan alone when
@@ -103,9 +138,10 @@ def _profile_one_batch(arc, out):
         if icfg is not None:
             state, streams, n_valid = rest
             words, states = streams[-1]
-            _, wall, dev_s, n = _profiled(lambda: ids.id_decode_batch(
+            res, wall, dev_s, n = _profiled(lambda: ids.id_decode_batch(
                 icfg, state.id, R, words, states, n_valid))
-            got["ids"] = (wall, dev_s, n, R // icfg.n_lanes * icfg.w_all)
+            got["ids"] = (wall, dev_s, n, R // icfg.n_lanes * icfg.w_all,
+                          *id_scan_bound_ms(icfg, state.id, R, n_valid, res))
         res, wall, dev_s, n = _profiled(
             lambda: real(dcfg, qcfg, mcfg, icfg, R, L, *rest))
         got["batch"] = (wall, dev_s, n, R // dcfg.n_lanes, L)
@@ -122,6 +158,7 @@ def _profile_one_batch(arc, out):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=100_000)
+    ap.add_argument("--om", default="o", help="read order (o|s)")
     ap.add_argument("--qm", default="8", help="quality mode (o|8|4|2|n)")
     ap.add_argument("--im", default="n", help="id mode (o|i|n)")
     args = ap.parse_args()
@@ -136,7 +173,8 @@ def main() -> int:
         out = os.path.join(d, "o.fastq")
         write_fastq_corpus(src, args.reads, 100, 4_600_000, seed=42)
         pipeline.compress_file(cli.parse_args(
-            ["e", *BENCH_ROW, "-qm", args.qm, "-im", args.im, src]), src, arc)
+            ["e", *BENCH_ROW, "-om", args.om, "-qm", args.qm, "-im",
+             args.im, src]), src, arc)
 
         def run():
             torch.cuda.synchronize()
@@ -159,7 +197,8 @@ def main() -> int:
                 setattr(o, n, fn)
         (wall, dev_s, kernels, rows, L), id_scan = _profile_one_batch(
             arc, out)
-    print(f"{args.reads} reads, -qm {args.qm} -im {args.im}, warm "
+    print(f"{args.reads} reads, -om {args.om} -qm {args.qm} -im "
+          f"{args.im}, warm "
           f"decompress: {plain:.4f} s without "
           f"timers ({args.reads / plain:.1f} reads/s), {timed:.4f} s with "
           f"them")
@@ -172,10 +211,11 @@ def main() -> int:
           f"% idle), {kernels} device records, {kernels / (rows * L):.1f} "
           f"a position")
     if id_scan is not None:
-        wall, dev_s, n, steps = id_scan
+        wall, dev_s, n, steps, bound, by = id_scan
         print(f"that batch's id scan alone (id_decode_batch, {steps} "
               f"steps): wall {wall:.4f} s, device busy {dev_s:.4f} s, {n} "
-              f"device records, {n / steps:.1f} a step")
+              f"device records, {n / steps:.1f} a step; bound {bound:.5f} "
+              f"ms by {by}")
     return 0
 
 

@@ -5,8 +5,10 @@ random genome (numpy, from a seed), two warm-up batches through the port's
 encoder and state update so that the tables and the model hold real counts,
 then the batch itself encoded into one rANS word stream. Decoding it walks
 every path of the scan (SIV, s, b and mixed levels, the prefix ramp, rough
-rescues, repairs, the letters model). Used by chip_smoke.py and the tests
-that need a card; it runs on any device.
+rescues, repairs, the letters model), and with sorted_reads the prefix
+copy of sorted order (shared prefixes from none to the whole read, a
+duplicate lane, the LCP cap of 255 on reads longer than it). Used by
+chip_smoke.py and the tests that need a card; it runs on any device.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from .. import pipeline
 from ..ops import rans, tables
 from ..params import Params
-from ..streams import common, dna
+from ..streams import common, dna, meta
 from .corpus import make_genome, sample_reads
 
 # the s and b tables of these batches hold 2^LOG2_BUCKETS rows each, those
@@ -51,6 +53,24 @@ def _reads(rng, genome, R, L, seed):
             lengths.astype(np.int64))
 
 
+def _share_prefixes(rng, codes, lengths, r_pl):
+    """Sorted order's shape on lane-major reads: most reads take a prefix
+    of random length (up to the whole read) from the read before them in
+    the file, and the second lane repeats one full-length read, so its
+    rows after the first have lcp == length (or the cap, 255)."""
+    R, L = codes.shape
+    for r in range(1, R):
+        if rng.random() < 0.8:
+            k = int(rng.integers(0, lengths[r] + 1))
+            codes[r, :k] = codes[r - 1, :k]
+    if R // r_pl > 1:
+        lane = slice(r_pl, 2 * r_pl)
+        codes[lane] = codes[r_pl]
+        lengths[lane] = L
+    tail = np.arange(L)[None, :] >= lengths[:, None]
+    codes[tail] = 0
+
+
 def _adversarial(tc, rng):
     """A K2 table made hard for the row update: of its live cells a third
     count 255 and a third 254; in every 8th row slot 1 repeats slot 0's cell
@@ -69,9 +89,12 @@ def _adversarial(tc, rng):
 
 def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
                       grow: bool = False, short: bool = False,
-                      adversarial: bool = False):
+                      adversarial: bool = False, sorted_reads: bool = False):
     """(cfg, state, lengths [R] int64, words int32 [W], init states [N]
-    int64) of one encoded batch of R = n_lanes * r_pl reads of width L.
+    int64) of one encoded batch of R = n_lanes * r_pl reads of width L,
+    and with sorted_reads its LCPs ([R] int64, meta.compute_lcp) last: the
+    batch's reads share prefixes (_share_prefixes) and are encoded with
+    them, as in sorted order.
     grow: the s and b tables are doubled once (tables.k2_grow) before the
     batch, so every find takes a growth bit. short: the word stream is cut
     to half the words the batch needs, so the decode reads past its end
@@ -90,12 +113,12 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     genome = make_genome(max(600, R * L // 8), seed)
     state = dna.dna_state_create(cfg, device)
 
-    def encode(codes, lengths):
+    def encode(codes, lengths, lcp=None):
         c = torch.from_numpy(codes).to(device)
         n = torch.from_numpy(lengths).to(device)
         kc = torch.where(c >= 4, 0, c)
         eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch_rg(
-            cfg, state, c, kc, n)
+            cfg, state, c, kc, n, lcp=lcp)
         return (c, n, eff, ctx, sym, act, s_tc, b_tc), (f, cum)
 
     for k in range(2):
@@ -111,7 +134,13 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     if adversarial:
         state = state._replace(s_tc=_adversarial(state.s_tc, rng),
                                b_tc=_adversarial(state.b_tc, rng))
-    (_, lengths, *_), (f, cum) = encode(*_reads(rng, genome, R, L, seed + 3))
+    codes, lengths = _reads(rng, genome, R, L, seed + 3)
+    lcp = None
+    if sorted_reads:
+        _share_prefixes(rng, codes, lengths, r_pl)
+        lcp = meta.compute_lcp(torch.from_numpy(codes).to(device),
+                               torch.from_numpy(lengths).to(device), n_lanes)
+    (_, lengths, *_), (f, cum) = encode(codes, lengths, lcp)
     words, n_words, init = rans.rans_encode(
         common.to_grid(f, n_lanes).to(torch.int32).contiguous(),
         common.to_grid(cum, n_lanes).to(torch.int32).contiguous(),
@@ -121,5 +150,6 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     plane = torch.zeros((cap,), dtype=torch.int32, device=device)
     keep = min(cap, n_words)
     plane[:keep] = words[:keep]
-    return cfg, state, lengths, plane, init
+    return (cfg, state, lengths, plane, init) + ((lcp,) if sorted_reads
+                                                  else ())
 

@@ -114,9 +114,11 @@ def _k3_inputs(seed, N, r_pl, L, n_words, mode="illumina_8"):
     return cfg, [torch.from_numpy(a).cuda() for a in arrs]
 
 
+# the last two: the main path's batch (2048 lanes, 2 rows) and sorted
+# order's (1024 lanes, 4 rows)
 K3_CASES = [(8, 1, 40, 400), (8, 2, 104, 5), (100, 2, 40, 8000),
             (256, 1, 104, 30), (1024, 2, 40, 90_000), (2048, 2, 104, 400_000),
-            (2047, 1, 1, 10)]
+            (2047, 1, 1, 10), (1024, 4, 104, 400_000)]
 
 
 @pytest.mark.cuda
@@ -204,6 +206,25 @@ def test_k2_equals_plain_row_scan(N, r_pl, L, grow, short):
     _card()
     batch = dna_decode_inputs(N + L, N, r_pl, L, "cuda", grow, short)
     assert len(check_rows(*batch, L)) == r_pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,r_pl,L", [(8, 3, 40), (256, 2, 104),
+                                      (1024, 4, 104), (2048, 2, 264)])
+def test_k2_with_lcp_equals_plain_row_scan(N, r_pl, L):
+    """Sorted order: each row copies the prefix it shares with the previous
+    read row (lcp from 0 to the whole read, a duplicate lane, the cap of
+    255 on reads of 264); the four planes at every position, copied ones
+    included, the states, words, registers and both tables, exactly."""
+    from fqsqueezer_tpu_torch.tools.k2_compare import check_rows
+    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+
+    _card()
+    cfg, state, lengths, words, init, lcp = dna_decode_inputs(
+        N + L + 1, N, r_pl, L, "cuda", sorted_reads=True)
+    assert (lcp == torch.minimum(lengths, torch.full_like(lengths, 255))
+            ).any() and ((lcp > 0) & (lcp < lengths)).any()
+    assert len(check_rows(cfg, state, lengths, words, init, L, lcp)) == r_pl
 
 
 def _update_cases(cfg, tc, kcodes, length, k: int, log2_base: int) -> dict:
@@ -379,4 +400,14 @@ def test_k2_refuses_instead_of_falling_back():
         dna.dna_decode_row(*good, be=tables.LocalBackend())
     with pytest.raises(NotImplementedError):  # a header K2 does not take
         dna.dna_decode_row(*bad(0, dataclasses.replace(cfg, ctx_v=1)))
-    assert dna.K2_LAUNCHES == before + 1
+    lcp = torch.zeros(8, dtype=torch.int64, device="cuda")
+    src = torch.zeros((8, 24), dtype=torch.int64, device="cuda")
+    dna.dna_decode_row(*good, lcp=lcp, src=src)
+    assert dna.K2_LAUNCHES == before + 2
+    for lcp_src in ((lcp, None), (None, src),             # one without other
+                    (lcp.int(), src), (lcp, src[:, :23]),  # dtype, shape
+                    (lcp, src.cpu()),                      # device
+                    (lengths + 1, src), (lcp - 1, src)):   # outside 0..length
+        with pytest.raises(ValueError):
+            dna.dna_decode_row(*good, *lcp_src)
+    assert dna.K2_LAUNCHES == before + 2

@@ -243,7 +243,8 @@ def _decode_one_batch():
 
 def test_meta_decode_batch(decoded):
     jl, _, jmodel, jx, jptr = decoded["jmeta"]
-    tl, tmodel, tx, tptr = decoded["tmeta"]
+    tl, tlcp, tmodel, tx, tptr = decoded["tmeta"]
+    assert not tlcp.any()                     # original order: no LCP
     np.testing.assert_array_equal(tl.numpy(), jl)
     np.testing.assert_array_equal(tl.numpy(), decoded["lengths"])
     np.testing.assert_array_equal(tmodel.numpy(), jmodel)
@@ -311,9 +312,12 @@ def test_decode_scans_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         dna.dna_decode_batch(dna.DnaConfig(), None, torch.zeros(8), None,
                              None, 8)
-    with pytest.raises(NotImplementedError):
-        meta.meta_decode_batch(meta.MetaConfig(with_lcp=True), None, 8,
-                               None, rans.rans_initial_states(8))
+    with pytest.raises(NotImplementedError, match="paired-end"):
+        dna.dna_decode_batch(bench_dna_config(8), None, torch.zeros(8),
+                             None, None, 8, lcp=torch.zeros(8), lcp_stride=2)
+    with pytest.raises(NotImplementedError, match="paired-end"):
+        meta.compute_lcp(torch.zeros((8, 8), dtype=torch.int64),
+                         torch.zeros(8), 4, stride=2)
 
 
 @pytest.mark.parametrize("knob,value,named", [

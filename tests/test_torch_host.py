@@ -291,6 +291,92 @@ def test_write_fastq_equals_reference(tmp_path, use_native):
         assert f.read() == outs[0] and wr.n_reads == d.n_reads
 
 
+def _tied_fastq(path, empty=True):
+    """Reads for the sorted-order helpers: exact duplicates (ties keep file
+    order), reads that are strict prefixes of others, N against T (N sorts
+    as T, then the exact bytes decide), ragged lengths, an empty read
+    (unless not `empty`), distinct qualities and ids to tell tied reads
+    apart."""
+    rng = np.random.default_rng(12)
+    base = ["ACGTACGTAC", "ACGT", "ACGN", "ACGT", "ACGTACGTAC", "ACG", "",
+            "TTTT", "TTTN", "ACGTACGTAA", "ACGT"][:None if empty else 6] + [
+        "TTTT", "TTTN", "ACGTACGTAA", "ACGT"][:0 if empty else 4]
+    seqs = base + ["".join(rng.choice(list("ACGTN"), int(n)))
+                   for n in rng.integers(1, 30, 60)]
+    seqs += [seqs[i] for i in rng.integers(0, len(seqs), 30)]
+    with open(path, "w") as f:
+        for i, seq in enumerate(seqs):
+            qual = "".join(chr(34 + (i + k) % 40) for k in range(len(seq)))
+            f.write(f"@t{i}\n{seq}\n+\n{qual}\n")
+    return len(seqs)
+
+
+@pytest.mark.parametrize("chunk", [50, 1000, 1 << 20])
+def test_stream_fastq_and_external_sort_equal_reference(tmp_path, chunk):
+    """stream_fastq's chunks and the external bin sort's sorted chunks are
+    the reference's, chunk by chunk (ragged records, CRLF and a last
+    record without its newline included); the concatenated sorted chunks
+    equal the in-RAM sort_order permutation. An empty read makes a bin of
+    width 0, on which both packages raise alike (ROADMAP.md, F5)."""
+    a, b = str(tmp_path / "a.fastq"), str(tmp_path / "b.fastq")
+    _ragged_fastq(a)
+    _tied_fastq(b)
+    errors = []
+    for mod in (tfastq, jfastq):
+        with pytest.raises(ValueError) as e:
+            list(mod.external_sort_stream(b, chunk, tmpdir=str(tmp_path)))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]
+    n_b = _tied_fastq(b, empty=False)
+    for paths in ([a], [b, a]):
+        got = list(tfastq.stream_fastq(paths, chunk))
+        want = list(jfastq.stream_fastq(paths, chunk))
+        assert len(got) == len(want) and all(
+            _same_data(g, w) for g, w in zip(got, want))
+    got = list(tfastq.external_sort_stream(b, chunk, tmpdir=str(tmp_path),
+                                           prefix=2))
+    want = list(jfastq.external_sort_stream(b, chunk, tmpdir=str(tmp_path),
+                                            prefix=2))
+    assert len(got) == len(want) > 1 and all(
+        _same_data(g, w) for g, w in zip(got, want))
+    whole = tfastq.read_fastq(b)
+    order = tfastq.sort_order(whole.codes, whole.lengths)
+    cat = tfastq.concat_fastq(got)
+    assert cat.n_reads == n_b
+    assert np.array_equal(cat.lengths, whole.lengths[order])
+    assert np.array_equal(cat.codes[:, :whole.max_len],
+                          whole.codes[order][:, :cat.max_len])
+    assert np.array_equal(cat.quals[:, :whole.max_len],
+                          whole.quals[order][:, :cat.max_len])
+    assert sorted(os.listdir(tmp_path)) == ["a.fastq", "b.fastq"]
+
+
+def test_sort_order_and_bins_equal_reference(tmp_path):
+    """The in-RAM order (ties in file order, a strict prefix first, N as T
+    and then after T) and the bin ids of every prefix width."""
+    src = str(tmp_path / "t.fastq")
+    _tied_fastq(src)
+    d = tfastq.read_fastq(src)
+    got = tfastq.sort_order(d.codes, d.lengths)
+    want = jfastq.sort_order(d.codes, d.lengths)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    seqs = [bytes(tfastq.CODE_TO_BASE[d.codes[i, :d.lengths[i]]])
+            for i in got]
+    assert seqs[0] == b""
+    for seq in set(seqs):                           # ties in file order
+        at = [int(i) for i, t in zip(got, seqs) if t == seq]
+        assert at == sorted(at)
+    assert seqs.count(b"ACGT") > 2
+    assert seqs.index(b"ACG") < seqs.index(b"ACGT") < seqs.index(b"ACGN")
+    assert seqs.index(b"TTTT") < seqs.index(b"TTTN")
+    for prefix in (1, 2, 4, 40):
+        g = tfastq._sort_bin_ids(d.codes, d.lengths, prefix)
+        w = jfastq._sort_bin_ids(d.codes, d.lengths, prefix)
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    empty = np.zeros((0, 5), np.uint8)
+    assert tfastq.sort_order(empty, np.zeros(0, np.int32)).shape == (0,)
+
+
 def test_write_fastq_corpus_equals_reference(tmp_path):
     jpath, tpath = str(tmp_path / "j.fastq"), str(tmp_path / "t.fastq")
     jcorpus.write_fastq_corpus(jpath, 300, 50, 20_000, seed=42)

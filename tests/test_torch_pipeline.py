@@ -276,7 +276,7 @@ def _header_blob(arc):
 # `what` None: a mode this package decodes (the cases keep their ids)
 _D_CASES = [
     ({"quality_mode": jparams.QualityMode.LOSSLESS}, None),
-    ({"dna_mode": jparams.DnaMode.SE_SORTED}, "sorted"),
+    ({"dna_mode": jparams.DnaMode.SE_SORTED}, None),
     ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, "paired-end"),
     ({"id_mode": jparams.IdMode.INSTRUMENT}, None),
     ({"mesh_dp": 2}, "mesh"),
@@ -314,7 +314,7 @@ def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
 def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     """No visible card and no --device (in a fresh process, which shows
     the exit code and that no traceback is printed); a file that is not
-    an archive; an archive of a mode the port lacks (sorted order); a
+    an archive; an archive of a mode the port lacks (paired-end); a
     missing file. Each is exit 1 with one line, and writes no output
     file."""
     arc = _header_only_archive(tmp_path / "ok.fqst")
@@ -328,10 +328,10 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     assert "no CUDA device" in lines[0]
     bad = tmp_path / "bad.fqst"
     bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
-    sorted_arc = _header_only_archive(
-        tmp_path / "so.fqst", dna_mode=jparams.DnaMode.SE_SORTED)
+    pe_arc = _header_only_archive(
+        tmp_path / "pe.fqst", dna_mode=jparams.DnaMode.PE_ORIGINAL)
     for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
-                       (sorted_arc, "sorted order"),
+                       (pe_arc, "paired-end"),
                        (str(tmp_path / "none.fqst"), "none.fqst")):
         with pytest.raises(SystemExit) as e:
             cli.main(["d", "--device", "cpu", "-out", out, path])
@@ -347,7 +347,7 @@ _SE = ["-s", "-om", "o", "-qm", "8", "-im", "n"]
 _E_CASES = [
     (["e", "-p", "-om", "o", "-qm", "8", "-im", "n", "a.fq", "b.fq"],
      "paired-end"),
-    (["e", "-s", "-om", "s", "-qm", "8", "-im", "n", "a.fq"], "sorted"),
+    (["e", "-s", "-om", "s", "-qm", "8", "-im", "n", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "o", "-im", "n", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "4", "-im", "n", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "2", "-im", "n", "a.fq"], None),
@@ -388,16 +388,25 @@ def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
 
 
 def test_cli_refuses_streamed_input(tmp_path):
-    big = tmp_path / "big.fastq"
-    with open(big, "wb") as f:
-        f.truncate((256 << 20) + 1)        # sparse: no data written
+    """Of the inputs above the streaming threshold the CLI still refuses
+    paired-end ones (exit 1, one line, before it reads a byte); eligible
+    single-end ones stream (tests/test_torch_sorted.py)."""
+    big = []
+    for name in ("big_1.fastq", "big_2.fastq"):
+        with open(tmp_path / name, "wb") as f:
+            f.truncate((256 << 20) + 1)    # sparse: no data written
+        big.append(str(tmp_path / name))
     res = subprocess.run(
-        [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "e", *_SE,
-         "--device", "cpu", "-out", str(tmp_path / "o.fqst"), str(big)],
+        [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "e", "-p", "-om",
+         "o", "-qm", "n", "-im", "n", "--device", "cpu", "-out",
+         str(tmp_path / "o.fqst"), *big],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 1
     lines = res.stderr.strip().splitlines()
-    assert len(lines) == 1 and "streamed input" in lines[0], res.stderr
+    assert len(lines) == 1 and "paired-end" in lines[0], res.stderr
+    assert cli.stream_chunk_bytes(cli.parse_args(["e", *_SE, big[0]])) \
+        == cli.STREAM_CHUNK_BYTES
+    assert not os.path.exists(tmp_path / "o.fqst")
 
 
 def _chip_smoke():
