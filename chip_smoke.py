@@ -51,11 +51,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
                launch once a read row (4 a batch at 1024 lanes), K3 once a
                batch, K1 at least once a group flush. Prints reads/s both
                ways and peak CUDA memory.
-  8. verify  — the repository's Tier-1 verify corpus (3,000 x 80 bp, seed
+  8. pe      — paired-end reads (-p), with the anchored 3-row recoding:
+               (a) 10,000 pairs of write_pe_corpus(.., seed=42) through
+               the CLI's e with only -p -gs 5 (so PE sorted order, -qm 8
+               -im i, 1024 lanes) and d -out -out2, the archive's and both
+               decodes' sha256 held to the reference package's (PE_CLI);
+               (b) the bench's PE row (50,000 pairs, -p -om o -qm n -im n
+               -gs 5) through pipeline.compress_pe and decompress_file,
+               warm-up + timed run, the three digests held (PE_100K) and
+               the bits/base (PE_BITS_PER_BASE); prints reads/s both ways
+               (both mates counted), peak CUDA memory and the bytes
+               against the C++ reference's archive (bench.py's
+               REF_PE_BYTES); (c) the 10,000 pairs block-streamed
+               (STREAM_CHUNK) at -p -om o -im o, held to the in-RAM
+               archive. K2 must launch once an expanded row (read1, rowA,
+               rowB: 6 a full batch), K1 at least once a group flush, K3
+               once a batch where there is a quality stream.
+  9. verify  — the repository's Tier-1 verify corpus (3,000 x 80 bp, seed
                9) through the CLI with -qm o -im o -gs 1: the archive's
                sha256 must be the reference writer's, and its decode the
                input's bytes (BYTE-EXACT).
-  9. k3      — kernel K3 (the quality decode scan) against its plain torch
+  10. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
@@ -68,7 +84,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                rows, timed beside its chain floor). Then on
                that batch K3 and the plain scan timed, the chain floor (K3
                on 32 lanes) and the bound.
- 10. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 11. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -82,12 +98,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
                read, a duplicate lane, the cap of 255 on reads of 264), the
                main path's second batch of the 20k archive with the DNA
                state the first batch left, and the same batch of the 20k
-               sorted archive (1024 lanes, 4 rows, prefixes copied). Then
-               on each real batch K2's launches timed (the tables restored
+               sorted archive (1024 lanes, 4 rows, prefixes copied);
+               paired-end batches whose rowA and rowB copy their anchors
+               (K2_PE_SHAPES: N 8 and 1024, rows with and without an
+               anchor, anchors at read2's start (a = 0) and end (a = L2 -
+               B), empty rowBs, read2 shorter than B), the second batch of
+               the bench PE row's archive (1024 lanes, 6 expanded rows)
+               and of the PE CLI archive (sorted: read1 rows copy the
+               previous read1's prefix). Then
+               on each real batch but the PE CLI one K2's launches timed
+               (the tables restored
                to the row-start ones before each repetition, outside the
                timed region), the plain row step, the chain floor (K2 on
-               32 lanes) and the bound.
- 11. decode  — the 20k archive through the port's CLI `d` with no
+               32 lanes) and the bound; on the PE batch also the row-end
+               PE step (torch ops between K2's launches).
+ 12. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -95,18 +120,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
                least once a batch and K2 once a read row. Prints decode
                reads/s, wall time, peak CUDA memory and the launches.
 Then the run's wall time; the last two lines are the kernels' JSON record
-(K1, K2 at the main path's and at sorted order's shape, and K3 for each
-symbol count) and the result line. K1's launches are those of the two
-timed compresses (the main path's and the sorted row's), K3's for 8
-symbols those of the two timed decodes.
+(K1, K2 at the main path's, sorted order's and the PE row's shape, and K3
+for each symbol count) and the result line. K1's launches are those of
+the three timed compresses (the main path's, the sorted row's and the PE
+row's), K3's for 8 symbols those of the two timed SE decodes.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
 compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
 seed=42) at bench_params() (DIGEST_20K, DIGEST_100K), or at the Params the
 reference CLI's parse_args makes of a mode row's flags (MODES_20K,
-MODES_100K, VERIFY, SORTED_CLI, SORTED_100K); the decode digests are
-sha256 sums of fqsqueezer_tpu.pipeline.decompress_file's FASTQ output for
-those archives.
+MODES_100K, VERIFY, SORTED_CLI, SORTED_100K), and of fqsqueezer_tpu.
+pipeline.compress_pe's archive of write_pe_corpus(path1, path2, n, 100,
+4_600_000, seed=42) at the Params of the PE flags (PE_CLI, PE_100K); the
+decode digests are sha256 sums of fqsqueezer_tpu.pipeline.
+decompress_file's FASTQ output (both mates' files for PE) for those
+archives.
 All were computed with the reference package on a CPU.
 """
 from __future__ import annotations
@@ -192,6 +220,21 @@ SORTED_BITS_PER_BASE = 2.5914
 STREAM_CHUNK = 1 << 20
 STREAMED_20K = (("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5"),
                 ("-s", "-om", "o", "-qm", "8", "-im", "o", "-gs", "5"))
+# paired-end: (pairs, flags, archive sha256, mate 1's and mate 2's decoded
+# FASTQ sha256) of the CLI's defaults with -p at -gs 5 (sorted order, -qm 8
+# -im i) and of the bench's PE row, whose archive is PE_BITS_PER_BASE bits
+# a base
+PE_CLI = (10_000, ("-p", "-gs", "5"),
+          "a17fd6478c84d59e08c90e1c3cfb49fd74d2fd689bbf0cfd30062822fd0be6c6",
+          "8b9c619d63655155f065a64980657699cefeb37d20e02c8472e2644759040299",
+          "8ed0bb93f3841fca787ea8fc3e9738d87d87299e820bb5b31798d725bbc14901")
+PE_100K = (50_000, ("-p", "-om", "o", "-qm", "n", "-im", "n", "-gs", "5"),
+           "2dd15475179828c7165cee1716f030b4e0921b028b4539f16472a7cdbdb326c7",
+           "74360fee0d28078bc3d72c31b242610f2a095b8909f1d07e458345c29b809c27",
+           "3d3abe48c3eb34cf506c680fd70804ea28559f210091f362f0e57bdf8a5b54f8")
+PE_BITS_PER_BASE = 1.1426
+PE_STREAMED = ("-p", "-om", "o", "-im", "o", "-gs", "5")
+REF_PE_BYTES = 1_386_065   # bench.py: the C++ reference's PE row archive
 # the repository's Tier-1 verify recipe: write_fastq_corpus(path, 3000, 80,
 # 100_000, seed=9), e -s -om o -qm o -im o -gs 1
 VERIFY = (("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "1"),
@@ -205,6 +248,9 @@ K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
 K2_ADVERSARIAL = (256, 2, 104)
 # (N, r_pl, L) of the K2 checks on sorted batches (shared prefixes)
 K2_LCP_SHAPES = ((8, 3, 40), (256, 2, 104), (1024, 4, 104), (2048, 2, 264))
+# (N, pairs a lane, L) of the K2 checks on paired-end batches whose
+# anchored rows copy their anchors (dna_batches.pe_row_inputs)
+K2_PE_SHAPES = ((8, 5, 40), (8, 5, 104), (1024, 2, 104))
 
 
 def bench_params():
@@ -696,6 +742,130 @@ def phase_sorted():
     return k1, k3, k2
 
 
+def _pe_corpus(n_pairs):
+    """(mate 1 path, mate 2 path) of write_pe_corpus's n_pairs pairs,
+    written once a run."""
+    from fqsqueezer_tpu_torch.tools.bench_gpu import _WRITTEN
+    from fqsqueezer_tpu_torch.utils.corpus import write_pe_corpus
+
+    paths = tuple(os.path.join(WORK, f"pe_{n_pairs}_{k}.fastq")
+                  for k in (1, 2))
+    if paths not in _WRITTEN:
+        write_pe_corpus(*paths, n_pairs, 100, 4_600_000, seed=42)
+        _WRITTEN.add(paths)
+    return paths
+
+
+def phase_pe():
+    """Paired-end reads: the CLI's defaults with -p (10k pairs, e and d),
+    the bench's PE row (50k pairs, warm-up + timed run through pipeline),
+    and the 10k pairs streamed. Returns the launches of the timed PE row:
+    (K1 in the compress, K2 in the decode)."""
+    import torch
+
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed, timed_peak
+
+    # (a) the CLI's defaults with -p: sorted order, -qm 8 -im i
+    n_pairs, flags, want, want1, want2 = PE_CLI
+    r1, r2 = _pe_corpus(n_pairs)
+    arc = os.path.join(WORK, f"pe_cli_{n_pairs}.fqst")
+    outs = [os.path.join(WORK, f"pe_cli_{n_pairs}.dec_{k}.fastq")
+            for k in (1, 2)]
+    _reset_launches()
+    rc, dt = timed(lambda: cli.main(["e", *flags, "-v", "0", "-out", arc,
+                                      r1, r2]))
+    n1 = rans.K1_LAUNCHES
+    sha = _sha256(arc)
+    lanes = cli.parse_args(["e", *flags, r1, r2]).n_lanes
+    if rc != 0 or sha != want or n1 < _n_groups(arc, lanes):
+        raise RuntimeError(f"pe: the CLI's e {' '.join(flags)} returned "
+                           f"{rc}, archive sha256 {sha} != reference {want} "
+                           f"or K1 launched {n1} times")
+    _reset_launches()
+    rc, ddt = timed(lambda: cli.main(["d", "-v", "0", "-out", outs[0],
+                                       "-out2", outs[1], arc]))
+    dshas = [_sha256(o) for o in outs]
+    if rc != 0 or dshas != [want1, want2]:
+        raise RuntimeError(f"pe: the CLI's d returned {rc}, FASTQ sha256s "
+                           f"{dshas} != reference decoder's "
+                           f"{[want1, want2]}")
+    n3, n2 = _check_decode_launches(arc, True, "pe (CLI defaults)")
+    print(f"[pe] {n_pairs} pairs `e {' '.join(flags)}` (the CLI's defaults "
+          f"with -p: -om s -qm 8 -im i, {lanes} lanes): archive "
+          f"sha256 == reference, both decodes' sha256 == reference "
+          f"decoder; e {dt:.2f} s (K1 launches {n1}), d {ddt:.2f} s (K3 "
+          f"launches {n3}, K2 {n2})")
+
+    # (b) the bench's PE row, 50k pairs
+    n_pairs, flags, want, want1, want2 = PE_100K
+    r1, r2 = _pe_corpus(n_pairs)
+    arc = os.path.join(WORK, f"pe_{n_pairs}.fqst")
+    outs = [os.path.join(WORK, f"pe_{n_pairs}.dec_{k}.fastq")
+            for k in (1, 2)]
+    p = cli.parse_args(["e", *flags, "-v", "0", r1, r2])
+
+    def compress():
+        return pipeline.compress_pe(cli.parse_args(
+            ["e", *flags, "-v", "0", r1, r2]), r1, r2, arc)
+
+    compress()                                     # warm-up
+    _reset_launches()
+    stats, dt, peak = timed_peak(compress)
+    k1 = rans.K1_LAUNCHES
+    groups = _n_groups(arc, p.n_lanes)
+    sha = _sha256(arc)
+    bpb = round(stats["bits_per_base"], 4)
+    if sha != want or bpb != PE_BITS_PER_BASE:
+        raise RuntimeError(f"pe: 100k archive sha256 {sha} (reference "
+                           f"{want}), {bpb} bits/base (want "
+                           f"{PE_BITS_PER_BASE})")
+    if k1 < groups or k1 < 1:
+        raise RuntimeError(f"pe: K1 launched {k1} times in {groups} group "
+                           f"flushes")
+    pipeline.decompress_file(Params(), arc, *outs)  # warm-up
+    _reset_launches()
+    dstats, ddt, dpeak = timed_peak(
+        lambda: pipeline.decompress_file(Params(), arc, *outs))
+    k3, k2 = _check_decode_launches(arc, False, "pe 100k")
+    dshas = [_sha256(o) for o in outs]
+    if dshas != [want1, want2]:
+        raise RuntimeError(f"pe: decoded 100k FASTQ sha256s {dshas} != "
+                           f"reference decoder's {[want1, want2]}")
+    n = stats["n_reads"]
+    print(f"[pe] {n_pairs} pairs ({n} reads) `{' '.join(flags)}` "
+          f"({p.n_lanes} lanes, 2^{p.pe_log2_buckets}-bucket pair table): "
+          f"compress {n / dt:.1f} reads/s (wall {dt:.3f} s, peak "
+          f"{peak:.3f} GiB), {stats['bits_per_base']:.4f} bits/base, "
+          f"{stats['out_bytes'] / REF_PE_BYTES:.4f} of the C++ reference's "
+          f"bytes, archive sha256 == reference, K1 launches {k1} in "
+          f"{groups} flush(es); decode {dstats['n_reads'] / ddt:.1f} "
+          f"reads/s (wall {ddt:.3f} s, peak {dpeak:.3f} GiB), both sha256 "
+          f"== reference decoder, K2 launches {k2} (one an expanded row), "
+          f"K3 {k3}")
+
+    # (c) the streamed path against the in-RAM one
+    r1, r2 = _pe_corpus(PE_CLI[0])
+    shas = []
+    for chunk in (0, STREAM_CHUNK):
+        arc = os.path.join(WORK, f"pe_streamed_{chunk}.fqst")
+        pipeline.compress_pe(cli.parse_args(
+            ["e", *PE_STREAMED, "-v", "0", r1, r2]), r1, r2, arc,
+            stream_chunk_bytes=chunk)
+        shas.append(_sha256(arc))
+    if shas[0] != shas[1]:
+        raise RuntimeError(f"pe: the streamed archive of "
+                           f"`{' '.join(PE_STREAMED)}` differs from the "
+                           f"in-RAM one")
+    print(f"[pe] {PE_CLI[0]} pairs `{' '.join(PE_STREAMED)}` streamed in "
+          f"{STREAM_CHUNK} B chunks: archive sha256 == the in-RAM "
+          f"archive's")
+    torch.cuda.synchronize()
+    return k1, k2
+
+
 def phase_verify():
     """The Tier-1 verify recipe through the port's CLI on the card."""
     from fqsqueezer_tpu_torch import cli
@@ -848,7 +1018,8 @@ def phase_k2():
     real batch; returns the numbers of the kernels line."""
     from fqsqueezer_tpu_torch.streams import dna
     from fqsqueezer_tpu_torch.tools import k2_compare as k2c
-    from fqsqueezer_tpu_torch.utils.dna_batches import dna_decode_inputs
+    from fqsqueezer_tpu_torch.utils.dna_batches import (dna_decode_inputs,
+                                                         pe_row_inputs)
 
     for seed, (N, r_pl, L, grow, short) in enumerate(K2_SHAPES):
         batch = dna_decode_inputs(seed, N, r_pl, L, "cuda", grow, short)
@@ -863,10 +1034,21 @@ def phase_k2():
                                         sorted_reads=True)
         k2c.check_rows(*batch, L, lcp,
                        what=f"sorted N={N} r_pl={r_pl} L={L}")
+    anchored = 0
+    for seed, (N, r_pl, L) in enumerate(K2_PE_SHAPES):
+        cfg, st, specs, words, init, _ = pe_row_inputs(30 + seed, N, r_pl,
+                                                       L, "cuda")
+        k2c.check_spec_rows(cfg, st, specs, words, init, L,
+                            what=f"PE N={N} pairs a lane {r_pl} L={L}")
+        anchored += sum(int((lcp > 0).sum()) for _, lcp, _ in specs
+                        if lcp is not None)
+    k2c.check_rows(*k2c.real_dna_batch(os.path.join(
+        WORK, f"pe_cli_{PE_CLI[0]}.fqst")), what="the PE CLI batch")
     out = {}
     for key, arc in (("main", _corpus(DIGEST_READS)[1]),
                      ("sorted", os.path.join(
-                         WORK, f"sorted_cli_{DIGEST_READS}.fqst"))):
+                         WORK, f"sorted_cli_{DIGEST_READS}.fqst")),
+                     ("pe", os.path.join(WORK, f"pe_{PE_100K[0]}.fqst"))):
         batch = k2c.real_dna_batch(arc)
         rows = k2c.check_rows(*batch, what=f"the {key} path's batch")
         args = [a for a, _ in rows]
@@ -880,6 +1062,10 @@ def phase_k2():
         copied = ("" if lcp is None else
                   f", {int(lcp.sum())} of {int(batch[2].sum())} bases "
                   f"copied")
+        if key == "pe":
+            n_anch = sum(int((a[8] > 0).sum()) for a, _ in rows
+                         if a[8] is not None)
+            copied = f", {n_anch} anchored lane-rows"
         print(f"[k2] the {key} path's batch (N={cfg.n_lanes}, {len(rows)} "
               f"rows, L={L}{copied}): K2 {ms:.4f} ms a batch "
               f"({ms / steps * 1e3:.2f} us a step), chain floor "
@@ -888,15 +1074,22 @@ def phase_k2():
         out[key] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": None, "chain_floor_ms": floor_ms}
+        if key == "pe":
+            pe_ms, calls = k2c.pe_row_end_ms(batch)
+            print(f"[k2] the PE batch's row-end PE steps (torch ops between "
+                  f"K2's launches): {pe_ms:.4f} ms a batch ({calls} calls) "
+                  f"against K2's {ms:.4f} ms")
     print(f"[k2] exact on {len(K2_SHAPES)} random batches, the adversarial "
-          f"tables, {len(K2_LCP_SHAPES)} sorted batches and both real "
-          f"batches, tables included")
+          f"tables, {len(K2_LCP_SHAPES)} sorted batches, "
+          f"{len(K2_PE_SHAPES)} PE batches ({anchored} anchored lane-rows) "
+          f"and the four real batches, tables included")
     return out
 
 
 def _batches_and_rows(arc):
     """(batches, read rows) an archive holds (the port's own reader): one
-    K3 launch a batch, one K2 launch a read row."""
+    K3 launch a batch, one K2 launch a read row (an expanded row, with the
+    PE anchors)."""
     from fqsqueezer_tpu_torch import pipeline
     from fqsqueezer_tpu_torch.archive import ArchiveReader
     from fqsqueezer_tpu_torch.params import Params
@@ -904,14 +1097,20 @@ def _batches_and_rows(arc):
     rd = ArchiveReader(arc)
     try:
         p = Params.load_params(rd.header_blob)
+        dcfg, _, mcfg, _ = pipeline.make_configs(p)
+        # PE: whole pairs a batch; with the anchors, 3 rows a pair
+        align = p.n_lanes * mcfg.lcp_stride
         first = pipeline._first_batch(p.n_lanes, p.max_batch_reads, 0,
-                                      p.n_lanes)
+                                      align)
         batches = rows = 0
         while (g := rd.read_group(p.n_lanes)) is not None:
             batches += len(g[1])
-            rows += sum(pipeline.canonical_padded(
-                take, first, p.max_batch_reads, p.n_lanes) // p.n_lanes
-                for take, _, _ in g[1])
+            for take, _, _ in g[1]:
+                padded = pipeline.canonical_padded(
+                    take, first, p.max_batch_reads, align)
+                if dcfg.pe_log2_buckets > 0:
+                    padded = 3 * (padded // 2)
+                rows += padded // p.n_lanes
     finally:
         rd.close()
     return batches, rows
@@ -1013,6 +1212,7 @@ def main() -> int:
     launches = phase_full()
     k3_launches = phase_modes()
     sorted_k1, sorted_k3, sorted_k2 = phase_sorted()
+    pe_k1, pe_k2 = phase_pe()
     phase_verify()
     k3 = phase_k3()
     k2 = phase_k2()
@@ -1027,7 +1227,7 @@ def main() -> int:
         "name": "rans_encode_walk (K1)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
         "replaces": "fqsqueezer_tpu/ops/rans.py:100",
-        "launches": launches + sorted_k1, **k1}, {
+        "launches": launches + sorted_k1 + pe_k1, **k1}, {
         "name": "dna_decode_row (K2)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
@@ -1036,7 +1236,12 @@ def main() -> int:
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
-        "launches": sorted_k2, **k2["sorted"]}] + [{
+        "launches": sorted_k2, **k2["sorted"]}, {
+        "name": "dna_decode_row (K2, paired-end: anchored rows)",
+        "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": pe_k2, **k2["pe"]}] + [{
         "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode})",
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",

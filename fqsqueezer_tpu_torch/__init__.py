@@ -9,9 +9,12 @@ names, and imports torch, never jax and nothing of fqsqueezer_tpu. Only the
 tests import both packages. Its entry points run on the first CUDA card
 unless the caller asks for the CPU (`device="cpu"`, `--device cpu`).
 
-Ported so far: single-end original-order compression (pipeline.compress_file,
-cli `e`), with the rANS encode walks of a group flush as one hand-written
-CUDA kernel (csrc/rans_encode.cu). Decompression and the other modes are
-still to come (see ROADMAP.md).
+Ported so far: single-end and paired-end compression and decompression
+(pipeline.compress_file, compress_pe, decompress_file; cli `e`, `d`) in
+both read orders and every quality and id mode, with three hand-written
+CUDA kernels: the rANS encode walks of a group flush (csrc/rans_encode.cu),
+the DNA decode scan a read row (csrc/dna_decode.cu) and the quality decode
+scan (csrc/qual_decode.cu). Meshes, checkpoints and legacy archive headers
+are still to come (see ROADMAP.md).
 """
 __version__ = "0.1.0"

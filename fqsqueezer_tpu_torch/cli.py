@@ -23,14 +23,18 @@ it), plus one option of the port's own:
 
     python -m fqsqueezer_tpu_torch.cli d -out X.fastq X.fqst
 
-Single-end reads are ported in original and sorted order (-om o|s; the
+    python -m fqsqueezer_tpu_torch.cli e -p -gs 5 -out X.fqst r1.fq r2.fq
+    python -m fqsqueezer_tpu_torch.cli d -out o1.fq -out2 o2.fq X.fqst
+
+Single-end (-s) and paired-end (-p, two mate files; `d` writes mate 2 to
+-out2) reads are ported in original and sorted order (-om o|s; the
 default is sorted), every quality mode (-qm o|8|4|2|n, with -qt) and id
 mode (-im o|i|n; the default is -im i), for `e` and for `d` (whose modes
 come from the archive's header): `e -gs 5 -out X.fqst in.fastq` runs the
 defaults, -s -om s -qm 8 -im i. As in the reference CLI, an input above
 256 MiB is block-streamed in 256 MiB chunks when its mode streams
-(original order, or sorted order with -im n); sorted order with ids
-loads the whole file. Paired-end (-p) and multi-chip meshes (-dp/-tp)
+(original order, or SE sorted order with -im n); sorted order with ids,
+and PE sorted order, load the whole input. Multi-chip meshes (-dp/-tp)
 exit 1 with one line naming them, as does a file that is not an archive.
 The work runs on the first CUDA card; a machine without a visible card
 exits 1 with one line unless `--device cpu` asks for the CPU.
@@ -173,12 +177,14 @@ def take_device(argv):
 
 def stream_chunk_bytes(p: Params) -> int:
     """The chunk size `e` streams p.file_names in, or 0 to load them: above
-    STREAM_THRESHOLD in all, single-end original order streams in every id
-    mode and sorted order with -im n (its external bin sort carries no
-    ids)."""
-    total = sum(os.path.getsize(f) for f in p.file_names
+    STREAM_THRESHOLD in all, original order streams in every id mode (PE
+    through the paired chunk reader, the first two files) and SE sorted
+    order with -im n (its external bin sort carries no ids)."""
+    is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
+    total = sum(os.path.getsize(f)
+                for f in (p.file_names[:2] if is_pe else p.file_names)
                 if os.path.exists(f))
-    streams = (p.dna_mode == DnaMode.SE_ORIGINAL
+    streams = (p.dna_mode in (DnaMode.SE_ORIGINAL, DnaMode.PE_ORIGINAL)
                or (p.dna_mode == DnaMode.SE_SORTED
                    and p.id_mode == IdMode.NONE))
     return STREAM_CHUNK_BYTES if streams and total > STREAM_THRESHOLD else 0
@@ -210,7 +216,16 @@ def main(argv=None) -> int:
                 else "host CPU")
         print(f"device: {device} ({name})")
     t0 = time.time()
-    if compress:
+    if compress and p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED):
+        if len(p.file_names) < 2:
+            raise SystemExit("paired-end mode needs two input files")
+        try:
+            stats = pipeline.compress_pe(
+                p, p.file_names[0], p.file_names[1], p.out_path,
+                device=device, stream_chunk_bytes=stream_chunk_bytes(p))
+        except ValueError as e:
+            raise SystemExit(f"error: {e}")
+    elif compress:
         src = p.file_names if len(p.file_names) > 1 else p.file_names[0]
         stats = pipeline.compress_file(
             p, src, p.out_path, device=device,
@@ -222,7 +237,7 @@ def main(argv=None) -> int:
     else:
         try:
             stats = pipeline.decompress_file(p, p.file_names[0], p.out_path,
-                                             device=device)
+                                             p.out_path2, device=device)
         except (OSError, EOFError, ValueError) as e:
             raise SystemExit(f"error: {e}")
         if p.verbosity >= 1:

@@ -8,15 +8,18 @@ scatter-max. The reference's dropped scatters (mode="drop") are explicit
 masks here: an invalid event either adds 0, or max-es 0, into a cell, or
 lands in a dump slot that is cut off.
 
-Not ported yet: the legacy 8-cell tables (table_*), the u16-counter KTable
-(ktable_* with dna_sb_proto=0) and the in-batch local tables (local_*,
-klocal_*); they serve only older archive headers.
+The paired-end pair table (pair_*: bucketed minimizer -> partner-minimizer
+slots, 8 cells a bucket) is ported too. Not ported yet: the legacy 8-cell
+k-mer tables (table_*), the u16-counter KTable (ktable_* with
+dna_sb_proto=0) and the in-batch local tables (local_*, klocal_*); they
+serve only older archive headers.
 """
 from __future__ import annotations
 
 import torch
 
-from .._u32 import MASK32
+from .._u32 import MASK32, mul_u32
+from . import kmers
 
 EMPTY = 0
 _BYTE = 0xFF
@@ -248,6 +251,90 @@ def ktable_clamp(tc):
 def ktable_fill_stats(tc):
     _require_k2(tc)
     return (tc != EMPTY).sum(), tc.shape[0] * KBUCKET
+
+
+# ---------------------------------------------------------------------------
+# PairTable: bucketed (key -> partner-minimizer, weight) slots
+# ---------------------------------------------------------------------------
+# The paired-end minimizer pair table of fqsqueezer_tpu/ops/tables.py: a
+# slot holds (key tag, value lo, value hi, weight); several slots of a
+# bucket may share the key tag with different values. Values are stored
+# exactly, since the decoder rebuilds an anchor's bases from them.
+
+BUCKET = 8   # cells a pair-table bucket row
+_CTZ8 = tuple((x & -x).bit_length() - 1 if x else 0 for x in range(256))
+
+
+def pair_create(log2_buckets: int, device=None):
+    """(tags, vlo, vhi, cnt): four [2^log2_buckets, BUCKET] u32 planes in
+    int64."""
+    return tuple(torch.zeros((1 << log2_buckets, BUCKET), dtype=torch.int64,
+                             device=device) for _ in range(4))
+
+
+def pair_find(pt, klo: torch.Tensor, khi: torch.Tensor):
+    """Query keys [...]: returns (vlo, vhi, cnt) rows [..., BUCKET]; cnt is 0
+    on slots whose key tag does not match."""
+    tags, vlo, vhi, cnt = pt
+    bkt = kmers.hash_bucket(klo, khi, _log2_rows(tags))
+    tag = kmers.hash_tag(klo, khi)
+    match = tags[bkt] == tag[..., None]
+    return vlo[bkt], vhi[bkt], torch.where(match, cnt[bkt], 0)
+
+
+def pair_update(pt, klo, khi, vlo_n, vhi_n, w, valid):
+    """Batch (key -> value, weight) inserts; all [n] flat. Returns the new
+    planes (the given ones are left as they were).
+
+    The reference's protocol: a slot's identity is (key tag, vlo, vhi); in
+    each of two claim rounds, events whose triple is absent and whose
+    bucket has an empty slot scatter-max a 32-bit ticket (a hash of tag and
+    value) into a claim plane at their rotated slot, and the events that
+    read their own ticket back write the three identity words. A claimed
+    slot was empty in the round's snapshot, and an empty slot's three
+    words are 0 (slots are never freed), so those writes are scatter-maxes
+    too, and an event that does not win maxes 0 into cell 0. Then every
+    event whose triple is present adds its weight to the first matching
+    slot, and counts clamp at 2^20."""
+    tags, vlo, vhi, cnt = pt
+    n_buckets = tags.shape[0]
+    dev = tags.device
+    bkt = torch.where(valid, kmers.hash_bucket(klo, khi, _log2_rows(tags)),
+                      torch.arange(klo.shape[0], dtype=torch.int64,
+                                   device=dev) & (n_buckets - 1))
+    tag = kmers.hash_tag(klo, khi)
+    ticket = kmers.hash_tag(mul_u32(vlo_n, 0x9E3779B1) ^ tag, vhi_n)
+    weights = 1 << torch.arange(BUCKET, dtype=torch.int64, device=dev)
+    j = (ticket >> 13) & (BUCKET - 1)
+    ctz8 = torch.tensor(_CTZ8, dtype=torch.int64, device=dev)
+    for r in range(2):
+        row_t, row_l, row_h = tags[bkt], vlo[bkt], vhi[bkt]
+        found = ((row_t == tag[:, None]) & (row_l == vlo_n[:, None])
+                 & (row_h == vhi_n[:, None])).any(dim=1) & valid
+        bm = torch.where(row_t == EMPTY, weights, 0).sum(dim=1)
+        want = valid & ~found & (bm > 0)
+        jr = (j + 3 * r) & (BUCKET - 1)
+        rot = ((bm >> jr) | (bm << (BUCKET - jr))) & ((1 << BUCKET) - 1)
+        slot = (jr + ctz8[rot]) & (BUCKET - 1)
+        cell = torch.where(want, bkt * BUCKET + slot, n_buckets * BUCKET)
+        claim = torch.zeros(((n_buckets + 1) * BUCKET,), dtype=torch.int64,
+                            device=dev).scatter_reduce_(0, cell, ticket,
+                                                        "amax")
+        win = want & (claim[cell] == ticket)
+        at = torch.where(win, cell, 0)
+        tags, vlo, vhi = (
+            plane.reshape(-1).clone().scatter_reduce_(
+                0, at, torch.where(win, val, 0), "amax").reshape(
+                    n_buckets, BUCKET)
+            for plane, val in ((tags, tag), (vlo, vlo_n), (vhi, vhi_n)))
+    match2 = ((tags[bkt] == tag[:, None]) & (vlo[bkt] == vlo_n[:, None])
+              & (vhi[bkt] == vhi_n[:, None]))
+    found2 = match2.any(dim=1) & valid
+    cell2 = torch.argmax(match2.to(torch.int64), dim=1)   # first match
+    cnt = cnt.reshape(-1).clone().index_add_(
+        0, torch.where(found2, bkt * BUCKET + cell2, 0),
+        torch.where(found2, w, 0)).reshape(n_buckets, BUCKET)
+    return tags, vlo, vhi, torch.clamp(cnt, max=1 << 20)
 
 
 class LocalBackend:

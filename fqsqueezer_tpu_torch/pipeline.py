@@ -1,9 +1,13 @@
-"""Compress and decompress orchestration — single-end reads.
+"""Compress and decompress orchestration — single-end and paired-end reads.
 
-Port of fqsqueezer_tpu/pipeline.py's SE path, original and sorted read
-order (-om o|s), every quality mode (-qm o|8|4|2|n) and id mode (-im
-o|i|n), from RAM or block-streamed (original order in every id mode,
-sorted order with -im n through the external bin sort). Sorted order
+Port of fqsqueezer_tpu/pipeline.py's single-device path: single-end (SE)
+and paired-end (PE) reads, original and sorted read order (-om o|s),
+every quality mode (-qm o|8|4|2|n) and id mode (-im o|i|n), from RAM or
+block-streamed (original order in every id mode, SE sorted order with
+-im n through the external bin sort). PE interleaves the mates (even
+reads mate 1, odd reads mate 2; batches hold whole pairs) and, with the
+anchor machinery on, adds the pe stream (streams/dna.py, streams/pe.py);
+PE sorted order sorts the pairs by mate 1 (compress_pe). Sorted order
 sorts the reads (io.fastq.sort_order), codes each read's shared prefix
 with the previous read of its lane as a meta symbol (meta.compute_lcp)
 and leaves those bases out of the DNA stream; the decoder copies them
@@ -53,8 +57,6 @@ class CodecState(NamedTuple):
 def unported_modes(p: Params) -> list:
     """Names of the Params' modes this package cannot compress yet."""
     out = []
-    if p.dna_mode not in (DnaMode.SE_ORIGINAL, DnaMode.SE_SORTED):
-        out.append("paired-end (-p)")
     if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
         out.append(f"id codec v{p.id_codec_v} (legacy id_codec_v header "
                    f"value)")
@@ -132,8 +134,10 @@ def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
     a quality stream), lengths: [R] int64, id_batch: the encode_ids_host
     planes as tensors (with an id stream), n_valid: the batch's real reads.
     Returns ([(freq, cum) int32 [T, N] lane grids per stream: meta, dna,
-    then qual and id where present], new state)."""
-    kcodes = torch.where(codes >= 4, 0, codes)
+    then qual, id and pe where present], new state). A PE batch has its
+    pairs interleaved; with the anchors on, the DNA codec models the
+    anchored 3-row recoding (dna.dna_pe_encode) and the pe stream's grid
+    is the last."""
     lcp = (meta.compute_lcp(codes, lengths, mcfg.n_lanes, mcfg.lcp_stride)
            if mcfg.with_lcp else None)
 
@@ -143,12 +147,22 @@ def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
         state.meta, m_ctx.reshape(-1), m_syms.reshape(-1),
         torch.ones(m_ctx.numel(), dtype=torch.bool, device=codes.device))
 
+    # the DNA codec's rows: the reads, or with the PE anchors their
+    # anchored 3-row recoding
+    d_codes, d_lengths, d_lcp, anchor_mask, pe_kw = (codes, lengths, lcp,
+                                                     None, {})
+    if dcfg.pe_log2_buckets > 0:
+        (d_codes, d_lengths, anchor_mask, d_lcp, pe_syms, pe_act, pe_f, pe_c,
+         _) = dna.dna_pe_encode(dcfg, state.dna, codes, lengths, lcp=lcp)
+        pe_kw = dict(pe_syms=pe_syms, pe_act=pe_act, codes_true=codes,
+                     lengths_true=lengths)
     (eff, d_ctx, d_sym, d_f, d_c, d_act, s_tc,
-     b_tc) = dna.dna_process_batch_rg(dcfg, state.dna, codes, kcodes,
-                                      lengths, lcp=lcp)
+     b_tc) = dna.dna_process_batch_rg(
+        dcfg, state.dna, d_codes, torch.where(d_codes >= 4, 0, d_codes),
+        d_lengths, lcp=d_lcp, anchor_mask=anchor_mask)
     d_state = dna.dna_collect_updates(
-        dcfg, state.dna._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
-        d_ctx, d_sym, d_act)
+        dcfg, state.dna._replace(s_tc=s_tc, b_tc=b_tc), d_codes, eff,
+        d_lengths, d_ctx, d_sym, d_act, **pe_kw)
 
     def grid(a, n):
         return common.to_grid(a, n).to(torch.int32).contiguous()
@@ -171,6 +185,8 @@ def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
             state.id, i_ctx.reshape(-1), i_syms.reshape(-1),
             i_act.reshape(-1))
         grids.append((grid(i_f, icfg.n_lanes), grid(i_c, icfg.n_lanes)))
+    if dcfg.pe_log2_buckets > 0:
+        grids.append((grid(pe_f, dcfg.n_lanes), grid(pe_c, dcfg.n_lanes)))
     return grids, CodecState(dna=d_state, meta=m_model, qual=q_model,
                              id=i_model)
 
@@ -179,17 +195,21 @@ def _decode_batch(dcfg, qcfg, mcfg, icfg, R: int, L: int,
                   state: CodecState, streams, n_valid: int):
     """Decode one padded batch of R reads and L columns. streams: (words,
     initial lane states) of each stream the batch has, in archive order
-    (meta, dna, then qual and id where present). Returns (lengths [R]
+    (meta, dna, then qual, id and pe where present). Returns (lengths [R]
     int64, codes [R, L] uint8, qsyms [R, L] uint8 or None, the id planes
     or None, new state, the streams' final lane states) — the last chain
-    into the group's next batch."""
+    into the group's next batch. A PE batch's reads are interleaved."""
     (m_words, m_states), (d_words, d_states), *rest = streams
+    pe_words = pe_states = None
+    if dcfg.pe_log2_buckets > 0:
+        pe_words, pe_states = rest.pop()
     lengths, lcp, m_model, m_x, _ = meta.meta_decode_batch(
         mcfg, state.meta, R, m_words, m_states)
     lengths = torch.clamp(lengths, max=L)
-    codes, d_state, d_x, _, _ = dna.dna_decode_batch(
+    codes, d_state, d_x, _, d_extras = dna.dna_decode_batch(
         dcfg, state.dna, lengths, d_words, d_states, L,
-        lcp=lcp if mcfg.with_lcp else None, lcp_stride=mcfg.lcp_stride)
+        lcp=lcp if mcfg.with_lcp else None, lcp_stride=mcfg.lcp_stride,
+        pe_words=pe_words, pe_states=pe_states)
     final = [m_x, d_x]
     qsyms = q_model = None
     if qcfg is not None:
@@ -205,6 +225,8 @@ def _decode_batch(dcfg, qcfg, mcfg, icfg, R: int, L: int,
         (*id_planes, i_model, i_x, _) = ids.id_decode_batch(
             icfg, state.id, R, i_words, i_states, n_valid)
         final.append(i_x)
+    if pe_words is not None:
+        final.append(d_extras[4])
     return (lengths, codes.to(torch.uint8), qsyms, id_planes,
             CodecState(dna=d_state, meta=m_model, qual=q_model, id=i_model),
             final)
@@ -325,7 +347,7 @@ def _pad_batch(arr: np.ndarray, padded: int):
     return np.concatenate([arr, np.zeros(pad_shape, arr.dtype)], axis=0)
 
 
-# --- block-streamed input (single-end) -----------------------------------
+# --- block-streamed input ------------------------------------------------
 
 def _fifo_pop(pend: list, take: int) -> fastq.FastqData:
     """Pop exactly `take` reads off a FIFO of FastqData chunks (splitting the
@@ -396,18 +418,68 @@ def _prescan_ids_stream(paths, p: Params, chunk_bytes: int):
     return max_len, nf
 
 
+def _stream_interleaved_pe(paths, chunk_bytes: int):
+    """Two streamed cursors over the mate files, in step, yielding
+    interleaved FastqData chunks (pairs adjacent, an even read count) —
+    the reference package's paired chunk reader, with two of its faults
+    repaired: each mate reads chunks of half chunk_bytes, so the two
+    buffers and the interleaved copy stay near chunk_bytes in all, and a
+    mate-count mismatch counts the other file's unpaired reads to its end
+    (the reference reports only those it had buffered). Chunk sizes do not
+    change an archive: batches are cut from the stream as batch_schedule
+    cuts them."""
+    in1, in2 = paths
+    its = [iter(fastq.stream_fastq(in1, max(1, chunk_bytes // 2))),
+           iter(fastq.stream_fastq(in2, max(1, chunk_bytes // 2)))]
+    bufs = ([], [])
+    counts = [0, 0]
+    done = [False, False]
+
+    def refill(i):
+        while not done[i] and counts[i] == 0:
+            c = next(its[i], None)
+            if c is None:
+                done[i] = True
+            elif c.n_reads:
+                bufs[i].append(c)
+                counts[i] += c.n_reads
+
+    while True:
+        refill(0)
+        refill(1)
+        k = min(counts)
+        if k == 0:
+            if counts[0] != counts[1]:
+                rest = max(counts) + sum(
+                    c.n_reads for c in its[int(counts[1] > counts[0])])
+                raise ValueError(
+                    f"PE mate counts differ (stream): one mate file ended "
+                    f"with {rest} unpaired reads in the other")
+            break
+        d1 = _fifo_pop(bufs[0], k)
+        d2 = _fifo_pop(bufs[1], k)
+        counts[0] -= k
+        counts[1] -= k
+        yield interleave_pe(d1, d2)
+
+
 def _stream_batches(paths, p: Params, chunk_bytes: int):
-    """Doubling-schedule batches from block-streamed single-end input, the
-    sizes batch_schedule gives, so the archive equals the in-RAM path's:
-    FASTQ chunks (stream_fastq, or external_sort_stream in sorted order)
-    are buffered FIFO and cut into batches; host memory stays O(chunk +
-    batch). Yields (FastqData batch, take, padded)."""
-    first = _first_batch(p.n_lanes, p.max_batch_reads, 0, p.n_lanes)
+    """Doubling-schedule batches from block-streamed input, the sizes
+    batch_schedule gives, so the archive equals the in-RAM path's: FASTQ
+    chunks (stream_fastq; external_sort_stream in SE sorted order; the
+    paired chunk reader in PE original order, whose batches hold whole
+    pairs: every size a multiple of 2 * n_lanes) are buffered FIFO and cut
+    into batches; host memory stays O(chunk + batch). Yields (FastqData
+    batch, take, padded)."""
+    is_pe = p.dna_mode == DnaMode.PE_ORIGINAL
+    align = 2 * p.n_lanes if is_pe else p.n_lanes
+    first = _first_batch(p.n_lanes, p.max_batch_reads, 0, align)
     size = first
     pend: list = []    # FIFO of parsed chunks not yet batched
     n_pend = 0
     source = (fastq.external_sort_stream(paths, chunk_bytes)
               if p.dna_mode == DnaMode.SE_SORTED
+              else _stream_interleaved_pe(paths, chunk_bytes) if is_pe
               else fastq.stream_fastq(paths, chunk_bytes))
 
     def pop(take):
@@ -422,13 +494,12 @@ def _stream_batches(paths, p: Params, chunk_bytes: int):
         n_pend += chunk.n_reads
         while n_pend >= size:
             yield (pop(size), size,
-                   canonical_padded(size, first, p.max_batch_reads,
-                                    p.n_lanes))
+                   canonical_padded(size, first, p.max_batch_reads, align))
             size = min(size * 2, p.max_batch_reads)
     while n_pend > 0:
         take = min(size, n_pend)
         yield (pop(take), take,
-               canonical_padded(take, first, p.max_batch_reads, p.n_lanes))
+               canonical_padded(take, first, p.max_batch_reads, align))
         size = min(size * 2, p.max_batch_reads)
 
 
@@ -453,31 +524,40 @@ def compress_file(p: Params, in_path: str, out_path: str,
                   data: Optional[fastq.FastqData] = None,
                   group_mem_bytes: int = 512 << 20, device=None,
                   stream_chunk_bytes: int = 0) -> dict:
-    """SE compression, original or sorted order, of an in-RAM input
-    (`data`, or the parsed `in_path`) into `out_path`, on `device`
-    (default: the first CUDA card; see resolve_device). Returns the same
-    stats dict as the reference package. With an id stream, p.max_id_len
-    and p.id_n_fields are set from the input before the header is
-    written, as the reference does.
+    """Compression, original or sorted order, of an in-RAM input (`data`,
+    or the parsed `in_path`) into `out_path`, on `device` (default: the
+    first CUDA card; see resolve_device). Returns the same stats dict as
+    the reference package. With an id stream, p.max_id_len and
+    p.id_n_fields are set from the input before the header is written, as
+    the reference does. A PE input comes as `data` with its pairs
+    interleaved (compress_pe), or streamed.
 
     stream_chunk_bytes > 0 (and no `data`) block-streams the input in
     chunks of about that size instead of loading it: original order in
     every id mode (a prescan of the header lines fixes the id geometry
-    first), sorted order through the external bin sort, which carries no
-    ids, so only with -im n. The archive is the in-RAM path's, byte for
-    byte."""
+    first; PE through the paired chunk reader, the two mate files as
+    in_path), SE sorted order through the external bin sort, which
+    carries no ids, so only with -im n. The archive is the in-RAM path's,
+    byte for byte."""
     missing = unported_modes(p)
     if missing:
         raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
                          + ", ".join(missing))
     in_paths = list(in_path) if isinstance(in_path, (list, tuple)) else [
         in_path]
+    is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
     streaming = stream_chunk_bytes > 0 and data is None
-    if (streaming and p.dna_mode == DnaMode.SE_SORTED
-            and p.id_mode != IdMode.NONE):
-        raise ValueError(
-            "streamed sorted-mode compression requires -im n "
-            "(the external bin sort does not carry ids)")
+    if streaming:
+        if p.dna_mode == DnaMode.PE_SORTED:
+            raise ValueError(
+                "streamed compression does not support -om s with PE "
+                "(sorting pairs by mate1 needs the whole input)")
+        if p.dna_mode == DnaMode.SE_SORTED and p.id_mode != IdMode.NONE:
+            raise ValueError(
+                "streamed sorted-mode compression requires -im n "
+                "(the external bin sort does not carry ids)")
+        if p.dna_mode == DnaMode.PE_ORIGINAL and len(in_paths) != 2:
+            raise ValueError("streamed PE compression needs two mate files")
     device = resolve_device(device)
     if data is None and not streaming:
         data = (fastq.concat_fastq([fastq.read_fastq(f) for f in in_paths])
@@ -504,7 +584,8 @@ def compress_file(p: Params, in_path: str, out_path: str,
     dcfg, qcfg, mcfg, icfg = make_configs(p)
     state = state_create(dcfg, qcfg, icfg, device)
     skeys = (["meta", "dna"] + (["qual"] if qcfg else [])
-             + (["id"] if icfg else []))
+             + (["id"] if icfg else [])
+             + (["pe"] if dcfg.pe_log2_buckets > 0 else []))
     n_streams = len(skeys)
     qfwd = quality.qual_maps(qcfg.mode, qcfg.qt)[0] if qcfg else None
 
@@ -574,7 +655,8 @@ def compress_file(p: Params, in_path: str, out_path: str,
                     data.lengths[start:start + take],
                     id_list[start:start + take], take, padded)
                    for start, take, padded in batch_schedule(
-                       data.n_reads, p.n_lanes, p.max_batch_reads))
+                       data.n_reads, p.n_lanes, p.max_batch_reads,
+                       align=2 * p.n_lanes if is_pe else p.n_lanes))
     n_reads = n_bases = 0
     for codes_raw, quals_raw, lengths_raw, ids_raw, take, padded in batches:
         n_reads += take
@@ -639,12 +721,14 @@ def unported_archive(p: Params) -> list:
 
 
 def decompress_file(p_cli: Params, in_path: str, out_path: str,
-                    device=None) -> dict:
+                    out_path2: str | None = None, device=None) -> dict:
     """Decode an archive into a FASTQ file at `out_path`, on `device`
-    (default: the first CUDA card; see resolve_device). The modes come from
-    the archive's header; one the port lacks, or a file that is not an
-    archive, is a ValueError. Each group's payload checksum is held to the
-    decoded reads. Returns {"n_reads": ...}."""
+    (default: the first CUDA card; see resolve_device); a PE archive's
+    mate 2 reads go to `out_path2` (or, as in the reference, to the
+    Params' out_path2). The modes come from the archive's header; one the
+    port lacks, or a file that is not an archive, is a ValueError. Each
+    group's payload checksum is held to the decoded reads. Returns
+    {"n_reads": ...}, both mates counted."""
     reader = archive.ArchiveReader(in_path)
     try:
         p = Params.load_params(reader.header_blob, base=p_cli)
@@ -653,12 +737,15 @@ def decompress_file(p_cli: Params, in_path: str, out_path: str,
             raise ValueError(", ".join(missing) + " not yet ported to "
                              "fqsqueezer_tpu_torch")
         device = resolve_device(device)
-        writer = fastq.FastqWriter(out_path)
+        writers = [fastq.FastqWriter(out_path)]
         try:
-            _decode_groups(p, reader, writer, device)
+            if p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED):
+                writers.append(fastq.FastqWriter(out_path2 or p.out_path2))
+            _decode_groups(p, reader, writers, device)
         finally:
-            writer.close()
-        return {"n_reads": writer.n_reads}
+            for w in writers:
+                w.close()
+        return {"n_reads": sum(w.n_reads for w in writers)}
     finally:
         reader.close()
 
@@ -672,12 +759,15 @@ def fit_words(words: np.ndarray, cap: int, device) -> torch.Tensor:
     return torch.from_numpy(w).to(device)
 
 
-def _decode_groups(p: Params, reader, writer, device) -> None:
+def _decode_groups(p: Params, reader, writers, device) -> None:
+    """Decode every group into `writers`: one FASTQ writer, or two for a PE
+    archive (mate 1, mate 2)."""
     dcfg, qcfg, mcfg, icfg = make_configs(p)
     state = state_create(dcfg, qcfg, icfg, device)
     qrev = quality.qual_maps(qcfg.mode, qcfg.qt)[1] if qcfg else None
     id_chain = [None] if icfg is not None else None
-    first = _first_batch(p.n_lanes, p.max_batch_reads, 0, p.n_lanes)
+    align = 2 * p.n_lanes if len(writers) == 2 else p.n_lanes
+    first = _first_batch(p.n_lanes, p.max_batch_reads, 0, align)
     cuda = device.type == "cuda"
 
     def pull(t):
@@ -724,17 +814,28 @@ def _decode_groups(p: Params, reader, writer, device) -> None:
                     *(a.numpy() for a in id_planes),
                     ids.read_lanes(padded, p.n_lanes), id_chain,
                     n_valid=take)[:take]
-            writer.write_batch(codes, quals, lengths, ids=id_out)
+            # PE: even reads to mate 1's file, odd reads to mate 2's
+            nw = len(writers)
+            for k, writer in enumerate(writers):
+                writer.write_batch(
+                    *(np.ascontiguousarray(a[k::nw])
+                      for a in (codes, quals, lengths)),
+                    ids=None if id_out is None else id_out[k::nw])
 
         for take, L, streams in batches:
-            padded = canonical_padded(take, first, p.max_batch_reads,
-                                      p.n_lanes)
+            padded = canonical_padded(take, first, p.max_batch_reads, align)
             cap = padded * max(L, 2)
-            caps = [mcfg.n_per_read * padded, cap]
+            # the anchored 3-row recoding codes up to 1.5 * padded * L DNA
+            # symbols, one word at most each
+            with_pe = dcfg.pe_log2_buckets > 0
+            caps = [mcfg.n_per_read * padded,
+                    3 * (padded // 2) * max(L, 2) if with_pe else cap]
             if qcfg is not None:
                 caps.append(cap)
             if icfg is not None:
                 caps.append(padded * icfg.w_all + 4 * p.n_lanes)
+            if with_pe:
+                caps.append(2 * padded + 4 * p.n_lanes)
             if len(streams) != len(caps) or len(cur) != len(caps):
                 raise ValueError(f"group {gi}: {len(streams)} streams, the "
                                  f"header's modes code {len(caps)}")
@@ -765,3 +866,68 @@ def _decode_groups(p: Params, reader, writer, device) -> None:
         # replay the encoder's group-boundary growth and SIV prune
         state = state._replace(dna=grow_tables(
             dcfg, state.dna, p.verbosity, stats=fills.cpu().numpy()))
+
+
+def interleave_pe(d1: fastq.FastqData, d2: fastq.FastqData) -> fastq.FastqData:
+    """Interleave mate files so pairs are adjacent (read 2i mate 1 of pair
+    i, read 2i+1 its mate 2), both padded to one width."""
+    if d1.n_reads != d2.n_reads:
+        raise ValueError(
+            f"PE mate counts differ: {d1.n_reads} vs {d2.n_reads}")
+    R = d1.n_reads
+    L = max(d1.max_len, d2.max_len, 1)
+
+    def padL(a):
+        return np.pad(a, ((0, 0), (0, L - a.shape[1])))
+
+    codes = np.empty((2 * R, L), d1.codes.dtype if R else np.uint8)
+    quals = np.empty((2 * R, L), np.uint8)
+    lengths = np.empty((2 * R,), np.int32)
+    if R:
+        codes[0::2] = padL(d1.codes)
+        codes[1::2] = padL(d2.codes)
+        quals[0::2] = padL(d1.quals)
+        quals[1::2] = padL(d2.quals)
+        lengths[0::2] = d1.lengths
+        lengths[1::2] = d2.lengths
+    ids = [None] * (2 * R)
+    ids[0::2] = d1.ids
+    ids[1::2] = d2.ids
+    return fastq.FastqData(codes=codes, quals=quals, lengths=lengths, ids=ids)
+
+
+def compress_pe(p: Params, in1: str, in2: str, out_path: str,
+                group_mem_bytes: Optional[int] = None, device=None,
+                stream_chunk_bytes: int = 0) -> dict:
+    """Paired-end compression of the mate files in1, in2 into `out_path`,
+    on `device` (see compress_file): the pairs interleaved, in sorted
+    order sorted by mate 1's sequence (mate 2 follows its mate's
+    permutation). stream_chunk_bytes > 0 block-streams both mates through
+    the paired chunk reader (original order only; sorting needs the whole
+    input). The reference's snapshot_prefix (group checkpoints for a
+    parallel or resumed decode) is not ported."""
+    kw = {} if group_mem_bytes is None else {"group_mem_bytes":
+                                             group_mem_bytes}
+    if stream_chunk_bytes > 0 and p.dna_mode == DnaMode.PE_ORIGINAL:
+        stats = compress_file(p, [in1, in2], out_path, device=device,
+                              stream_chunk_bytes=stream_chunk_bytes, **kw)
+        stats["ratio"] = stats["in_bytes"] / max(1, stats["out_bytes"])
+        return stats
+    missing = unported_modes(p)
+    if missing:
+        raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
+                         + ", ".join(missing))
+    resolve_device(device)
+    d1 = fastq.read_fastq(in1)
+    d2 = fastq.read_fastq(in2)
+    if p.dna_mode == DnaMode.PE_SORTED:
+        order = fastq.sort_order(d1.codes, d1.lengths)
+        d1 = fastq.FastqData(d1.codes[order], d1.quals[order],
+                             d1.lengths[order], [d1.ids[i] for i in order])
+        d2 = fastq.FastqData(d2.codes[order], d2.quals[order],
+                             d2.lengths[order], [d2.ids[i] for i in order])
+    stats = compress_file(p, in1, out_path, data=interleave_pe(d1, d2),
+                          device=device, **kw)
+    stats["in_bytes"] = os.path.getsize(in1) + os.path.getsize(in2)
+    stats["ratio"] = stats["in_bytes"] / max(1, stats["out_bytes"])
+    return stats

@@ -3,7 +3,9 @@
 The numpy form is a dict of the arrays of fqsqueezer_tpu.pipeline.CodecState
 after jax.device_get, with the reference's dtypes: "siv", "s_tc", "b_tc"
 (uint32, from CodecState.dna), "model" (int32, CodecState.dna.model), "meta",
-"qual" and "id" (int32; "qual" and "id" may be None or absent). It lets both
+"qual" and "id" (int32; "qual" and "id" may be None or absent), and "pe"
+(CodecState.dna.pe: None or absent, or the pair table's four uint32
+planes and the pe model, int32, as a tuple). It lets both
 packages start from the same mid-stream state, and is the format group
 snapshots will share.
 """
@@ -30,11 +32,15 @@ def state_from_numpy(d: dict, device=None) -> CodecState:
         return torch.from_numpy(a.astype(np.int64 if k in _U32
                                          else np.int32)).to(device, dt)
 
+    pe = None
     if d.get("pe") is not None:
-        raise NotImplementedError("paired-end state is not ported yet")
+        pe = tuple(torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+                   for a in d["pe"][:4]) + (
+            torch.from_numpy(np.asarray(d["pe"][4]).astype(np.int32)).to(
+                device),)
     return CodecState(
         dna=DnaState(siv=t("siv"), s_tc=t("s_tc"), b_tc=t("b_tc"),
-                     model=t("model")),
+                     model=t("model"), pe=pe),
         meta=t("meta"), qual=t("qual"), id=t("id"))
 
 
@@ -43,6 +49,11 @@ def state_to_numpy(state: CodecState) -> dict:
     src = {"siv": state.dna.siv, "s_tc": state.dna.s_tc,
            "b_tc": state.dna.b_tc, "model": state.dna.model,
            "meta": state.meta, "qual": state.qual, "id": state.id}
-    return {k: None if v is None else
-            v.cpu().numpy().astype(np.uint32 if k in _U32 else np.int32)
-            for k, v in src.items()}
+    out = {k: None if v is None else
+           v.cpu().numpy().astype(np.uint32 if k in _U32 else np.int32)
+           for k, v in src.items()}
+    pe = state.dna.pe
+    out["pe"] = None if pe is None else tuple(
+        a.cpu().numpy().astype(np.uint32) for a in pe[:4]) + (
+        pe[4].cpu().numpy().astype(np.int32),)
+    return out

@@ -29,9 +29,23 @@ tables in place; on CPU tensors dna_decode_row_plain, the same scan as
 torch ops on the lanes' [N] tensors, then _apply_sb_updates. The batch's
 model and SIV update stays torch.
 
-Not ported yet: paired-end anchors, sorted-mode position contexts
-(dna_sorted_ctx), the legacy (non-row-global, non-canonical, u16-cell)
-paths.
+Paired-end reads (pairs interleaved: even rows read1, odd rows read2)
+run through the same codec. With the anchor machinery on
+(cfg.pe_log2_buckets > 0) the encoder searches each pair's anchor against
+the batch-start pair table (streams/pe.py), codes the pe stream's symbols
+(dna_pe_encode) and models the anchored 3-row recoding (read1, rowA,
+rowB); an anchored rowA or rowB does not code its first B = bmer_len
+positions. The decoder walks the same 3 rows: after each read1 row it
+recomputes the candidates from the decoded bases, decodes the pe symbols
+and arms the pair's anchor; K2 fills an anchored row's first B positions
+from the anchor's value through its prefix copy, the mechanism sorted
+order's shared prefixes use (a row has either an anchor or a prefix,
+never both). The pair table and the pe model evolve once a batch, from
+the true interleaved reads (dna_collect_updates).
+
+Not ported yet: sorted-mode position contexts (dna_sorted_ctx),
+paired-end position contexts (dna_pe_pos_ctx), the legacy
+(non-row-global, non-canonical, u16-cell) paths.
 """
 from __future__ import annotations
 
@@ -42,7 +56,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import kmers, models, rans, tables
-from . import common
+from . import common, pe
 
 A_SYM = 5                 # alphabet: 4 ranks/bases + N
 CODE_CTX_BITS = 22
@@ -142,10 +156,10 @@ def check_supported(cfg: DnaConfig) -> None:
         missing.append("non-K2 / non-row-global s/b tables")
     if cfg.local_model_inc > 0:
         missing.append("in-batch model deltas")
-    if cfg.pe_log2_buckets > 0:
-        missing.append("paired-end anchors")
     if cfg.sorted_ctx:
         missing.append("sorted-mode position contexts")
+    if cfg.pe_pos_ctx:
+        missing.append("dna_pe_pos_ctx=1 (paired-end position contexts)")
     # header knobs other than the ones the JAX writer stores: their branches
     # are held against the reference by no test
     if cfg.ctx_v != 2:
@@ -175,6 +189,8 @@ class DnaState(NamedTuple):
     # [n_model (+ n_coarse if cfg.mix_w > 0), A_SYM]: the coarse parent
     # family lives behind the fine rows in the same array
     model: torch.Tensor
+    # paired-end anchors: (pair tags, vlo, vhi, cnt, pe stream model), or
+    # None
     pe: tuple | None = None
 
 
@@ -182,11 +198,16 @@ def dna_state_create(cfg: DnaConfig, device=None) -> DnaState:
     check_supported(cfg)
     n_model = _n_model_ctx(cfg) + (_n_coarse_ctx(cfg) if cfg.mix_w > 0
                                    else 0)
+    pe_state = None
+    if cfg.pe_log2_buckets > 0:
+        pe_state = tables.pair_create(cfg.pe_log2_buckets, device) + (
+            models.model_create(pe.PE_N_CTX, pe.PE_N_SYM, device),)
     return DnaState(
         siv=tables.siv_create(cfg.siv_len, device),
         s_tc=tables.k2_create(cfg.smer_log2_buckets, device),
         b_tc=tables.k2_create(cfg.bmer_log2_buckets, device),
         model=models.model_create(n_model, A_SYM, device),
+        pe=pe_state,
     )
 
 
@@ -591,14 +612,15 @@ def _let_pb(cfg, pb):
 
 
 def _pos_buckets(cfg, pos, lens):
-    """[R, L] position buckets of single-end reads, in original and sorted
-    order (check_supported refuses the sorted-mode buckets of
-    dna_sorted_ctx and the paired-end coordinate map)."""
+    """[R, L] position buckets, in original and sorted order and of the
+    paired-end rows (check_supported refuses the sorted-mode buckets of
+    dna_sorted_ctx and the paired-end coordinate map of dna_pe_pos_ctx)."""
     return _pos_bucket(pos, lens)
 
 
 def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
-                         lengths, be=tables.LOCAL, lcp=None):
+                         lengths, be=tables.LOCAL, lcp=None,
+                         anchor_mask=None):
     """Row-global encoder pass: a loop over the r_pl read rows carrying the
     s/b tables. Per row: greedy repair against the row-fresh tables, the
     cascade find (+ rough rescue), context/rank modeling against the
@@ -607,7 +629,9 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
     codes/kcodes: [R, L] int64 (N = 4 in codes, 0 in kcodes); lengths [R];
     lcp (sorted order): [R], positions below it are not coded (f, c are
     no-ops and the rank history skips them) while repair, the finds and
-    the insert events keep every in-length position.
+    the insert events keep every in-length position; anchor_mask
+    (paired-end): [R, L], the anchored rows' preset spans, also left
+    uncoded.
     Returns (eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc)."""
     R, L = codes.shape
     dev = codes.device
@@ -616,6 +640,8 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
     code_active = pos < lens
     if lcp is not None:
         code_active = code_active & (pos >= lcp[:, None])
+    if anchor_mask is not None:
+        code_active = code_active & ~anchor_mask
     pb = _pos_buckets(cfg, pos, lens)
     let_ctx = _letters_plane(cfg, codes, pos, pb)
 
@@ -662,6 +688,43 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
     return eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc
 
 
+def dna_pe_encode(cfg: DnaConfig, state: DnaState, codes, lengths,
+                  lcp=None):
+    """Encoder-side anchor pass over an interleaved PE batch: anchors
+    found against the batch-start pair table, the pe stream's (id, pos
+    lo, pos hi) symbols a pair, and the anchored 3-row recoding
+    (pe.expand_pe_rows) that the DNA codec models. lcp (sorted order):
+    [R], carried to the read1 rows.
+
+    Returns (codes3 [R3, L], lengths3 [R3], anchor_mask3 [R3, L], lcp3
+    [R3] or None, pe_syms [P, 3], pe_act [P, 3], f [P, 3], c [P, 3],
+    None) — the last the reference's dna_pe_pos_ctx map, which
+    check_supported refuses."""
+    B = cfg.bmer_len
+    R, L = codes.shape
+    raw_k = torch.where(codes >= 4, 0, codes)
+    cand_any, mid, pos, _, _ = pe.find_anchors(state.pe[:4], codes, raw_k,
+                                               lengths, B)
+    has = cand_any & (mid < pe.N_CAND)
+    codes3, lengths3 = pe.expand_pe_rows(codes, lengths, pos, has, B)
+    anchor_mask3 = pe.expand_lengths_mask(codes3.shape[0], L, has, B)
+    lcp3 = None
+    if lcp is not None:
+        lcp3 = torch.zeros((codes3.shape[0],), dtype=torch.int64,
+                           device=codes.device)
+        lcp3[0::3] = lcp[0::2]
+    pe_syms = torch.stack([mid, pos & 0xFF, (pos >> 8) & 0xFF], dim=-1)
+    pe_act = torch.stack([cand_any, has, has], dim=-1)
+    ctx3 = torch.arange(pe.PE_N_CTX, dtype=torch.int64,
+                        device=codes.device)[None, :].expand_as(pe_syms)
+    cdf = models.model_cdf(state.pe[4], ctx3, cfg.scale_bits)
+    f, c = models.cdf_encode_lookup(cdf, pe_syms)
+    f = torch.where(pe_act, f, 1 << cfg.scale_bits)
+    c = torch.where(pe_act, c, 0)
+    return (codes3, lengths3, anchor_mask3, lcp3, pe_syms, pe_act, f, c,
+            None)
+
+
 # ---------------------------------------------------------------------------
 # shared state evolution
 # ---------------------------------------------------------------------------
@@ -692,11 +755,16 @@ def _apply_sb_updates(cfg: DnaConfig, be, s_tc, b_tc, kcodes, active):
 
 def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
                         lengths, ctx_all, sym_enc, code_active,
-                        be=tables.LOCAL) -> DnaState:
+                        be=tables.LOCAL, pe_syms=None, pe_act=None,
+                        codes_true=None, lengths_true=None) -> DnaState:
     """Apply one batch's model and SIV statistics. The s/b tables already
     evolved inside the row loop (dna_process_batch_rg), so they pass
     through. Model updates count only coded positions; the SIV ingests every
-    in-length position, both strands."""
+    in-length position, both strands. With the paired-end anchors on, the
+    pair table also takes the batch's cross-mate minimizer events, from the
+    true interleaved reads (codes_true, lengths_true: the main arguments
+    are the anchored 3-row recoding), and the pe model the pe stream's
+    symbols (pe_syms, pe_act [P, 3]) where they are given."""
     R, L = codes.shape
     pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
     active = pos < lengths[:, None]
@@ -723,7 +791,23 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
     siv = be.siv_update(
         state.siv, torch.cat([siv_f.reshape(-1), siv_r.reshape(-1)]),
         torch.cat([v_siv, v_siv]))
-    return state._replace(siv=siv, model=model)
+
+    pe_state = state.pe
+    if cfg.pe_log2_buckets > 0:
+        c_t = codes if codes_true is None else codes_true
+        l_t = lengths if lengths_true is None else lengths_true
+        ev = pe.pair_events(c_t, torch.where(c_t >= 4, 0, c_t), l_t,
+                            cfg.bmer_len)
+        pe_model = state.pe[4]
+        if pe_syms is not None:
+            ctx3 = torch.arange(pe.PE_N_CTX, dtype=torch.int64,
+                                device=codes.device)[None, :].expand_as(
+                                    pe_syms)
+            pe_model = models.model_update(
+                pe_model, ctx3.reshape(-1), pe_syms.reshape(-1),
+                pe_act.reshape(-1))
+        pe_state = tables.pair_update(state.pe[:4], *ev) + (pe_model,)
+    return state._replace(siv=siv, model=model, pe=pe_state)
 
 
 # ---------------------------------------------------------------------------
@@ -1042,61 +1126,190 @@ def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
                      f"{state.model.device}")
 
 
+def _anchor_plane(anc_lo, anc_hi, row_is_b: bool, B: int, L: int):
+    """[N, L] int64 prefix source of an anchored row: its first B columns
+    hold the anchor's bases (rowA), or the reverse complement of them
+    (rowB); the columns after them are never read."""
+    j = torch.arange(L, dtype=torch.int64, device=anc_lo.device)[None, :]
+    lo, hi = anc_lo[:, None], anc_hi[:, None]
+    if row_is_b:
+        return pe.comp_codes(pe.anchor_base(lo, hi, B - 1 - j, B))
+    return pe.anchor_base(lo, hi, j, B)
+
+
+def _pe_row_end(cfg, pe_tbl, pe_cdfs, base, length, L2, pe_x, pe_ptr,
+                pe_words):
+    """After a read1 row: its candidates from the decoded bases, the pe
+    stream's (id, pos lo, pos hi) symbols, and the pair's anchor — the
+    reference's PE step at a read1 boundary, as torch ops. pe_tbl: the
+    batch-start pair table; pe_cdfs: the pe model's cdf of each context.
+    Returns (pe_x, pe_ptr, anc_lo, anc_hi, a, has, lenA, lenB, syms [N,
+    3], act [N, 3])."""
+    B = cfg.bmer_len
+    sb = cfg.scale_bits
+    raw_k = torch.where(base >= 4, 0, base)
+    q_lo, q_hi = pe.segment_minimizers(base, raw_k, length, B, 4)
+    c_lo, c_hi, c_cnt = pe.find_candidates(pe_tbl, q_lo, q_hi, B)
+    cand_any = (c_cnt > 0).any(dim=-1)
+    mid = torch.full_like(length, pe.N_CAND)
+    syms = []
+    for j in range(3):
+        act = cand_any if j == 0 else cand_any & (mid < pe.N_CAND)
+        sym, f, c = rans.cdf_lookup(pe_cdfs[j],
+                                    rans.rans_decode_slots(pe_x, sb))
+        f = torch.where(act, f, 1 << sb)
+        c = torch.where(act, c, 0)
+        pe_x, pe_ptr = rans.rans_decode_advance(pe_x, pe_ptr, pe_words, f, c,
+                                                sb)
+        sym = torch.where(act, sym, 0)
+        if j == 0:
+            mid = torch.where(cand_any, sym, pe.N_CAND)
+        syms.append(sym)
+    has = cand_any & (mid < pe.N_CAND)
+    sel = torch.clamp(mid, max=pe.N_CAND - 1)[:, None]
+    anc_lo = torch.where(has, torch.gather(c_lo, 1, sel)[:, 0], 0)
+    anc_hi = torch.where(has, torch.gather(c_hi, 1, sel)[:, 0], 0)
+    a = torch.where(has, syms[1] | (syms[2] << 8), 0)
+    lenA = L2 - a
+    lenB = torch.where(has, torch.minimum(a + B, L2), 0)
+    return (pe_x, pe_ptr, anc_lo, anc_hi, a, has, lenA, lenB,
+            torch.stack([mid, syms[1], syms[2]], dim=-1),
+            torch.stack([cand_any, has, has], dim=-1))
+
+
 def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
                      init_states, L: int, be=tables.LOCAL, lcp=None,
-                     lcp_stride: int = 1):
-    """Decode a batch — the reference's dna_decode_batch for single-end
-    reads in original or sorted order, row-global canonical tables (no PE,
-    no local tables). lengths: [R] int64 (R a multiple of n_lanes); words:
-    [W] integer tensor of u16 values; init_states: [N] int64 (the encoder's
-    final states); lcp (sorted order): [R] shared-prefix lengths, whose
-    positions each row copies from the previous read row of its lane
-    (lcp_stride 1: the single-end chain; paired-end's 2 is not ported).
+                     lcp_stride: int = 1, pe_words=None, pe_states=None):
+    """Decode a batch — the reference's dna_decode_batch for the
+    row-global canonical tables (no local tables), single-end or
+    paired-end, in original or sorted order. lengths: [R] int64 (R a
+    multiple of n_lanes); words: [W] integer tensor of u16 values;
+    init_states: [N] int64 (the encoder's final states); lcp (sorted
+    order): [R] shared-prefix lengths, whose positions each row copies
+    from the read lcp_stride rows back in its lane (1: single-end; 2:
+    paired-end, read1 against the previous read1). pe_words, pe_states:
+    the pe stream's words and lane states, with cfg.pe_log2_buckets > 0.
 
     A loop over the read rows: each row is one dna_decode_row (K2 on a CUDA
     device) against the carried s/b tables, the row's s/b insert events
-    included, and in sorted order the previous row's base plane as its
-    prefix source (a zero plane for the batch's first row, whose lcp is 0);
-    dna_collect_updates (model and SIV) runs once after the batch.
+    included, and in sorted order the base plane lcp_stride rows back as
+    its prefix source (a zero plane for a lane's first rows, whose lcp is
+    0); dna_collect_updates (model and SIV, and the pair table and pe
+    model) runs once after the batch. With the anchors on, the loop walks
+    the anchored 3-row recoding (read1, rowA, rowB a pair; pe.
+    expand_pe_rows): after each read1 row _pe_row_end decodes the pair's
+    pe symbols and arms its anchor, and rowA and rowB, of the lengths the
+    anchor gives, take their first B positions from the anchor through
+    the row's prefix copy. In sorted order a read1 row's source is the
+    previous read1, 3 rows back.
     On a CUDA device the state's s/b tables are updated in place: the
     returned state holds the same tensors, and the given one no longer
-    holds the batch's starting tables. Returns (codes [R, L] int64,
-    new_state, final_states, n_words_consumed, (eff, ctx_all, sym,
-    code_active))."""
+    holds the batch's starting tables. Returns (codes [R, L] int64 — the
+    true interleaved reads with anchors —, new_state, final_states,
+    n_words_consumed, extras): extras (eff, ctx_all, sym, code_active), of
+    the walked rows, and with anchors also (final pe lane states, pe_syms
+    [P, 3], pe_act [P, 3], the walked rows' codes [R3, L] and lengths
+    [R3]), as the reference's."""
     check_supported(cfg)
-    if lcp is not None and lcp_stride != 1:
-        raise NotImplementedError(f"LCP stride {lcp_stride} (paired-end) "
-                                  f"is not ported")
+    if lcp is not None and lcp_stride not in (1, 2):
+        raise NotImplementedError(f"LCP stride {lcp_stride}: only 1 "
+                                  f"(single-end) and 2 (paired-end) are "
+                                  f"written")
+    with_pe = cfg.pe_log2_buckets > 0 and pe_words is not None
+    B = cfg.bmer_len
     N = cfg.n_lanes
     R = lengths.shape[0]
     dev = init_states.device
-    len_rows = common.to_read_grid(lengths.to(torch.int64), N).t().contiguous()
-    lcp_rows = src = None
+    lengths = lengths.to(torch.int64)
+    len_grid = common.to_read_grid(lengths, N)                 # [N, r_pl]
+    n_rows = 3 * (R // 2) // N if with_pe else R // N
+    lcp_rows = None
     if lcp is not None:
-        lcp_rows = common.to_read_grid(lcp.to(torch.int64), N).t().contiguous()
-        src = torch.zeros((N, L), dtype=torch.int64, device=dev)
+        lcp_e = lcp.to(torch.int64)
+        if with_pe:
+            lcp_e = torch.zeros((3 * (R // 2),), dtype=torch.int64,
+                                device=dev)
+            lcp_e[0::3] = lcp[0::2]
+        lcp_rows = common.to_read_grid(lcp_e, N).t().contiguous()
+    stride_rows = 3 if with_pe else lcp_stride
+    prev = ([torch.zeros((N, L), dtype=torch.int64, device=dev)]
+            * stride_rows if lcp is not None else None)
     words = words.to(torch.int32).contiguous()
     pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     x = init_states
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
     regs = torch.zeros((K2_NREGS, N), dtype=torch.int64, device=dev)
     s_tc, b_tc = state.s_tc, state.b_tc
+    if with_pe:
+        pe_tbl = state.pe[:4]
+        pe_cdfs = [models.model_cdf(
+            state.pe[4], torch.full((N,), j, dtype=torch.int64, device=dev),
+            cfg.scale_bits) for j in range(pe.PE_N_CTX)]
+        pe_x = pe_states
+        pe_ptr = torch.zeros((), dtype=torch.int64, device=dev)
+        zeros = torch.zeros((N,), dtype=torch.int64, device=dev)
+        anc_lo = anc_hi = lenA = lenB = zeros
+        anc_has = torch.zeros((N,), dtype=torch.bool, device=dev)
+        row_lens, anc_lcps, pe_rows = [], [], []
     rows = []
-    for rd in range(R // N):
-        length = len_rows[rd]
+    for rd in range(n_rows):
+        k3 = rd % 3 if with_pe else 0
+        if with_pe:
+            length = (len_grid[:, 2 * (rd // 3)].contiguous() if k3 == 0
+                      else lenA if k3 == 1 else lenB)
+        else:
+            length = len_grid[:, rd].contiguous()
+        row_lcp = src = None
+        if k3:
+            # rowA or rowB: an anchored lane's first B bases are preset
+            # from the anchor (positions below the row's "lcp")
+            row_lcp = torch.where(anc_has, torch.clamp(length, max=B), 0)
+            src = _anchor_plane(anc_lo, anc_hi, k3 == 2, B, L)
+        elif lcp is not None:
+            row_lcp, src = lcp_rows[rd], prev[0]
         planes, x, ptr, regs, s_tc, b_tc = dna_decode_row(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), length, words, x, ptr,
-            regs, L, None if lcp is None else lcp_rows[rd], src, be=be)
+            regs, L, row_lcp, src, be=be)
         if lcp is not None:
-            src = planes[0]
+            prev = prev[1:] + [planes[0]]
         rows.append(planes)
+        if with_pe:
+            row_lens.append(length)
+            anc_lcps.append(row_lcp if k3 else zeros)
+        if with_pe and k3 == 0:
+            (pe_x, pe_ptr, anc_lo, anc_hi, a, anc_has, lenA, lenB, syms,
+             act) = _pe_row_end(cfg, pe_tbl, pe_cdfs, planes[0], length,
+                                len_grid[:, 2 * (rd // 3) + 1], pe_x,
+                                pe_ptr, pe_words)
+            pe_rows.append((syms, act, a, anc_has))
 
     codes, eff, ctx_all, sym = (common.from_row_blocks(torch.stack(r))
                                 for r in zip(*rows))
-    code_active = pos < lengths[:, None]
+    st = state._replace(s_tc=s_tc, b_tc=b_tc)
+    if not with_pe:
+        code_active = pos < lengths[:, None]
+        if lcp is not None:
+            code_active = code_active & (pos >= lcp[:, None])
+        new_state = dna_collect_updates(cfg, st, codes, eff, lengths,
+                                        ctx_all, sym, code_active, be)
+        return codes, new_state, x, ptr, (eff, ctx_all, sym, code_active)
+
+    def lane_major(planes):              # [n_rows or pairs, N, ...] -> [...]
+        return torch.stack(planes).transpose(0, 1).reshape(
+            (-1,) + tuple(planes[0].shape[1:]))
+
+    lengths3 = lane_major(row_lens)
+    code_active = ((pos < lengths3[:, None])
+                   & (pos >= lane_major(anc_lcps)[:, None]))
     if lcp is not None:
-        code_active = code_active & (pos >= lcp[:, None])
+        code_active = code_active & (pos >= lcp_e[:, None])
+    pe_syms, pe_act, a_pairs, has_pairs = (lane_major(list(t))
+                                           for t in zip(*pe_rows))
+    codes_true = pe.collapse_pe_rows(codes, lengths, a_pairs, has_pairs, B)
     new_state = dna_collect_updates(
-        cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
-        ctx_all, sym, code_active, be)
-    return codes, new_state, x, ptr, (eff, ctx_all, sym, code_active)
+        cfg, st, codes, eff, lengths3, ctx_all, sym, code_active, be,
+        pe_syms=pe_syms, pe_act=pe_act, codes_true=codes_true,
+        lengths_true=lengths)
+    return codes_true, new_state, x, ptr, (
+        eff, ctx_all, sym, code_active, pe_x, pe_syms, pe_act, codes,
+        lengths3)

@@ -38,18 +38,19 @@ def compute_lcp(codes: torch.Tensor, lengths: torch.Tensor, n_lanes: int,
                 stride: int = 1) -> torch.Tensor:
     """[R] int64 shared-prefix length of each read against the read
     `stride` back in the same lane (lane-major reads, common.to_read_grid),
-    capped at 255; 0 for each lane's first `stride` reads. Exact byte
-    compare (N distinct from T), so copying the prefix is lossless. Only
-    stride 1 (single-end) is ported."""
-    if stride != 1:
-        raise NotImplementedError(f"LCP stride {stride} (paired-end) is "
-                                  f"not ported")
+    capped at 255; 0 for each lane's first `stride` reads. Stride 2 is
+    paired-end's: read1 against the previous read1 of the lane, and mate2
+    rows get 0. Exact byte compare (N distinct from T), so copying the
+    prefix is lossless."""
     R, L = codes.shape
     lengths = lengths.to(torch.int64)
     pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
-    prev = torch.roll(codes, 1, dims=0)
-    prev_len = torch.roll(lengths, 1)
-    first = torch.arange(R, device=codes.device) % (R // n_lanes) == 0
+    prev = torch.roll(codes, stride, dims=0)
+    prev_len = torch.roll(lengths, stride)
+    idx = torch.arange(R, device=codes.device) % (R // n_lanes)
+    first = idx < stride
+    if stride == 2:
+        first = first | (idx % 2 == 1)          # mate2 rows
     eq = (codes == prev) & (pos < lengths[:, None]) & (pos < prev_len[:, None])
     lcp = torch.cumprod(eq.to(torch.int64), dim=1).sum(dim=1)
     return torch.clamp(torch.where(first, 0, lcp), max=LCP_CAP)

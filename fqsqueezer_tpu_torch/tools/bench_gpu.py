@@ -8,14 +8,14 @@ compress reads/s of the bench primary row (`e -s -om o -qm 8 -im n -gs 5`,
 the host clock and ended by `torch.cuda.synchronize()`; decode reads/s,
 bits/base and the walls ride along, with the peak CUDA memory of the
 compress and of the decode. The ride-along rows follow bench.py:
-`sorted` (`-om s -qm 8 -im n`, 1024 lanes) holds compress and decode
-reads/s (warm-up, then a timed run each), bits/base and bytes against the
-C++ reference's archive; `se_ids` (`-qm n -im o`, 1024 lanes) and
-`se_real` (the primary row on the realistic-genome corpus) hold bits/base
-and bytes against the C++ reference's archive; `pe`, a mode the port
-lacks, holds the port's one-line refusal as `{"error": ...}`, and every
-row that failed is named on stderr as `RIDE-ALONG FAILURE`, as bench.py
-does.
+`sorted` (`-om s -qm 8 -im n`, 1024 lanes) and `pe` (`e -p -om o -qm n
+-im n`, 1024 lanes, on the 50,000-pair seed-42 corpus of write_pe_corpus)
+hold compress and decode reads/s (warm-up, then a timed run each; PE
+counts both mates), bits/base and bytes against the C++ reference's
+archive; `se_ids` (`-qm n -im o`, 1024 lanes) and `se_real` (the primary
+row on the realistic-genome corpus) hold bits/base and bytes against the
+C++ reference's archive. A row that failed holds `{"error": ...}` and is
+named on stderr as `RIDE-ALONG FAILURE`, as bench.py does.
 
 `--primary-only` prints the primary row alone. Its imports are absolute, so
 the same file run by path holds an earlier checkout of the package to the
@@ -46,7 +46,8 @@ import torch
 from fqsqueezer_tpu_torch import pipeline
 from fqsqueezer_tpu_torch.io import fastq
 from fqsqueezer_tpu_torch.params import DnaMode, IdMode, Params, QualityMode
-from fqsqueezer_tpu_torch.utils.corpus import write_fastq_corpus
+from fqsqueezer_tpu_torch.utils.corpus import (write_fastq_corpus,
+                                               write_pe_corpus)
 
 # the C++ reference (fqs-1.1), single thread, as bench.py records it
 BASELINE_READS_PER_S = 2873.0
@@ -57,6 +58,7 @@ REF_PE_BYTES = 1_386_065         # reference `e -p -om o -qm n -im n`
 REF_IDS_BYTES = 1_417_286        # reference `-om o -qm n -im o` (se_ids)
 REF_REAL_BYTES = 3_382_084       # reference `-om o -qm 8 -im n`, realistic
 N_READS = 100_000
+N_PAIRS = 50_000
 READ_LEN = 100
 GENOME = 4_600_000
 NOTE = ("vs_baseline and decode_vs_baseline divide by the C++ reference's "
@@ -187,14 +189,35 @@ def main() -> int:
     except Exception as e:  # noqa: BLE001 - diagnostic ride-along
         out["sorted"] = {"error": f"{type(e).__name__}: {e}"[:200]}
 
-    # PE: compress_file refuses the mode with one line before it writes
-    # anything; the row carries that line
     try:
-        pipeline.compress_file(params(DnaMode.PE_ORIGINAL, QualityMode.NONE),
-                               src, os.path.join(WORK, "pe.fqst"), data=data)
-        out["pe"] = {"error": "compressed, but bench_gpu has no row for "
-                              "this mode yet"}
-    except ValueError as e:
+        pe1 = os.path.join(WORK, "bench_pe_1.fastq")
+        pe2 = os.path.join(WORK, "bench_pe_2.fastq")
+        if pe1 not in _WRITTEN:
+            write_pe_corpus(pe1, pe2, N_PAIRS, READ_LEN, GENOME, seed=42)
+            _WRITTEN.add(pe1)
+        p_arc = os.path.join(WORK, "pe.fqst")
+        p_out = [os.path.join(WORK, f"pe_out_{k}.fastq") for k in (1, 2)]
+
+        def compress_pe():
+            return pipeline.compress_pe(
+                params(DnaMode.PE_ORIGINAL, QualityMode.NONE), pe1, pe2,
+                p_arc)
+
+        def decompress_pe(suffix=""):
+            return pipeline.decompress_file(
+                Params(), p_arc, p_out[0] + suffix, p_out[1] + suffix)
+
+        compress_pe()
+        stats_p, dtp = timed(compress_pe)
+        decompress_pe(".warm")
+        dstats_p, ddtp = timed(decompress_pe)
+        out["pe"] = {
+            "compress_reads_per_s": round(stats_p["n_reads"] / dtp, 1),
+            "decode_reads_per_s": round(dstats_p["n_reads"] / ddtp, 1),
+            "bits_per_base": round(stats_p["bits_per_base"], 4),
+            "bytes_vs_ref": round(stats_p["out_bytes"] / REF_PE_BYTES, 4),
+        }
+    except Exception as e:  # noqa: BLE001 - diagnostic ride-along
         out["pe"] = {"error": f"{type(e).__name__}: {e}"[:200]}
 
     try:

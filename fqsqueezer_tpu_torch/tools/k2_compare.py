@@ -2,15 +2,19 @@
 the row's s/b table update, one launch) on one card, against its plain
 torch version.
 
-    python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--sorted]
+    python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--sorted | --pe]
         [--other other.cu ...]
 
 The input is the main path's real batch: the bench corpus's first 20,000
 reads (chip_smoke.py's) compressed on the card at the bench primary row
 (with --sorted at the bench's sorted row, -om s: 1024 lanes, 4 read rows
-a batch, each read's shared prefix copied by K2), and the DNA decode
-inputs of the archive's second batch with the DNA state the first batch
-left (real_dna_batch). dna_decode_batch decodes it with
+a batch, each read's shared prefix copied by K2; with --pe the first
+10,000 pairs of the bench's PE corpus at its PE row, -p -om o -qm n -im
+n: 1024 lanes, 6 expanded rows a batch, read1, rowA and rowB a pair, the
+anchored rows' first B bases copied from the anchor by K2), and the DNA
+decode inputs of the archive's second batch with the DNA state the first
+batch left (real_dna_batch). With --pe the row-end PE step
+(dna._pe_row_end, torch ops between K2's launches) is timed too. dna_decode_batch decodes it with
 every read row run by K2 and by the plain row step on the same inputs and
 held equal, both updated tables included (check_rows). Then one batch's
 rows are timed with CUDA events, each call allocating its outputs as the
@@ -43,12 +47,13 @@ from ..archive import ArchiveReader
 from ..ops import _build, kmers, tables
 from ..params import Params
 from ..streams import dna, meta
-from ..utils.corpus import write_fastq_corpus
+from ..utils.corpus import write_fastq_corpus, write_pe_corpus
 
 # the bench primary row, as chip_smoke.py gives it to the CLI, and the
 # bench's sorted row
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
 SORTED_ROW = ("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
+PE_ROW = ("-p", "-om", "o", "-qm", "n", "-im", "n", "-gs", "5", "-v", "0")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate
 K2_OPS_PER_POS = 700       # an active lane-step: two queries (hash, tag,
@@ -64,10 +69,12 @@ CHAIN_LANES = 32
 def real_dna_batch(arc, device="cuda"):
     """The DNA decode inputs of the second batch of an archive's first
     group (4096 reads: 2 read rows at the main path's 2048 lanes, 4 at
-    sorted order's 1024): (DnaConfig, the DNA state the first batch left,
-    the batch's lengths (meta decoded, clamped to L), its fitted int32
-    word plane, the lane states the first batch left, L, its LCPs or None
-    in original order)."""
+    sorted order's 1024, 6 expanded rows in PE's): (DnaConfig, the DNA
+    state the first batch left, the batch's lengths (meta decoded, clamped
+    to L), its fitted int32 word plane, the lane states the first batch
+    left, L, its LCPs or None in original order, and for an archive with
+    the PE anchors the keyword arguments of dna_decode_batch's pe stream
+    and LCP stride, else None)."""
     rd = ArchiveReader(arc)
     try:
         p = Params.load_params(rd.header_blob)
@@ -80,24 +87,35 @@ def real_dna_batch(arc, device="cuda"):
     dcfg, qcfg, mcfg, _ = pipeline.make_configs(p)
     state = pipeline.state_create(dcfg, qcfg, device=device)
     m_model, d_state = state.meta, state.dna
-    m_x, d_x = (torch.from_numpy(gstates[k].astype("int64")).to(device)
-                for k in (0, 1))
-    first = pipeline._first_batch(p.n_lanes, p.max_batch_reads, 0, p.n_lanes)
+    m_x, d_x, pe_x = (torch.from_numpy(gstates[k].astype("int64")).to(device)
+                      for k in (0, 1, -1))
+    with_pe = dcfg.pe_log2_buckets > 0
+    align = 2 * p.n_lanes if mcfg.lcp_stride == 2 else p.n_lanes
+    first = pipeline._first_batch(p.n_lanes, p.max_batch_reads, 0, align)
     for k in (0, 1):
         take, L, streams = batches[k]
         padded = pipeline.canonical_padded(take, first, p.max_batch_reads,
-                                           p.n_lanes)
+                                           align)
         lengths, lcp, m_model, m_x, _ = meta.meta_decode_batch(
             mcfg, m_model, padded, pipeline.fit_words(
                 streams[0][0], mcfg.n_per_read * padded, device), m_x)
         lengths = torch.clamp(lengths, max=L)
         lcp = lcp if mcfg.with_lcp else None
-        d_words = pipeline.fit_words(streams[1][0], padded * max(L, 2),
-                                     device)
+        d_words = pipeline.fit_words(
+            streams[1][0], (3 * (padded // 2) if with_pe else padded)
+            * max(L, 2), device)
+        pe = {"lcp_stride": mcfg.lcp_stride}
+        if with_pe:
+            pe.update(pe_words=pipeline.fit_words(
+                streams[-1][0], 2 * padded + 4 * p.n_lanes, device),
+                pe_states=pe_x)
         if k == 1:
-            return dcfg, d_state, lengths, d_words, d_x, L, lcp
-        _, d_state, d_x, _, _ = dna.dna_decode_batch(
-            dcfg, d_state, lengths, d_words, d_x, L, lcp=lcp)
+            return (dcfg, d_state, lengths, d_words, d_x, L, lcp,
+                    pe if mcfg.lcp_stride == 2 else None)
+        _, d_state, d_x, _, extras = dna.dna_decode_batch(
+            dcfg, d_state, lengths, d_words, d_x, L, lcp=lcp, **pe)
+        if with_pe:
+            pe_x = extras[4]
 
 
 _OUT_NAMES = ("base", "eff", "ctx", "sym", "final states", "ptr",
@@ -123,20 +141,15 @@ def max_abs_err(got, want):
     return worst
 
 
-def check_rows(cfg, state, lengths, words, init, L, lcp=None,
-               what="the batch"):
-    """Decode one batch through dna.dna_decode_batch (with the batch's LCPs
-    in sorted order) with every read row run by both K2 (dna_decode_row on
-    CUDA tensors, on copies of the row-start tables, which it updates in
-    place) and dna_decode_row_plain on the same inputs, raising at the
-    first difference in the planes (every position, copied prefixes
-    included), final states, words consumed, registers or either updated
-    table; the batch goes on with the plain results, and the caller's
-    state keeps its tables. Returns, a row, (its dna_decode_row arguments,
+def _row_checker(rows, what):
+    """A dna_decode_row that runs both K2 (on copies of the row-start
+    tables, which it updates in place) and dna_decode_row_plain on the
+    same inputs, raises at the first difference in the planes (every
+    position, copied bases included), final states, words consumed,
+    registers or either updated table, appends (the row's arguments,
     which hold the row-start tables and the prefix source, and the plain
-    result)."""
+    result) to rows, and returns the plain result."""
     k2 = dna.dna_decode_row
-    rows = []
 
     def both(cfg, state, length, words, x, ptr, regs, L, lcp=None, src=None,
              be=tables.LOCAL):
@@ -161,12 +174,43 @@ def check_rows(cfg, state, lengths, words, init, L, lcp=None,
                                f"max abs err {err}")
         rows.append((args, want))
         return want
+    return both
 
-    dna.dna_decode_row = both
+
+def check_rows(cfg, state, lengths, words, init, L, lcp=None, pe=None,
+               what="the batch"):
+    """Decode one batch through dna.dna_decode_batch (with the batch's LCPs
+    in sorted order, and pe: the keyword arguments of its pe stream and
+    LCP stride, from real_dna_batch) with every read row checked
+    (_row_checker): K2 against the plain row step. The batch goes on with
+    the plain results, and the caller's state keeps its tables. Returns,
+    a row, (its dna_decode_row arguments, the plain result)."""
+    k2 = dna.dna_decode_row
+    rows = []
+    dna.dna_decode_row = _row_checker(rows, what)
     try:
-        dna.dna_decode_batch(cfg, state, lengths, words, init, L, lcp=lcp)
+        dna.dna_decode_batch(cfg, state, lengths, words, init, L, lcp=lcp,
+                             **(pe or {}))
     finally:
         dna.dna_decode_row = k2
+    return rows
+
+
+def check_spec_rows(cfg, state, specs, words, init, L, what="the batch"):
+    """check_rows for rows given one by one (utils/dna_batches.py
+    pe_row_inputs): specs holds each row's (length, lcp, src); x, the
+    word cursor, the registers and the tables carry from row to row as in
+    dna_decode_batch."""
+    rows = []
+    check = _row_checker(rows, what)
+    N = cfg.n_lanes
+    x, ptr = init, torch.zeros((), dtype=torch.int64, device=init.device)
+    regs = torch.zeros((dna.K2_NREGS, N), dtype=torch.int64,
+                       device=init.device)
+    for length, lcp, src in specs:
+        _, x, ptr, regs, s_tc, b_tc = check(cfg, state, length, words, x,
+                                            ptr, regs, L, lcp, src)
+        state = state._replace(s_tc=s_tc, b_tc=b_tc)
     return rows
 
 
@@ -344,6 +388,9 @@ def main() -> int:
     ap.add_argument("--sorted", action="store_true",
                     help="the bench's sorted row (-om s) instead of the "
                     "primary row")
+    ap.add_argument("--pe", action="store_true",
+                    help="the bench's PE row (-p -om o -qm n -im n) instead "
+                    "of the primary row")
     ap.add_argument("--other", action="append", default=[],
                     help="another CUDA source of K2 (its C entry point and "
                     "struct Args) to time beside it (repeatable)")
@@ -356,9 +403,16 @@ def main() -> int:
         check=True).stdout.strip())
     with tempfile.TemporaryDirectory() as d:
         src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
-        write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
-        row = SORTED_ROW if args.sorted else BENCH_ROW
-        pipeline.compress_file(cli.parse_args(["e", *row, src]), src, arc)
+        if args.pe:
+            src2 = os.path.join(d, "in_2.fastq")
+            write_pe_corpus(src, src2, 10_000, 100, 4_600_000, seed=42)
+            pipeline.compress_pe(cli.parse_args(["e", *PE_ROW, src, src2]),
+                                 src, src2, arc)
+        else:
+            write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
+            row = SORTED_ROW if args.sorted else BENCH_ROW
+            pipeline.compress_file(cli.parse_args(["e", *row, src]), src,
+                                   arc)
         batch = real_dna_batch(arc)
     rows = check_rows(*batch)
     L = batch[5]
@@ -395,11 +449,50 @@ def main() -> int:
     floor_ms = replay_ms(chain)
     plain_ms = replay_ms(row_args, dna.dna_decode_row_plain, 2)
     bound, by = k2_bound_ms(rows)
-    print(f"the {'sorted' if args.sorted else 'main'} path's batch "
+    name = "sorted" if args.sorted else "PE" if args.pe else "main"
+    print(f"the {name} path's batch "
           f"({len(rows)} rows, {steps} steps): chain "
           f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
           f"{plain_ms:.2f} ms, bound {bound:.4f} ms by {by}")
+    if args.pe:
+        pe_ms, n_calls = pe_row_end_ms(batch)
+        print(f"the row-end PE step (dna._pe_row_end, torch ops): "
+              f"{pe_ms:.4f} ms a batch ({n_calls} calls, "
+              f"{pe_ms / n_calls:.4f} ms a call), against K2's "
+              f"{sum(times['K2']) / 2:.4f} ms")
     return 0
+
+
+def pe_row_end_ms(batch, reps=5):
+    """(ms a batch, calls) of the row-end PE steps of a PE batch
+    (real_dna_batch's), timed with CUDA events around each call inside a
+    whole decode of the batch (K2 on the row's tables each repetition:
+    fresh copies, restored before it)."""
+    cfg, state, lengths, words, init, L, lcp, pe = batch
+    real = dna._pe_row_end
+    spans = []
+
+    def timed_step(*a, **k):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in (0, 1))
+        start.record()
+        out = real(*a, **k)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    dna._pe_row_end = timed_step
+    try:
+        for _ in range(reps + 1):
+            work = state._replace(s_tc=state.s_tc.clone(),
+                                  b_tc=state.b_tc.clone())
+            dna.dna_decode_batch(cfg, work, lengths, words, init, L,
+                                 lcp=lcp, **pe)
+    finally:
+        dna._pe_row_end = real
+    torch.cuda.synchronize()
+    n = len(spans) // (reps + 1)
+    ms = sum(s.elapsed_time(e) for s, e in spans[n:]) / reps
+    return ms, n
 
 
 if __name__ == "__main__":

@@ -1,18 +1,21 @@
 """Where a decompress spends its time, on one card.
 
     python3 -m fqsqueezer_tpu_torch.tools.profile_decode [--reads 100000]
-        [--om o] [--qm 8] [--im n]
+        [--om o] [--qm 8] [--im n] [--pe]
 
 Compresses the bench corpus (chip_smoke.py's: 100 bp reads of a 4.6 Mbp
 genome, seed 42, the bench primary row's Params with the read order,
-quality and id modes given: `-om o -qm 8 -im n` by default), then
-decompresses it
+quality and id modes given: `-om o -qm 8 -im n` by default; with --pe the
+bench's PE corpus, reads / 2 pairs of write_pe_corpus, as -p: `--pe --qm
+n` is the bench's PE row), then decompresses it
 warm: once without timers, once with a `torch.cuda.synchronize()` timer
 around each function of the decode (K2, `dna_decode_row`, is the row's
 scan and table update), and prints seconds, calls and the share of the
 timed wall for each (nested rows are part of the row above them; the
 timers serialize the device, so the untimed wall stands beside the timed
-one). Then one full batch (4096 reads) is decoded again under
+one; with --pe the row-end PE step, dna._pe_row_end — candidates, pe
+symbols and the anchor after each read1 row — has its own row). Then one
+full batch (4096 reads) is decoded again under
 `torch.profiler` with CUDA activity: its wall, the device time of its
 kernels, the device's busy and idle shares, and the kernels launched a
 DNA decode position. With ids, that batch's id scan alone as well, and
@@ -37,7 +40,7 @@ from ..io import fastq
 from ..ops import tables
 from ..params import Params
 from ..streams import dna, ids, meta, quality
-from ..utils.corpus import write_fastq_corpus
+from ..utils.corpus import write_fastq_corpus, write_pe_corpus
 
 # the bench primary row, as chip_smoke.py gives it to the CLI, without its
 # read order, quality and id modes
@@ -54,6 +57,7 @@ ID_OPS_PER_SLOT = 16
 # show that the card's decode calls them no more
 TIMED = ((pipeline, "_decode_batch"), (meta, "meta_decode_batch"),
          (dna, "dna_decode_batch"), (dna, "dna_decode_row"),
+         (dna, "_pe_row_end"),
          (dna, "_apply_sb_updates"), (tables, "k2_update"),
          (dna, "dna_collect_updates"), (quality, "qual_decode_batch"),
          (quality, "qual_decode_scan"), (ids, "id_decode_batch"),
@@ -121,7 +125,7 @@ def id_scan_bound_ms(icfg, model, R, n_valid, out):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def _profile_one_batch(arc, out):
+def _profile_one_batch(arc, out, out2):
     """Decode the archive with the profiler on around its third batch (the
     first full 4096-read one), and around that batch's id scan alone when
     the archive has ids. Returns ((wall s, device s, device records, read
@@ -144,12 +148,13 @@ def _profile_one_batch(arc, out):
                           *id_scan_bound_ms(icfg, state.id, R, n_valid, res))
         res, wall, dev_s, n = _profiled(
             lambda: real(dcfg, qcfg, mcfg, icfg, R, L, *rest))
-        got["batch"] = (wall, dev_s, n, R // dcfg.n_lanes, L)
+        rows = (3 * (R // 2) if dcfg.pe_log2_buckets > 0 else R)
+        got["batch"] = (wall, dev_s, n, rows // dcfg.n_lanes, L)
         return res
 
     pipeline._decode_batch = probe
     try:
-        pipeline.decompress_file(Params(), arc, out)
+        pipeline.decompress_file(Params(), arc, out, out2)
     finally:
         pipeline._decode_batch = real
     return got["batch"], got["ids"]
@@ -161,6 +166,8 @@ def main() -> int:
     ap.add_argument("--om", default="o", help="read order (o|s)")
     ap.add_argument("--qm", default="8", help="quality mode (o|8|4|2|n)")
     ap.add_argument("--im", default="n", help="id mode (o|i|n)")
+    ap.add_argument("--pe", action="store_true",
+                    help="paired-end (-p): reads / 2 pairs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: no CUDA device is visible")
@@ -170,16 +177,23 @@ def main() -> int:
         check=True).stdout.strip())
     with tempfile.TemporaryDirectory() as d:
         src, arc = os.path.join(d, "in.fastq"), os.path.join(d, "o.fqst")
-        out = os.path.join(d, "o.fastq")
-        write_fastq_corpus(src, args.reads, 100, 4_600_000, seed=42)
-        pipeline.compress_file(cli.parse_args(
-            ["e", *BENCH_ROW, "-om", args.om, "-qm", args.qm, "-im",
-             args.im, src]), src, arc)
+        out, out2 = os.path.join(d, "o.fastq"), os.path.join(d, "o2.fastq")
+        flags = ["-om", args.om, "-qm", args.qm, "-im", args.im]
+        if args.pe:
+            src2 = os.path.join(d, "in_2.fastq")
+            write_pe_corpus(src, src2, args.reads // 2, 100, 4_600_000,
+                            seed=42)
+            pipeline.compress_pe(cli.parse_args(
+                ["e", *BENCH_ROW, "-p", *flags, src, src2]), src, src2, arc)
+        else:
+            write_fastq_corpus(src, args.reads, 100, 4_600_000, seed=42)
+            pipeline.compress_file(cli.parse_args(
+                ["e", *BENCH_ROW, *flags, src]), src, arc)
 
         def run():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pipeline.decompress_file(Params(), arc, out)
+            pipeline.decompress_file(Params(), arc, out, out2)
             torch.cuda.synchronize()
             return time.perf_counter() - t0
 
@@ -196,9 +210,9 @@ def main() -> int:
             for o, n, fn in saved:
                 setattr(o, n, fn)
         (wall, dev_s, kernels, rows, L), id_scan = _profile_one_batch(
-            arc, out)
-    print(f"{args.reads} reads, -om {args.om} -qm {args.qm} -im "
-          f"{args.im}, warm "
+            arc, out, out2)
+    print(f"{args.reads} reads{' (PE)' if args.pe else ''}, -om {args.om} "
+          f"-qm {args.qm} -im {args.im}, warm "
           f"decompress: {plain:.4f} s without "
           f"timers ({args.reads / plain:.1f} reads/s), {timed:.4f} s with "
           f"them")

@@ -1,11 +1,11 @@
 """Deterministic synthetic FASTQ corpora for tests and benchmarks.
 
-The port's own copy of the single-end generators of
-fqsqueezer_tpu/utils/corpus.py: reads sampled from a random genome, or from
-one with real-genome-like structure (the bench's se_real row), with
-sequencing errors, occasional N's, and Illumina-like quality profiles. The
-same seed gives the same file bytes as the reference package's generators.
-The paired-end generator is copied when the slice that needs it comes.
+The port's own copy of the generators of fqsqueezer_tpu/utils/corpus.py:
+reads sampled from a random genome, or from one with real-genome-like
+structure (the bench's se_real row), and mate pairs from both ends of
+fragments (write_pe_corpus, the bench's PE row), with sequencing errors,
+occasional N's, and Illumina-like quality profiles. The same seed gives
+the same file bytes as the reference package's generators.
 """
 from __future__ import annotations
 
@@ -51,6 +51,48 @@ def write_fastq_corpus(path: str, n_reads: int, read_len: int,
     lengths = np.full(n_reads, read_len, np.int32)
     ids = [f"@SIM.{i} {i} length={read_len}".encode()[1:] for i in range(n_reads)]
     write_fastq(path, codes.astype(np.uint8), quals, lengths, ids)
+
+
+def _apply_errors(rng, codes, err_rate=0.005, n_rate=0.001):
+    err = rng.random(codes.shape) < err_rate
+    codes = np.where(err, (codes + rng.integers(1, 4, codes.shape)) % 4,
+                     codes).astype(np.int8)
+    return np.where(rng.random(codes.shape) < n_rate, 4, codes).astype(np.int8)
+
+
+def write_pe_corpus(path1: str, path2: str, n_pairs: int, read_len: int,
+                    genome_bases: int, seed: int = 0,
+                    frag_mean: int = 250, frag_sd: int = 30) -> None:
+    """Paired-end corpus: mates from opposite ends of variable-length
+    fragments (mate2 on the reverse strand), Illumina-like qualities."""
+    from ..io.fastq import write_fastq
+
+    genome = make_genome(genome_bases, seed)
+    rng = np.random.default_rng(seed + 1)
+    frag_len = np.maximum(rng.normal(frag_mean, frag_sd, n_pairs).astype(int),
+                          read_len + 10)
+    starts = rng.integers(0, genome_bases - frag_len.max() - 1, n_pairs)
+    idx1 = starts[:, None] + np.arange(read_len)[None, :]
+    r1 = genome[idx1].astype(np.int8)
+    ends = starts + frag_len
+    idx2 = ends[:, None] - 1 - np.arange(read_len)[None, :]
+    r2 = (3 - genome[idx2]).astype(np.int8)      # reverse strand
+    # strand flip: half the pairs swap mate roles
+    flip = rng.random(n_pairs) < 0.5
+    r1[flip], r2[flip] = r2[flip].copy(), r1[flip].copy()
+    r1 = _apply_errors(rng, r1)
+    r2 = _apply_errors(rng, r2)
+    pos = np.arange(read_len)[None, :]
+    mean_q = 37.0 - np.maximum(0, pos - read_len * 0.6) * 0.15
+    q1 = np.clip(rng.normal(mean_q, 3.0, r1.shape), 2, 41)
+    q2 = np.clip(rng.normal(mean_q, 3.0, r2.shape), 2, 41)
+    q1 = np.where(r1 == 4, 2, q1).astype(np.uint8)
+    q2 = np.where(r2 == 4, 2, q2).astype(np.uint8)
+    lengths = np.full(n_pairs, read_len, np.int32)
+    ids1 = [f"SIM.{i} {i}/1".encode() for i in range(n_pairs)]
+    ids2 = [f"SIM.{i} {i}/2".encode() for i in range(n_pairs)]
+    write_fastq(path1, r1.astype(np.uint8), q1, lengths, ids1)
+    write_fastq(path2, r2.astype(np.uint8), q2, lengths, ids2)
 
 
 def make_genome_realistic(n_bases: int, seed: int = 0) -> np.ndarray:

@@ -7,8 +7,11 @@ then the batch itself encoded into one rANS word stream. Decoding it walks
 every path of the scan (SIV, s, b and mixed levels, the prefix ramp, rough
 rescues, repairs, the letters model), and with sorted_reads the prefix
 copy of sorted order (shared prefixes from none to the whole read, a
-duplicate lane, the LCP cap of 255 on reads longer than it). Used by
-chip_smoke.py and the tests that need a card; it runs on any device.
+duplicate lane, the LCP cap of 255 on reads longer than it). A paired-end
+batch (pe_row_inputs) is the anchored 3-row recoding of interleaved pairs
+whose anchors are chosen, not searched: rows with and without an anchor,
+anchors at both ends of read2, an empty rowB, read2 shorter than B. Used
+by chip_smoke.py and the tests that need a card; it runs on any device.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 from .. import pipeline
 from ..ops import rans, tables
 from ..params import Params
-from ..streams import common, dna, meta
+from ..streams import common, dna, meta, pe
 from .corpus import make_genome, sample_reads
 
 # the s and b tables of these batches hold 2^LOG2_BUCKETS rows each, those
@@ -109,24 +112,7 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
                               bmer_log2_buckets=log2b)
     rng = np.random.default_rng(seed)
     R = n_lanes * r_pl
-    # about 8x coverage a batch, so that the batch's k-mers hit the tables
-    genome = make_genome(max(600, R * L // 8), seed)
-    state = dna.dna_state_create(cfg, device)
-
-    def encode(codes, lengths, lcp=None):
-        c = torch.from_numpy(codes).to(device)
-        n = torch.from_numpy(lengths).to(device)
-        kc = torch.where(c >= 4, 0, c)
-        eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch_rg(
-            cfg, state, c, kc, n, lcp=lcp)
-        return (c, n, eff, ctx, sym, act, s_tc, b_tc), (f, cum)
-
-    for k in range(2):
-        (c, n, eff, ctx, sym, act, s_tc, b_tc), _ = encode(
-            *_reads(rng, genome, R, L, seed + 1 + k))
-        state = dna.dna_collect_updates(
-            cfg, state._replace(s_tc=s_tc, b_tc=b_tc), c, eff, n, ctx, sym,
-            act)
+    genome, state, encode = _warm(cfg, rng, seed, R, L, device)
     if grow:
         state = state._replace(
             s_tc=tables.k2_grow(state.s_tc, cfg.smer_log2_buckets),
@@ -140,16 +126,122 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
         _share_prefixes(rng, codes, lengths, r_pl)
         lcp = meta.compute_lcp(torch.from_numpy(codes).to(device),
                                torch.from_numpy(lengths).to(device), n_lanes)
-    (_, lengths, *_), (f, cum) = encode(codes, lengths, lcp)
+    (_, lengths, *_), (f, cum) = encode(codes, lengths, lcp, state=state)
+    plane, init = _word_plane(cfg, f, cum, R * max(L, 2), short, device)
+    return (cfg, state, lengths, plane, init) + ((lcp,) if sorted_reads
+                                                  else ())
+
+
+def _warm(cfg, rng, seed, R, L, device):
+    """(genome, the DNA state after two warm-up batches of R reads through
+    the port's encoder and state update, encode): about 8x coverage a
+    batch, so that a batch's k-mers hit the tables. encode(codes, lengths,
+    lcp=None, anchor_mask=None, state=...) models one batch: ((codes,
+    lengths, eff, ctx, sym, code_active, s_tc, b_tc), (freq, cum))."""
+    genome = make_genome(max(600, R * L // 8), seed)
+
+    def encode(codes, lengths, lcp=None, anchor_mask=None, state=None):
+        c = torch.from_numpy(codes).to(device)
+        n = torch.from_numpy(lengths).to(device)
+        kc = torch.where(c >= 4, 0, c)
+        eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch_rg(
+            cfg, state, c, kc, n, lcp=lcp, anchor_mask=anchor_mask)
+        return (c, n, eff, ctx, sym, act, s_tc, b_tc), (f, cum)
+
+    state = dna.dna_state_create(cfg, device)
+    for k in range(2):
+        (c, n, eff, ctx, sym, act, s_tc, b_tc), _ = encode(
+            *_reads(rng, genome, R, L, seed + 1 + k), state=state)
+        state = dna.dna_collect_updates(
+            cfg, state._replace(s_tc=s_tc, b_tc=b_tc), c, eff, n, ctx, sym,
+            act)
+    return genome, state, encode
+
+
+def _word_plane(cfg, f, cum, cap, short, device):
+    """(int32 [cap] word plane, init states) of one encoded batch; short
+    cuts the plane to half the words the batch needs."""
     words, n_words, init = rans.rans_encode(
-        common.to_grid(f, n_lanes).to(torch.int32).contiguous(),
-        common.to_grid(cum, n_lanes).to(torch.int32).contiguous(),
+        common.to_grid(f, cfg.n_lanes).to(torch.int32).contiguous(),
+        common.to_grid(cum, cfg.n_lanes).to(torch.int32).contiguous(),
         cfg.scale_bits)
     n_words = int(n_words)
-    cap = max(1, n_words // 2) if short else R * max(L, 2)
+    cap = max(1, n_words // 2) if short else cap
     plane = torch.zeros((cap,), dtype=torch.int32, device=device)
     keep = min(cap, n_words)
     plane[:keep] = words[:keep]
-    return (cfg, state, lengths, plane, init) + ((lcp,) if sorted_reads
-                                                  else ())
+    return plane, init
+
+
+# the anchors of pe_row_inputs' pairs, one a pair in turn: none (rowB
+# empty), at read2's start, at its end, anywhere, and on a read2 shorter
+# than B (the anchor's span is the whole read)
+PE_KINDS = ("none", "start", "end", "random", "short")
+
+
+def pe_row_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device):
+    """(cfg, state, rows, words int32 [W], init states [N] int64, bases) of
+    one encoded paired-end batch: n_lanes * r_pl interleaved pairs (r_pl pairs
+    a lane), mates from one small genome, each pair's anchor of the kind
+    PE_KINDS gives it (its span free of N), modeled as the anchored 3-row
+    recoding (pe.expand_pe_rows, the spans left uncoded) and encoded into
+    one word stream. rows: the dna_decode_row arguments of each expanded
+    row, in decode order — (length [N], lcp [N] or None, src [N, L] or
+    None), an anchored row's lcp min(B, length) on its anchored lanes and
+    its src the anchor's bases, as dna_decode_batch gives them; bases: the
+    rows' encoded base planes, [N, L] each, what their decode must give."""
+    cfg = dataclasses.replace(bench_dna_config(n_lanes),
+                              smer_log2_buckets=LOG2_BUCKETS,
+                              bmer_log2_buckets=LOG2_BUCKETS)
+    B = cfg.bmer_len
+    rng = np.random.default_rng(seed)
+    P = n_lanes * r_pl
+    genome, state, encode = _warm(cfg, rng, seed, 2 * P, L, device)
+    codes, _ = sample_reads(genome, 2 * P, L, seed + 3, err_rate=0.01,
+                            n_rate=0.005)
+    codes = codes.astype(np.int64)
+    lengths = np.full(2 * P, L, np.int64)
+    kinds = np.resize(np.arange(len(PE_KINDS)), P)
+    rng.shuffle(kinds)
+    a = np.zeros(P, np.int64)
+    has = kinds != 0
+    for q in range(P):
+        kind = PE_KINDS[kinds[q]]
+        if kind == "short":
+            lengths[2 * q + 1] = int(rng.integers(1, B))
+        elif kind == "end":
+            a[q] = L - B
+        elif kind == "random":
+            a[q] = int(rng.integers(0, L - B + 1))
+        span = slice(a[q], a[q] + B)
+        codes[2 * q + 1, span] = np.where(codes[2 * q + 1, span] >= 4, 0,
+                                          codes[2 * q + 1, span])
+    tail = np.arange(L)[None, :] >= lengths[:, None]
+    codes[tail] = 0
+    a_t = torch.from_numpy(a).to(device)
+    has_t = torch.from_numpy(has).to(device)
+    codes3, lengths3 = pe.expand_pe_rows(
+        torch.from_numpy(codes).to(device),
+        torch.from_numpy(lengths).to(device), a_t, has_t, B)
+    mask3 = pe.expand_lengths_mask(codes3.shape[0], L, has_t, B)
+    _, (f, cum) = encode(codes3.cpu().numpy(), lengths3.cpu().numpy(),
+                         anchor_mask=mask3, state=state)
+    words, init = _word_plane(cfg, f, cum, codes3.shape[0] * max(L, 2),
+                              False, device)
+    n_rows = 3 * r_pl
+    grid = lambda t: common.to_read_grid(t, n_lanes)          # [N, rows]
+    len_g = grid(lengths3)
+    anchored = grid(torch.stack([torch.zeros_like(has_t), has_t, has_t],
+                                dim=1).reshape(-1))
+    code_g = codes3.reshape(n_lanes, n_rows, L)
+    rows = []
+    for rd in range(n_rows):
+        length = len_g[:, rd].contiguous()
+        if rd % 3 == 0:
+            rows.append((length, None, None))
+        else:
+            # an expanded row's own first B bases are its anchor's
+            lcp = torch.where(anchored[:, rd], torch.clamp(length, max=B), 0)
+            rows.append((length, lcp, code_g[:, rd].contiguous()))
+    return cfg, state, rows, words, init, list(code_g.unbind(1))
 

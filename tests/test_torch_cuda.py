@@ -227,6 +227,30 @@ def test_k2_with_lcp_equals_plain_row_scan(N, r_pl, L):
     assert len(check_rows(cfg, state, lengths, words, init, L, lcp)) == r_pl
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,r_pl,L", [(8, 5, 40), (8, 5, 104),
+                                      (1024, 2, 104)])
+def test_k2_on_anchored_rows_equals_plain_row_scan(N, r_pl, L):
+    """Paired-end: rowA and rowB copy their anchor's B bases (rows with
+    and without an anchor, anchors at read2's start and end, empty rowBs,
+    read2 shorter than B) through the prefix copy; every row exactly
+    against the plain row step, and the decode gives the encoded rows."""
+    from fqsqueezer_tpu_torch.tools.k2_compare import check_spec_rows
+    from fqsqueezer_tpu_torch.utils.dna_batches import pe_row_inputs
+
+    _card()
+    cfg, state, specs, words, init, bases = pe_row_inputs(
+        N + L + 2, N, r_pl, L, "cuda")
+    rows = check_spec_rows(cfg, state, specs, words, init, L)
+    assert len(rows) == 3 * r_pl
+    # some anchored lanes copy their whole row (read2 shorter than B, or
+    # an anchor at read2's end: rowA is the anchor alone)
+    assert any(lcp is not None and bool(((lcp > 0) & (lcp == length)).any())
+               for length, lcp, _ in specs)
+    for (_, plain), want in zip(rows, bases):
+        assert torch.equal(plain[0][0], want)
+
+
 def _update_cases(cfg, tc, kcodes, length, k: int, log2_base: int) -> dict:
     """How often each hard case of the row update (tables.k2_update) occurs
     among one row's width-k insert events (dna.sb_canon_events of its kc

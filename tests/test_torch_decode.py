@@ -312,12 +312,14 @@ def test_decode_scans_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         dna.dna_decode_batch(dna.DnaConfig(), None, torch.zeros(8), None,
                              None, 8)
-    with pytest.raises(NotImplementedError, match="paired-end"):
+    # no writer stores an LCP stride but 1 (single-end) and 2 (paired-end)
+    with pytest.raises(NotImplementedError, match="stride 3"):
         dna.dna_decode_batch(bench_dna_config(8), None, torch.zeros(8),
-                             None, None, 8, lcp=torch.zeros(8), lcp_stride=2)
-    with pytest.raises(NotImplementedError, match="paired-end"):
-        meta.compute_lcp(torch.zeros((8, 8), dtype=torch.int64),
-                         torch.zeros(8), 4, stride=2)
+                             None, None, 8, lcp=torch.zeros(8), lcp_stride=3)
+    with pytest.raises(NotImplementedError, match="dna_pe_pos_ctx"):
+        dna.dna_decode_batch(dataclasses.replace(
+            bench_dna_config(8), pe_log2_buckets=14, pe_pos_ctx=True), None,
+            torch.zeros(8), None, None, 8)
 
 
 @pytest.mark.parametrize("knob,value,named", [

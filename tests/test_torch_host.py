@@ -404,6 +404,69 @@ def test_write_fastq_corpus_realistic_equals_reference(tmp_path):
         assert g.read() == f.read()
 
 
+def test_write_pe_corpus_equals_reference(tmp_path):
+    """The bench's PE generator: both mate files byte for byte."""
+    paths = {}
+    for tag, mod in (("j", jcorpus), ("t", tcorpus)):
+        paths[tag] = [str(tmp_path / f"{tag}{k}.fastq") for k in (1, 2)]
+        mod.write_pe_corpus(*paths[tag], 200, 60, 30_000, seed=42)
+    for j, t in zip(paths["j"], paths["t"]):
+        with open(j, "rb") as f, open(t, "rb") as g:
+            assert g.read() == f.read()
+
+
+def _pe_mates(tmp_path):
+    """Two ragged mate files (the second's reads longer)."""
+    m1, m2 = str(tmp_path / "m1.fastq"), str(tmp_path / "m2.fastq")
+    for path, n, seed in ((m1, 40, 1), (m2, 90, 2)):
+        rng = np.random.default_rng(seed)
+        with open(path, "w") as f:
+            for i in range(37):
+                k = int(rng.integers(1, n))
+                f.write(f"@p{i} {seed}\n{''.join(rng.choice(list('ACGTN'), k))}"
+                        f"\n+\n{'I' * k}\n")
+    return m1, m2
+
+
+def test_interleave_pe_equals_reference(tmp_path):
+    m1, m2 = _pe_mates(tmp_path)
+    got = pipeline.interleave_pe(tfastq.read_fastq(m1),
+                                 tfastq.read_fastq(m2))
+    want = jpipeline().interleave_pe(jfastq.read_fastq(m1),
+                                     jfastq.read_fastq(m2))
+    assert got.n_reads == 74 and _same_data(got, want)
+    # mates of 37 and 74 reads: the reference's error, word for word
+    with pytest.raises(ValueError) as e:
+        pipeline.interleave_pe(tfastq.read_fastq(m1), tfastq.concat_fastq(
+            [tfastq.read_fastq(m2)] * 2))
+    with pytest.raises(ValueError) as f:
+        jpipeline().interleave_pe(jfastq.read_fastq(m1), jfastq.concat_fastq(
+            [jfastq.read_fastq(m2)] * 2))
+    assert str(e.value) == str(f.value) == "PE mate counts differ: 37 vs 74"
+
+
+@pytest.mark.parametrize("chunk", [300, 4096, 1 << 20])
+def test_stream_interleaved_pe_equals_reference(tmp_path, chunk):
+    """The port reads each mate in chunks of half the size the reference
+    reads them in: its chunks at 2 * chunk are the reference's at chunk,
+    and at any size its stream holds the reference's pairs."""
+    m1, m2 = _pe_mates(tmp_path)
+    want = list(jpipeline()._stream_interleaved_pe((m1, m2), chunk))
+    got = list(pipeline._stream_interleaved_pe((m1, m2), 2 * chunk))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert _same_data(g, w)
+    same = list(pipeline._stream_interleaved_pe((m1, m2), chunk))
+    assert _same_data(tfastq.concat_fastq(same),
+                      jfastq.concat_fastq(want))
+
+
+def jpipeline():
+    from fqsqueezer_tpu import pipeline as jp
+
+    return jp
+
+
 def test_bench_pairs_summary_counts_medians_quartiles_and_wins():
     """bench_pairs' summary line: each side's median and quartiles of
     compress and decode reads/s, and the pairs the change won; a tie wins

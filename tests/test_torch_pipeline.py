@@ -252,15 +252,24 @@ def _header_only_archive(path, **fields):
 
 def _decodes_to_empty_fastq(arc, out):
     """A header-only archive of a ported mode decodes, through the CLI and
-    through pipeline.decompress_file, to an empty FASTQ."""
-    assert pipeline.unported_archive(
-        tparams.Params.load_params(_header_blob(arc))) == []
-    assert cli.main(["d", "--device", "cpu", "-out", out, arc]) == 0
-    assert os.path.getsize(out) == 0
-    os.remove(out)
-    assert pipeline.decompress_file(tparams.Params(), arc, out,
-                                    device="cpu") == {"n_reads": 0}
-    assert os.path.getsize(out) == 0
+    through pipeline.decompress_file, to an empty FASTQ (a paired-end
+    archive to two, the second at -out2)."""
+    p = tparams.Params.load_params(_header_blob(arc))
+    assert pipeline.unported_archive(p) == []
+    pe = p.dna_mode in (tparams.DnaMode.PE_ORIGINAL,
+                        tparams.DnaMode.PE_SORTED)
+    out2 = out + ".2"
+    for decode in (lambda: cli.main(["d", "--device", "cpu", "-out", out,
+                                     "-out2", out2, arc]),
+                   lambda: pipeline.decompress_file(
+                       tparams.Params(), arc, out, out2, device="cpu")):
+        assert decode() in (0, {"n_reads": 0})
+        assert os.path.getsize(out) == 0
+        assert os.path.exists(out2) == pe
+        if pe:
+            assert os.path.getsize(out2) == 0
+            os.remove(out2)
+        os.remove(out)
 
 
 def _header_blob(arc):
@@ -277,7 +286,7 @@ def _header_blob(arc):
 _D_CASES = [
     ({"quality_mode": jparams.QualityMode.LOSSLESS}, None),
     ({"dna_mode": jparams.DnaMode.SE_SORTED}, None),
-    ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, "paired-end"),
+    ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, None),
     ({"id_mode": jparams.IdMode.INSTRUMENT}, None),
     ({"mesh_dp": 2}, "mesh"),
     ({"dna_row_global": 0}, "row-global"),
@@ -314,7 +323,7 @@ def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
 def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     """No visible card and no --device (in a fresh process, which shows
     the exit code and that no traceback is printed); a file that is not
-    an archive; an archive of a mode the port lacks (paired-end); a
+    an archive; an archive of a mode the port lacks (a mesh); a
     missing file. Each is exit 1 with one line, and writes no output
     file."""
     arc = _header_only_archive(tmp_path / "ok.fqst")
@@ -328,10 +337,9 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     assert "no CUDA device" in lines[0]
     bad = tmp_path / "bad.fqst"
     bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
-    pe_arc = _header_only_archive(
-        tmp_path / "pe.fqst", dna_mode=jparams.DnaMode.PE_ORIGINAL)
+    mesh_arc = _header_only_archive(tmp_path / "mesh.fqst", mesh_dp=2)
     for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
-                       (pe_arc, "paired-end"),
+                       (mesh_arc, "mesh"),
                        (str(tmp_path / "none.fqst"), "none.fqst")):
         with pytest.raises(SystemExit) as e:
             cli.main(["d", "--device", "cpu", "-out", out, path])
@@ -345,8 +353,7 @@ _SE = ["-s", "-om", "o", "-qm", "8", "-im", "n"]
 
 # `what` None: a mode this package has (the cases keep their ids)
 _E_CASES = [
-    (["e", "-p", "-om", "o", "-qm", "8", "-im", "n", "a.fq", "b.fq"],
-     "paired-end"),
+    (["e", "-p", "-om", "o", "-qm", "8", "-im", "n", "a.fq", "b.fq"], None),
     (["e", "-s", "-om", "s", "-qm", "8", "-im", "n", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "o", "-im", "n", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "4", "-im", "n", "a.fq"], None),
@@ -372,9 +379,10 @@ def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
 
         p = cli.parse_args(argv)
         assert pipeline.unported_modes(p) == []
-        # the default -gs 3100 sizes its tables at 2^26 buckets: keep the
-        # decoder's state small, its modes as they are
-        p.smer_log2_buckets = p.bmer_log2_buckets = 8
+        # the default -gs 3100 sizes its tables at 2^26 buckets (the pair
+        # table at 2^24): keep the decoder's state small, its modes as
+        # they are
+        p.smer_log2_buckets = p.bmer_log2_buckets = p.pe_log2_buckets = 8
         arc = str(tmp_path / "a.fqst")
         ArchiveWriter(arc, p.store_params()).close()
         _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
@@ -389,23 +397,28 @@ def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
 
 def test_cli_refuses_streamed_input(tmp_path):
     """Of the inputs above the streaming threshold the CLI still refuses
-    paired-end ones (exit 1, one line, before it reads a byte); eligible
-    single-end ones stream (tests/test_torch_sorted.py)."""
+    those of a mode the port lacks (a mesh: exit 1, one line, before it
+    reads a byte); eligible single-end (tests/test_torch_sorted.py) and
+    paired-end original-order ones stream, paired-end sorted order loads
+    its mates, as in the reference CLI."""
     big = []
     for name in ("big_1.fastq", "big_2.fastq"):
         with open(tmp_path / name, "wb") as f:
             f.truncate((256 << 20) + 1)    # sparse: no data written
         big.append(str(tmp_path / name))
     res = subprocess.run(
-        [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "e", "-p", "-om",
-         "o", "-qm", "n", "-im", "n", "--device", "cpu", "-out",
-         str(tmp_path / "o.fqst"), *big],
+        [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "e", *_SE, "-dp",
+         "2", "--device", "cpu", "-out", str(tmp_path / "o.fqst"), big[0]],
         cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 1
     lines = res.stderr.strip().splitlines()
-    assert len(lines) == 1 and "paired-end" in lines[0], res.stderr
+    assert len(lines) == 1 and "mesh" in lines[0], res.stderr
     assert cli.stream_chunk_bytes(cli.parse_args(["e", *_SE, big[0]])) \
         == cli.STREAM_CHUNK_BYTES
+    assert cli.stream_chunk_bytes(cli.parse_args(
+        ["e", "-p", "-om", "o", *big])) == cli.STREAM_CHUNK_BYTES
+    assert cli.stream_chunk_bytes(cli.parse_args(
+        ["e", "-p", "-om", "s", "-im", "n", *big])) == 0
     assert not os.path.exists(tmp_path / "o.fqst")
 
 

@@ -78,9 +78,13 @@ def test_compute_lcp_matches_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert int(got.max()) == 255
     assert (got.numpy()[::6] == 0).all()
-    with pytest.raises(NotImplementedError):
-        meta.compute_lcp(torch.from_numpy(codes.astype(np.int64)),
-                         torch.from_numpy(lengths), N, stride=2)
+    # paired-end's stride: read1 against the previous read1, mates 2 get 0
+    got2 = meta.compute_lcp(torch.from_numpy(codes.astype(np.int64)),
+                            torch.from_numpy(lengths), N, stride=2)
+    want2 = jmeta.compute_lcp(jnp.asarray(codes, jnp.int32),
+                              jnp.asarray(lengths), N, 2)
+    np.testing.assert_array_equal(got2.numpy(), np.asarray(want2))
+    assert (got2.numpy()[1::2] == 0).all() and int(got2.max()) == 255
 
 
 def test_meta_modeling_and_decode_with_lcp():
@@ -259,10 +263,12 @@ def test_dna_decode_state_with_lcp(dna_batch, dna_decoded, key):
 
 
 def test_dna_decode_refuses_paired_end_lcp_stride():
-    with pytest.raises(NotImplementedError, match="stride 2"):
+    """Strides 1 (single-end) and 2 (paired-end) are decoded
+    (tests/test_torch_pe.py); any other is refused."""
+    with pytest.raises(NotImplementedError, match="stride 3"):
         dna.dna_decode_batch(bench_dna_config(N), None, torch.zeros(N),
                              None, None, 8, lcp=torch.zeros(N),
-                             lcp_stride=2)
+                             lcp_stride=3)
 
 
 # --- archives --------------------------------------------------------------
