@@ -71,7 +71,31 @@ Phases, one line each; any failure raises and the script exits non-zero:
                9) through the CLI with -qm o -im o -gs 1: the archive's
                sha256 must be the reference writer's, and its decode the
                input's bytes (BYTE-EXACT).
-  10. k3      — kernel K3 (the quality decode scan) against its plain torch
+ 10. resume  — group snapshots and resume (RESUME_SE: the 20k corpus at
+               -s -om o -qm 8 -im i -gs 5, 2048 lanes; RESUME_PE: 10,000
+               pairs at -p -om o -qm 8 -im i -gs 5, 1024 lanes; a group
+               budget that gives several groups): compress without and with
+               snapshot_prefix (the archives equal, and the reference
+               writer's sha256 and group count), the group-1 snapshot's
+               arrays held to the reference's by sha256, then one
+               load_state and two decodes from group 1 (start_group,
+               init_state), each the tail of the full decode, and the
+               loaded state's arrays unchanged after them. Prints the
+               snapshot's size, the compress time with and without
+               snapshots, save_state's time and the tails' decode times.
+ 11. mesh    — the committed -gs 5 mesh fixtures (MESH_FIXTURES: an SE
+               archive of the reference's 4x2 mesh writer at -qm 8 -im o, a
+               PE one of its 2x1 writer at -qm n -im n with the anchors;
+               16 lanes, so that each shard decodes two read rows or more a
+               batch) through the CLI's d, which routes a mesh header to
+               the sequential mesh decode: each output's sha256 held to the
+               reference's sequential decoder's, K2 launched once a read
+               row of each dp shard (dp x the rows a shard walks, expanded
+               rows with the anchors) and K3 once a shard and batch with a
+               quality stream. Prints the decode's wall time and reads/s
+               (the fixtures are small) and the copy of the K2 tables each
+               shard decodes against, timed alone.
+ 12. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
@@ -84,7 +108,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                rows, timed beside its chain floor). Then on
                that batch K3 and the plain scan timed, the chain floor (K3
                on 32 lanes) and the bound.
- 11. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 13. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -112,7 +136,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound; on the PE batch also the row-end
                PE step (torch ops between K2's launches).
- 12. decode  — the 20k archive through the port's CLI `d` with no
+ 14. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -134,7 +158,12 @@ pipeline.compress_pe's archive of write_pe_corpus(path1, path2, n, 100,
 4_600_000, seed=42) at the Params of the PE flags (PE_CLI, PE_100K); the
 decode digests are sha256 sums of fqsqueezer_tpu.pipeline.
 decompress_file's FASTQ output (both mates' files for PE) for those
-archives.
+archives. RESUME_SE and RESUME_PE come from fqsqueezer_tpu.pipeline.
+compress_file / compress_pe with snapshot_prefix at the row's budget
+(tests/test_torch_checkpoint.py::test_chip_smoke_resume_digests), the
+MESH_FIXTURES digests from fqsqueezer_tpu.parallel.mesh_pipeline.
+decompress_file_mesh_seq (tests/test_torch_mesh.py::
+test_reference_regenerates_fixture_and_digests).
 All were computed with the reference package on a CPU.
 """
 from __future__ import annotations
@@ -239,6 +268,69 @@ REF_PE_BYTES = 1_386_065   # bench.py: the C++ reference's PE row archive
 # 100_000, seed=9), e -s -om o -qm o -im o -gs 1
 VERIFY = (("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "1"),
           "d6b6894ec34ad38bb238629a2d83b06a3598c9bf1b5cdf622fb053fe02f228e0")
+# checkpoint and resume: (reads, flags, group budget in bytes, the
+# reference writer's archive sha256 at that budget, its group count, and
+# the sha256 of each array of its group-1 snapshot in the reference's
+# dtype) of the 20k bench corpus and of 10k bench pairs
+RESUME_SE = (
+    20_000, ("-s", "-om", "o", "-qm", "8", "-im", "i", "-gs", "5"),
+    4 << 20,
+    "3427cec6504018f3e08df2e6df51b354cb1cbed706ee2af7b2ef923b8c9a2715",
+    3, {
+        "dna_b_tc":
+        "7ee1f015f3ab0ea237c6ef3724ef5f9b6afeff2d94348aac397d7533fa302601",
+        "dna_model":
+        "f36245e1b3fb61568f44acd7fb3131362314f118456f36c8227954290916f1a6",
+        "dna_s_tc":
+        "102154153121356933cd0410ce0f9c9b5607e363d96edfc1458e15669f1d4311",
+        "dna_siv":
+        "b7389c492019a10fc24731fb6dd0ae023b8d35614744c3b84e15f7dc40f486e9",
+        "id":
+        "168ea5ef5edda61438a20c77c33f24e2d25536568e6d6e468ef94115d66ae72d",
+        "meta":
+        "605c9a8be2da54e0e88ce9c8980d5305cf80487aea513ae25e39b41136521bdd",
+        "qual":
+        "8e2ded3cf13f7f908940a24cd9d2d4939b1a2fb3c757d14292ff9a4f7b84c5c4"})
+RESUME_PE = (
+    10_000, ("-p", "-om", "o", "-qm", "8", "-im", "i", "-gs", "5"),
+    4 << 20,
+    "708b3d6692773b4b0f7a8c83cd341fc53217753813cd00477e738d8365733240",
+    5, {
+        "dna_b_tc":
+        "e635c6ae3935257ebb87051bd03ffba2884b870cabff702af80a16b8e72e7a19",
+        "dna_model":
+        "491ae5c0337df28cfd9c41f0fcefb9fa36a918068fb89b7eb31f53f3d8e96bf4",
+        "dna_pe_0":
+        "bbc546370ef44aa0af4b73af1aff1da7712fc31fbcf1f7ae90dcebd9c6aa8ffd",
+        "dna_pe_1":
+        "753c0e492951c5c973e55f55d82df6065ed02913948fbd42ed922304a35222df",
+        "dna_pe_2":
+        "b47ee45f00b042ea98bfaddd3ea446d9b63331e4c2332c941e25e9f23293efde",
+        "dna_pe_3":
+        "a17a34e5c817aa79d0727a59012b0a8da91f597678ca3ae53e14cac8d1e40d08",
+        "dna_pe_4":
+        "0d5eaa1611d71e781938d5b3f325a95152fb0faf4b540de10eb0b4d1ab178222",
+        "dna_s_tc":
+        "54ec3ad7470effa88f9a57973925601180f422703d1f64e70424087d96658f44",
+        "dna_siv":
+        "a191fed9df1d6b9ac09f64fc522c648505ac12def4351dae75cb7d813951e5bb",
+        "id":
+        "168ea5ef5edda61438a20c77c33f24e2d25536568e6d6e468ef94115d66ae72d",
+        "meta":
+        "605c9a8be2da54e0e88ce9c8980d5305cf80487aea513ae25e39b41136521bdd",
+        "qual":
+        "baf560a4288da123bc6d56542069a3b2038eb0e658bdf32ea0b86bd4bcb34972"})
+# the committed mesh fixtures [mesh] decodes (fqsqueezer_tpu_torch/
+# testdata/mesh, written by the reference's mesh writer at -gs 5): name ->
+# the sha256 of the reference's sequential decode of each output file
+MESH_FIXTURES = (
+    ("gs5_se_dp4tp2",
+     ("c578fc179faec1e7da466d40d26ea5998f198379b0a0d6121158544514c99e9f",)),
+    ("gs5_pe_dp2tp1",
+     ("606abcfef96c1adbc486c4b2b61d309080c0dbab78c0d602b4cdb6fe99da0d90",
+      "47fb693487e5e1270b3ae23f4b089c1e0ba08bc131e7dcb53c4cbd76a5c7f139")),
+)
+MESH_DIR = os.path.join(REPO, "fqsqueezer_tpu_torch", "testdata", "mesh")
 # (N, r_pl, L, grown tables, short word stream) of the K2 checks on encoded
 # random batches
 K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
@@ -866,6 +958,180 @@ def phase_pe():
     return k1, k2
 
 
+def _same_tail(tail, full):
+    """Whether the FASTQ file `tail` holds the last records of `full`."""
+    with open(tail, "rb") as f, open(full, "rb") as g:
+        t = f.read()
+        return bool(t) and g.read().endswith(t)
+
+
+def _array_shas(arrays):
+    return {k: hashlib.sha256(v.tobytes()).hexdigest()
+            for k, v in sorted(arrays.items())}
+
+
+def phase_resume():
+    """Group snapshots and resume, SE and PE: compress with and without
+    snapshot_prefix (the archives equal, and the reference writer's), the
+    group-1 snapshot's arrays held to the reference's, then one load_state
+    and two decodes from group 1, each tail the full decode's tail, and the
+    loaded state's arrays unchanged after them (K2 updates the tables it
+    decodes against in place: the decoder must copy them)."""
+    import numpy as np
+    import torch
+
+    from fqsqueezer_tpu_torch import checkpoint, cli, pipeline
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed
+
+    for tag, row in (("se", RESUME_SE), ("pe", RESUME_PE)):
+        n, flags, group_mem, want_arc, want_groups, want_arrays = row
+        paths = (list(_pe_corpus(n)) if "-p" in flags
+                 else [_corpus(n)[0]])
+        arcs = [os.path.join(WORK, f"resume_{tag}_{k}.fqst") for k in (0, 1)]
+        prefix = os.path.join(WORK, f"resume_{tag}")
+
+        def compress(arc, snap):
+            p = cli.parse_args(["e", *flags, "-v", "0", *paths])
+            if len(paths) == 2:
+                return pipeline.compress_pe(p, *paths, arc,
+                                            group_mem_bytes=group_mem,
+                                            snapshot_prefix=snap)
+            return pipeline.compress_file(p, paths[0], arc,
+                                          group_mem_bytes=group_mem,
+                                          snapshot_prefix=snap)
+
+        compress(arcs[0], None)                    # warm-up
+        _, plain_dt = timed(lambda: compress(arcs[0], None))
+        _, snap_dt = timed(lambda: compress(arcs[1], prefix))
+        groups = _n_groups(arcs[1], cli.parse_args(
+            ["e", *flags, *paths]).n_lanes)
+        sha = _sha256(arcs[1])
+        if sha != _sha256(arcs[0]) or sha != want_arc or groups != want_groups:
+            raise RuntimeError(f"resume {tag}: the archive with snapshots "
+                               f"(sha256 {sha}, {groups} groups) differs "
+                               f"from the one without or from the "
+                               f"reference's ({want_arc}, {want_groups})")
+        snap = checkpoint.snapshot_path(prefix, 1)
+        with np.load(snap) as z:
+            got = _array_shas(dict(z.items()))
+        if got != want_arrays:
+            bad = sorted(set(got) ^ set(want_arrays)
+                         | {k for k in got if got[k] != want_arrays.get(k)})
+            raise RuntimeError(f"resume {tag}: group-1 snapshot arrays {bad} "
+                               f"differ from the reference writer's")
+        outs = [os.path.join(WORK, f"resume_{tag}_full_{k}.fastq")
+                for k in (1, 2)][:len(paths)]
+        pipeline.decompress_file(Params(), arcs[1], *outs)
+        state = checkpoint.load_state(snap)
+        t0 = time.time()
+        checkpoint.save_state(state, os.path.join(WORK, "resave.npz"))
+        save_dt = time.time() - t0
+        tails = []
+        for rep in range(2):
+            tail = [os.path.join(WORK, f"resume_{tag}_tail{rep}_{k}.fastq")
+                    for k in (1, 2)][:len(paths)]
+            _reset_launches()
+            st, dt = timed(lambda: pipeline.decompress_file(
+                Params(), arcs[1], *tail, start_group=1, init_state=state))
+            k3, k2 = _launch_counts()
+            if not all(_same_tail(t, f) for t, f in zip(tail, outs)):
+                raise RuntimeError(f"resume {tag}: decode {rep + 1} from "
+                                   f"group 1 is not the full decode's tail")
+            tails.append((st["n_reads"], dt, k2, k3))
+        after = _array_shas(checkpoint.state_to_arrays(state))
+        if after != want_arrays:
+            raise RuntimeError(f"resume {tag}: the loaded state changed "
+                               f"under the decodes")
+        torch.cuda.synchronize()
+        print(f"[resume] {tag} {n} {'pairs' if tag == 'pe' else 'reads'} "
+              f"`{' '.join(flags)}`, group budget {group_mem} B: {groups} "
+              f"groups; archive with snapshots == without == reference "
+              f"(sha256); group-1 snapshot's {len(got)} arrays == "
+              f"reference's; snapshot {os.path.getsize(snap)} B, compress "
+              f"{plain_dt:.3f} s without snapshots and {snap_dt:.3f} s with "
+              f"({(snap_dt - plain_dt) / groups:.3f} s a group), "
+              f"save_state {save_dt:.3f} s; two decodes from group 1 of one "
+              f"load_state: {tails[0][0]} reads each, the full decode's "
+              f"tail, {tails[0][1]:.3f} s and {tails[1][1]:.3f} s, K2 "
+              f"launches {tails[0][2]} and {tails[1][2]}; the loaded "
+              f"state's arrays unchanged")
+
+
+def _mesh_rows(arc):
+    """(batches, K2 launches the sequential mesh decode makes: dp x the
+    read rows a shard walks, expanded rows with the PE anchors, summed over
+    the batches, K3 launches: dp a batch with a quality stream, reads)."""
+    from fqsqueezer_tpu_torch import pipeline
+    from fqsqueezer_tpu_torch.archive import ArchiveReader
+    from fqsqueezer_tpu_torch.params import Params
+
+    rd = ArchiveReader(arc)
+    try:
+        p = Params.load_params(rd.header_blob)
+        dcfg, qcfg, mcfg, _ = pipeline.make_configs(p)
+        dp, N = p.mesh_dp, p.n_lanes
+        align = dp * N * mcfg.lcp_stride
+        first = pipeline._first_batch(N, p.max_batch_reads, 0, align)
+        batches = rows = reads = 0
+        while (g := rd.read_group(N)) is not None:
+            for take, _, _ in g[1]:
+                batches += 1
+                reads += take
+                r_shard = pipeline.canonical_padded(
+                    take, first, p.max_batch_reads, align) // dp
+                if dcfg.pe_log2_buckets > 0:
+                    r_shard = 3 * (r_shard // 2)
+                rows += dp * (r_shard // N)
+    finally:
+        rd.close()
+    return p, batches, rows, dp * batches * (qcfg is not None), reads
+
+
+def phase_mesh():
+    """The committed -gs 5 mesh fixtures through the CLI's d (a mesh header
+    routes to the sequential mesh decode): each output's sha256 held to
+    the reference's sequential decoder's, K2 launched once a read row of
+    each dp shard and K3 once a shard and batch. Also the copy of the K2
+    tables each shard decodes against, timed alone."""
+    import torch
+
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed
+
+    for name, want in MESH_FIXTURES:
+        arc = os.path.join(MESH_DIR, f"{name}.fqst")
+        outs = [os.path.join(WORK, f"{name}_{k}.fastq")
+                for k in (1, 2)][:len(want)]
+        out_args = ["-out", outs[0]] + (["-out2", outs[1]]
+                                        if len(outs) == 2 else [])
+        cli.main(["d", "-v", "0", *out_args, arc])      # warm-up
+        _reset_launches()
+        rc, dt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
+        k3, k2 = _launch_counts()
+        p, batches, rows, k3_want, reads = _mesh_rows(arc)
+        shas = [_sha256(o) for o in outs]
+        if rc != 0 or shas != list(want):
+            raise RuntimeError(f"mesh {name}: the CLI's d returned {rc}, "
+                               f"sha256 {shas} != the reference's "
+                               f"{list(want)}")
+        if k2 != rows or k3 != k3_want:
+            raise RuntimeError(f"mesh {name}: K2 launched {k2} times for "
+                               f"{rows} shard rows, K3 {k3} (want "
+                               f"{k3_want})")
+        dcfg = pipeline.make_configs(p)[0]
+        st = pipeline.state_create(dcfg, None, None, "cuda").dna
+        clone_ms = _ms(lambda: (st.s_tc.clone(), st.b_tc.clone()), 20)
+        print(f"[mesh] {name} ({p.mesh_dp}x{p.mesh_tp} mesh, {p.n_lanes} "
+              f"lanes, {reads} reads in {batches} batches, a small "
+              f"fixture): the CLI's d {dt:.3f} s, {reads / dt:.1f} reads/s, "
+              f"sha256 == the reference's sequential decode; K2 launches "
+              f"{k2} (dp x shard rows, {k2 / batches:.1f} a batch), K3 "
+              f"{k3}; copy of the 2 x {tuple(st.s_tc.shape)} K2 tables "
+              f"{clone_ms:.4f} ms a shard and batch")
+    torch.cuda.synchronize()
+
+
 def phase_verify():
     """The Tier-1 verify recipe through the port's CLI on the card."""
     from fqsqueezer_tpu_torch import cli
@@ -1214,6 +1480,8 @@ def main() -> int:
     sorted_k1, sorted_k3, sorted_k2 = phase_sorted()
     pe_k1, pe_k2 = phase_pe()
     phase_verify()
+    phase_resume()
+    phase_mesh()
     k3 = phase_k3()
     k2 = phase_k2()
     k3_launches[8], k2_launches = phase_decode()

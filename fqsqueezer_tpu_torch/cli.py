@@ -34,8 +34,10 @@ come from the archive's header): `e -gs 5 -out X.fqst in.fastq` runs the
 defaults, -s -om s -qm 8 -im i. As in the reference CLI, an input above
 256 MiB is block-streamed in 256 MiB chunks when its mode streams
 (original order, or SE sorted order with -im n); sorted order with ids,
-and PE sorted order, load the whole input. Multi-chip meshes (-dp/-tp)
-exit 1 with one line naming them, as does a file that is not an archive.
+and PE sorted order, load the whole input. `d` of an archive written on
+a dp x tp mesh (the reference CLI's -dp/-tp) decodes it on one device
+(parallel.mesh_pipeline); writing one (`e -dp/-tp`) exits 1 with one line
+naming the mesh, as does a file that is not an archive.
 The work runs on the first CUDA card; a machine without a visible card
 exits 1 with one line unless `--device cpu` asks for the CPU.
 """
@@ -190,6 +192,19 @@ def stream_chunk_bytes(p: Params) -> int:
     return STREAM_CHUNK_BYTES if streams and total > STREAM_THRESHOLD else 0
 
 
+def _mesh_archive(p: Params, path: str) -> bool:
+    """Whether the archive's header names a dp x tp mesh (the reference
+    CLI's route to mesh_pipeline.decompress_file_mesh)."""
+    from .archive import ArchiveReader
+
+    rd = ArchiveReader(path)
+    try:
+        hdr = Params.load_params(rd.header_blob, base=p)
+    finally:
+        rd.close()
+    return hdr.mesh_dp > 1 or hdr.mesh_tp > 1
+
+
 def _not_ported(what: str):
     return SystemExit(f"error: {what} not yet ported to fqsqueezer_tpu_torch")
 
@@ -236,8 +251,13 @@ def main(argv=None) -> int:
                   f"bits/base: {stats['bits_per_base']:.4f}")
     else:
         try:
-            stats = pipeline.decompress_file(p, p.file_names[0], p.out_path,
-                                             p.out_path2, device=device)
+            decompress = pipeline.decompress_file
+            if _mesh_archive(p, p.file_names[0]):
+                from .parallel import mesh_pipeline
+
+                decompress = mesh_pipeline.decompress_file_mesh
+            stats = decompress(p, p.file_names[0], p.out_path, p.out_path2,
+                               device=device)
         except (OSError, EOFError, ValueError) as e:
             raise SystemExit(f"error: {e}")
         if p.verbosity >= 1:

@@ -54,12 +54,16 @@ class CodecState(NamedTuple):
     id: Optional[torch.Tensor] = None
 
 
-def unported_modes(p: Params) -> list:
-    """Names of the Params' modes this package cannot compress yet."""
-    out = []
+def _unported_codecs(p: Params) -> list:
     if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
-        out.append(f"id codec v{p.id_codec_v} (legacy id_codec_v header "
-                   f"value)")
+        return [f"id codec v{p.id_codec_v} (legacy id_codec_v header value)"]
+    return []
+
+
+def unported_modes(p: Params) -> list:
+    """Names of the Params' modes this package cannot compress yet: a mesh
+    archive is decoded (parallel.mesh_pipeline) but not written."""
+    out = _unported_codecs(p)
     if p.mesh_dp * p.mesh_tp > 1:
         out.append("multi-chip mesh (-dp/-tp)")
     return out
@@ -162,7 +166,7 @@ def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
         d_lengths, lcp=d_lcp, anchor_mask=anchor_mask)
     d_state = dna.dna_collect_updates(
         dcfg, state.dna._replace(s_tc=s_tc, b_tc=b_tc), d_codes, eff,
-        d_lengths, d_ctx, d_sym, d_act, **pe_kw)
+        d_lengths, d_ctx, d_sym, d_act, skip_sb=True, **pe_kw)
 
     def grid(a, n):
         return common.to_grid(a, n).to(torch.int32).contiguous()
@@ -421,13 +425,13 @@ def _prescan_ids_stream(paths, p: Params, chunk_bytes: int):
 def _stream_interleaved_pe(paths, chunk_bytes: int):
     """Two streamed cursors over the mate files, in step, yielding
     interleaved FastqData chunks (pairs adjacent, an even read count) —
-    the reference package's paired chunk reader, with two of its faults
-    repaired: each mate reads chunks of half chunk_bytes, so the two
-    buffers and the interleaved copy stay near chunk_bytes in all, and a
-    mate-count mismatch counts the other file's unpaired reads to its end
-    (the reference reports only those it had buffered). Chunk sizes do not
-    change an archive: batches are cut from the stream as batch_schedule
-    cuts them."""
+    the reference package's paired chunk reader, except that each mate
+    reads chunks of half chunk_bytes, so the two buffers and the
+    interleaved copy stay near chunk_bytes in all. A mate-count mismatch
+    raises the reference's error, whose count is the unpaired reads
+    buffered when the shorter file ended (not those left in the longer
+    file). Chunk sizes do not change an archive: batches are cut from the
+    stream as batch_schedule cuts them."""
     in1, in2 = paths
     its = [iter(fastq.stream_fastq(in1, max(1, chunk_bytes // 2))),
            iter(fastq.stream_fastq(in2, max(1, chunk_bytes // 2)))]
@@ -450,11 +454,9 @@ def _stream_interleaved_pe(paths, chunk_bytes: int):
         k = min(counts)
         if k == 0:
             if counts[0] != counts[1]:
-                rest = max(counts) + sum(
-                    c.n_reads for c in its[int(counts[1] > counts[0])])
                 raise ValueError(
                     f"PE mate counts differ (stream): one mate file ended "
-                    f"with {rest} unpaired reads in the other")
+                    f"with {max(counts)} unpaired reads in the other")
             break
         d1 = _fifo_pop(bufs[0], k)
         d2 = _fifo_pop(bufs[1], k)
@@ -522,7 +524,8 @@ def resolve_device(device=None) -> torch.device:
 
 def compress_file(p: Params, in_path: str, out_path: str,
                   data: Optional[fastq.FastqData] = None,
-                  group_mem_bytes: int = 512 << 20, device=None,
+                  group_mem_bytes: int = 512 << 20,
+                  snapshot_prefix: Optional[str] = None, device=None,
                   stream_chunk_bytes: int = 0) -> dict:
     """Compression, original or sorted order, of an in-RAM input (`data`,
     or the parsed `in_path`) into `out_path`, on `device` (default: the
@@ -531,6 +534,11 @@ def compress_file(p: Params, in_path: str, out_path: str,
     p.id_n_fields are set from the input before the header is written, as
     the reference does. A PE input comes as `data` with its pairs
     interleaved (compress_pe), or streamed.
+
+    snapshot_prefix: after each group's table growth, save the codec state
+    (checkpoint.save_state) at checkpoint.snapshot_path(prefix, g + 1) for
+    group g — what a decoder needs to start at the next group. Snapshots
+    change no archive byte.
 
     stream_chunk_bytes > 0 (and no `data`) block-streams the input in
     chunks of about that size instead of loading it: original order in
@@ -596,9 +604,10 @@ def compress_file(p: Params, in_path: str, out_path: str,
     group_meta = []    # per batch: (take, L8)
     group_bytes = 0
     group_crc = 0
+    group_idx = 0
 
     def flush_group():
-        nonlocal group_fc, group_meta, group_bytes, group_crc, state
+        nonlocal group_fc, group_meta, group_bytes, group_crc, group_idx, state
         if not group_meta:
             return
         K = len(group_meta)
@@ -634,6 +643,12 @@ def compress_file(p: Params, in_path: str, out_path: str,
             id_chain[:] = [None] * len(id_chain)
         state = state._replace(
             dna=grow_tables(dcfg, state.dna, p.verbosity, stats=fills))
+        if snapshot_prefix is not None:
+            from . import checkpoint
+
+            checkpoint.save_state(state, checkpoint.snapshot_path(
+                snapshot_prefix, group_idx + 1))
+        group_idx += 1
 
     def to_dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(
@@ -710,9 +725,10 @@ def compress_file(p: Params, in_path: str, out_path: str,
 
 def unported_archive(p: Params) -> list:
     """What a loaded archive header asks for that this package cannot
-    decode: unported_modes, plus header knobs whose code paths the port
-    lacks (dna.check_supported)."""
-    missing = unported_modes(p)
+    decode: id codec v1, and header knobs whose code paths the port lacks
+    (dna.check_supported). A mesh header is decoded, by
+    parallel.mesh_pipeline."""
+    missing = _unported_codecs(p)
     try:
         dna.check_supported(make_configs(p)[0])
     except NotImplementedError as e:
@@ -721,17 +737,29 @@ def unported_archive(p: Params) -> list:
 
 
 def decompress_file(p_cli: Params, in_path: str, out_path: str,
-                    out_path2: str | None = None, device=None) -> dict:
+                    out_path2: str | None = None, start_group: int = 0,
+                    init_state: Optional[CodecState] = None,
+                    device=None) -> dict:
     """Decode an archive into a FASTQ file at `out_path`, on `device`
     (default: the first CUDA card; see resolve_device); a PE archive's
     mate 2 reads go to `out_path2` (or, as in the reference, to the
     Params' out_path2). The modes come from the archive's header; one the
-    port lacks, or a file that is not an archive, is a ValueError. Each
-    group's payload checksum is held to the decoded reads. Returns
-    {"n_reads": ...}, both mates counted."""
+    port lacks, a mesh archive (parallel.mesh_pipeline decodes those), or a
+    file that is not an archive, is a ValueError. Each group's payload
+    checksum is held to the decoded reads. Returns {"n_reads": ...}, both
+    mates counted.
+
+    start_group, init_state: resume from a group snapshot
+    (checkpoint.load_state): the groups before start_group are skipped, and
+    init_state must be the snapshot taken after group start_group - 1. The
+    caller's init_state is left as it was (see own_state)."""
     reader = archive.ArchiveReader(in_path)
     try:
         p = Params.load_params(reader.header_blob, base=p_cli)
+        if p.mesh_dp > 1 or p.mesh_tp > 1:
+            raise ValueError(
+                f"archive was written on a {p.mesh_dp}x{p.mesh_tp} mesh — "
+                f"use parallel.mesh_pipeline.decompress_file_mesh")
         missing = unported_archive(p)
         if missing:
             raise ValueError(", ".join(missing) + " not yet ported to "
@@ -741,13 +769,31 @@ def decompress_file(p_cli: Params, in_path: str, out_path: str,
         try:
             if p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED):
                 writers.append(fastq.FastqWriter(out_path2 or p.out_path2))
-            _decode_groups(p, reader, writers, device)
+            _decode_groups(p, reader, writers, device, start_group,
+                           init_state)
         finally:
             for w in writers:
                 w.close()
         return {"n_reads": sum(w.n_reads for w in writers)}
     finally:
         reader.close()
+
+
+def stream_caps(dcfg, qcfg, mcfg, icfg, R: int, L: int, n_lanes: int) -> list:
+    """The word-plane size of each stream of a batch of R reads and L
+    columns, in archive order (meta, dna, then qual, id and pe where
+    present): the reference decoder's planes. The anchored 3-row recoding
+    codes up to 1.5 * R * L DNA symbols, one word at most each."""
+    cap = R * max(L, 2)
+    with_pe = dcfg.pe_log2_buckets > 0
+    caps = [mcfg.n_per_read * R, 3 * (R // 2) * max(L, 2) if with_pe else cap]
+    if qcfg is not None:
+        caps.append(cap)
+    if icfg is not None:
+        caps.append(R * icfg.w_all + 4 * n_lanes)
+    if with_pe:
+        caps.append(2 * R + 4 * n_lanes)
+    return caps
 
 
 def fit_words(words: np.ndarray, cap: int, device) -> torch.Tensor:
@@ -759,11 +805,32 @@ def fit_words(words: np.ndarray, cap: int, device) -> torch.Tensor:
     return torch.from_numpy(w).to(device)
 
 
-def _decode_groups(p: Params, reader, writers, device) -> None:
-    """Decode every group into `writers`: one FASTQ writer, or two for a PE
-    archive (mate 1, mate 2)."""
+def own_state(state: CodecState, device) -> CodecState:
+    """A caller's codec state on `device`, with copies of its K2 s/b
+    tables: K2 updates the tables it decodes against in place, and a
+    caller's state (a loaded snapshot, which the caller may decode from
+    again) must stay as it was. The other arrays are only read; the state
+    updates make new ones."""
+    def on(t):
+        return None if t is None else t.to(device)
+
+    d = state.dna
+    return CodecState(
+        dna=d._replace(siv=on(d.siv), s_tc=d.s_tc.to(device, copy=True),
+                       b_tc=d.b_tc.to(device, copy=True), model=on(d.model),
+                       pe=None if d.pe is None else tuple(on(a)
+                                                          for a in d.pe)),
+        meta=on(state.meta), qual=on(state.qual), id=on(state.id))
+
+
+def _decode_groups(p: Params, reader, writers, device, start_group=0,
+                   init_state=None) -> None:
+    """Decode every group from start_group on into `writers`: one FASTQ
+    writer, or two for a PE archive (mate 1, mate 2); init_state: the
+    state the first of them starts from (a fresh one for group 0)."""
     dcfg, qcfg, mcfg, icfg = make_configs(p)
-    state = state_create(dcfg, qcfg, icfg, device)
+    state = (own_state(init_state, device) if init_state is not None
+             else state_create(dcfg, qcfg, icfg, device))
     qrev = quality.qual_maps(qcfg.mode, qcfg.qt)[1] if qcfg else None
     id_chain = [None] if icfg is not None else None
     align = 2 * p.n_lanes if len(writers) == 2 else p.n_lanes
@@ -781,6 +848,8 @@ def _decode_groups(p: Params, reader, writers, device) -> None:
         if rec is None:
             break
         gi += 1
+        if gi < start_group:
+            continue
         gstates, batches, want_crc = rec
         got_crc = 0
         if id_chain is not None:
@@ -824,18 +893,7 @@ def _decode_groups(p: Params, reader, writers, device) -> None:
 
         for take, L, streams in batches:
             padded = canonical_padded(take, first, p.max_batch_reads, align)
-            cap = padded * max(L, 2)
-            # the anchored 3-row recoding codes up to 1.5 * padded * L DNA
-            # symbols, one word at most each
-            with_pe = dcfg.pe_log2_buckets > 0
-            caps = [mcfg.n_per_read * padded,
-                    3 * (padded // 2) * max(L, 2) if with_pe else cap]
-            if qcfg is not None:
-                caps.append(cap)
-            if icfg is not None:
-                caps.append(padded * icfg.w_all + 4 * p.n_lanes)
-            if with_pe:
-                caps.append(2 * padded + 4 * p.n_lanes)
+            caps = stream_caps(dcfg, qcfg, mcfg, icfg, padded, L, p.n_lanes)
             if len(streams) != len(caps) or len(cur) != len(caps):
                 raise ValueError(f"group {gi}: {len(streams)} streams, the "
                                  f"header's modes code {len(caps)}")
@@ -897,17 +955,19 @@ def interleave_pe(d1: fastq.FastqData, d2: fastq.FastqData) -> fastq.FastqData:
 
 
 def compress_pe(p: Params, in1: str, in2: str, out_path: str,
-                group_mem_bytes: Optional[int] = None, device=None,
+                group_mem_bytes: Optional[int] = None,
+                snapshot_prefix: Optional[str] = None, device=None,
                 stream_chunk_bytes: int = 0) -> dict:
     """Paired-end compression of the mate files in1, in2 into `out_path`,
     on `device` (see compress_file): the pairs interleaved, in sorted
     order sorted by mate 1's sequence (mate 2 follows its mate's
     permutation). stream_chunk_bytes > 0 block-streams both mates through
     the paired chunk reader (original order only; sorting needs the whole
-    input). The reference's snapshot_prefix (group checkpoints for a
-    parallel or resumed decode) is not ported."""
-    kw = {} if group_mem_bytes is None else {"group_mem_bytes":
-                                             group_mem_bytes}
+    input). snapshot_prefix: group snapshots, as in compress_file; a PE
+    snapshot holds the pair table and the pe model."""
+    kw = {"snapshot_prefix": snapshot_prefix}
+    if group_mem_bytes is not None:
+        kw["group_mem_bytes"] = group_mem_bytes
     if stream_chunk_bytes > 0 and p.dna_mode == DnaMode.PE_ORIGINAL:
         stats = compress_file(p, [in1, in2], out_path, device=device,
                               stream_chunk_bytes=stream_chunk_bytes, **kw)

@@ -6,14 +6,16 @@ after jax.device_get, with the reference's dtypes: "siv", "s_tc", "b_tc"
 "qual" and "id" (int32; "qual" and "id" may be None or absent), and "pe"
 (CodecState.dna.pe: None or absent, or the pair table's four uint32
 planes and the pe model, int32, as a tuple). It lets both
-packages start from the same mid-stream state, and is the format group
-snapshots will share.
+packages start from the same mid-stream state, and checkpoint.py writes
+group snapshots through it. The u32 arrays are carried in int64 tensors:
+masked to 32 bits on the way out, zero-extended on the way in.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ._u32 import MASK32
 from .pipeline import CodecState
 from .streams.dna import DnaState
 
@@ -49,11 +51,13 @@ def state_to_numpy(state: CodecState) -> dict:
     src = {"siv": state.dna.siv, "s_tc": state.dna.s_tc,
            "b_tc": state.dna.b_tc, "model": state.dna.model,
            "meta": state.meta, "qual": state.qual, "id": state.id}
-    out = {k: None if v is None else
-           v.cpu().numpy().astype(np.uint32 if k in _U32 else np.int32)
-           for k, v in src.items()}
+    out = {k: None if v is None else _u32(v) if k in _U32 else
+           v.cpu().numpy().astype(np.int32) for k, v in src.items()}
     pe = state.dna.pe
-    out["pe"] = None if pe is None else tuple(
-        a.cpu().numpy().astype(np.uint32) for a in pe[:4]) + (
+    out["pe"] = None if pe is None else tuple(_u32(a) for a in pe[:4]) + (
         pe[4].cpu().numpy().astype(np.int32),)
     return out
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return (t & MASK32).cpu().numpy().astype(np.uint32)

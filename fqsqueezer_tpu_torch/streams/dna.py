@@ -756,15 +756,22 @@ def _apply_sb_updates(cfg: DnaConfig, be, s_tc, b_tc, kcodes, active):
 def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
                         lengths, ctx_all, sym_enc, code_active,
                         be=tables.LOCAL, pe_syms=None, pe_act=None,
-                        codes_true=None, lengths_true=None) -> DnaState:
-    """Apply one batch's model and SIV statistics. The s/b tables already
-    evolved inside the row loop (dna_process_batch_rg), so they pass
-    through. Model updates count only coded positions; the SIV ingests every
-    in-length position, both strands. With the paired-end anchors on, the
-    pair table also takes the batch's cross-mate minimizer events, from the
-    true interleaved reads (codes_true, lengths_true: the main arguments
-    are the anchored 3-row recoding), and the pe model the pe stream's
-    symbols (pe_syms, pe_act [P, 3]) where they are given."""
+                        codes_true=None, lengths_true=None,
+                        skip_sb: bool = False) -> DnaState:
+    """Apply one batch's statistics. Model updates count only coded
+    positions; the SIV ingests every in-length position, both strands. With
+    the paired-end anchors on, the pair table also takes the batch's
+    cross-mate minimizer events, from the true interleaved reads
+    (codes_true, lengths_true: the main arguments are the anchored 3-row
+    recoding), and the pe model the pe stream's symbols (pe_syms, pe_act
+    [P, 3]) where they are given.
+
+    skip_sb: the s/b tables already evolved inside the row loop (the
+    encoder's dna_process_batch_rg, the decoder's rows), so they pass
+    through — every single-device caller. Without it (the mesh decode's
+    batch collect) the s/b insert events of the batch's row blocks
+    (common.to_row_blocks) are replayed in order on the given tables: the
+    event sequence a single device's row loop applies."""
     R, L = codes.shape
     pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
     active = pos < lengths[:, None]
@@ -792,6 +799,12 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
         state.siv, torch.cat([siv_f.reshape(-1), siv_r.reshape(-1)]),
         torch.cat([v_siv, v_siv]))
 
+    s_tc, b_tc = state.s_tc, state.b_tc
+    if not skip_sb:
+        for kc_r, act_r in zip(common.to_row_blocks(kcodes, cfg.n_lanes),
+                               common.to_row_blocks(active, cfg.n_lanes)):
+            s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, kc_r, act_r)
+
     pe_state = state.pe
     if cfg.pe_log2_buckets > 0:
         c_t = codes if codes_true is None else codes_true
@@ -807,7 +820,8 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
                 pe_model, ctx3.reshape(-1), pe_syms.reshape(-1),
                 pe_act.reshape(-1))
         pe_state = tables.pair_update(state.pe[:4], *ev) + (pe_model,)
-    return state._replace(siv=siv, model=model, pe=pe_state)
+    return state._replace(siv=siv, s_tc=s_tc, b_tc=b_tc, model=model,
+                          pe=pe_state)
 
 
 # ---------------------------------------------------------------------------
@@ -1178,7 +1192,8 @@ def _pe_row_end(cfg, pe_tbl, pe_cdfs, base, length, L2, pe_x, pe_ptr,
 
 
 def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
-                     init_states, L: int, be=tables.LOCAL, lcp=None,
+                     init_states, L: int, be=tables.LOCAL,
+                     apply_update: bool = True, lcp=None,
                      lcp_stride: int = 1, pe_words=None, pe_states=None):
     """Decode a batch — the reference's dna_decode_batch for the
     row-global canonical tables (no local tables), single-end or
@@ -1204,12 +1219,21 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     previous read1, 3 rows back.
     On a CUDA device the state's s/b tables are updated in place: the
     returned state holds the same tensors, and the given one no longer
-    holds the batch's starting tables. Returns (codes [R, L] int64 — the
-    true interleaved reads with anchors —, new_state, final_states,
-    n_words_consumed, extras): extras (eff, ctx_all, sym, code_active), of
-    the walked rows, and with anchors also (final pe lane states, pe_syms
-    [P, 3], pe_act [P, 3], the walked rows' codes [R3, L] and lengths
-    [R3]), as the reference's."""
+    holds the batch's starting tables.
+
+    apply_update=False (the mesh decode: one dp shard against the
+    batch-frozen state): the rows read and update a private copy of the
+    s/b tables, made for this call, so the given state is left as it was;
+    the returned state is the given one with those copies after the
+    batch's rows, as the reference's (no model, SIV or pair-table update:
+    the caller collects the batch's statistics itself, dna_collect_updates
+    on the gathered shards).
+
+    Returns (codes [R, L] int64 — the true interleaved reads with anchors
+    —, new_state, final_states, n_words_consumed, extras): extras (eff,
+    ctx_all, sym, code_active), of the walked rows, and with anchors also
+    (final pe lane states, pe_syms [P, 3], pe_act [P, 3], the walked rows'
+    codes [R3, L] and lengths [R3]), as the reference's."""
     check_supported(cfg)
     if lcp is not None and lcp_stride not in (1, 2):
         raise NotImplementedError(f"LCP stride {lcp_stride}: only 1 "
@@ -1240,6 +1264,8 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
     regs = torch.zeros((K2_NREGS, N), dtype=torch.int64, device=dev)
     s_tc, b_tc = state.s_tc, state.b_tc
+    if not apply_update:
+        s_tc, b_tc = s_tc.clone(), b_tc.clone()
     if with_pe:
         pe_tbl = state.pe[:4]
         pe_cdfs = [models.model_cdf(
@@ -1290,8 +1316,11 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
         code_active = pos < lengths[:, None]
         if lcp is not None:
             code_active = code_active & (pos >= lcp[:, None])
-        new_state = dna_collect_updates(cfg, st, codes, eff, lengths,
-                                        ctx_all, sym, code_active, be)
+        new_state = st
+        if apply_update:
+            new_state = dna_collect_updates(cfg, st, codes, eff, lengths,
+                                            ctx_all, sym, code_active, be,
+                                            skip_sb=True)
         return codes, new_state, x, ptr, (eff, ctx_all, sym, code_active)
 
     def lane_major(planes):              # [n_rows or pairs, N, ...] -> [...]
@@ -1306,10 +1335,12 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     pe_syms, pe_act, a_pairs, has_pairs = (lane_major(list(t))
                                            for t in zip(*pe_rows))
     codes_true = pe.collapse_pe_rows(codes, lengths, a_pairs, has_pairs, B)
-    new_state = dna_collect_updates(
-        cfg, st, codes, eff, lengths3, ctx_all, sym, code_active, be,
-        pe_syms=pe_syms, pe_act=pe_act, codes_true=codes_true,
-        lengths_true=lengths)
+    new_state = st
+    if apply_update:
+        new_state = dna_collect_updates(
+            cfg, st, codes, eff, lengths3, ctx_all, sym, code_active, be,
+            pe_syms=pe_syms, pe_act=pe_act, codes_true=codes_true,
+            lengths_true=lengths, skip_sb=True)
     return codes_true, new_state, x, ptr, (
         eff, ctx_all, sym, code_active, pe_x, pe_syms, pe_act, codes,
         lengths3)

@@ -158,6 +158,13 @@ def read_lanes(R: int, n_lanes: int) -> np.ndarray:
     return np.zeros(R, np.int64)
 
 
+def mesh_read_lanes(R: int, dp: int, n_lanes: int) -> np.ndarray:
+    """Chain index per read of a dp-mesh archive: one file-order chain per
+    dp shard (a batch's reads are dp-sharded contiguously, and each
+    shard's stream decodes from its own state)."""
+    return np.arange(R) // (R // dp)
+
+
 def encode_ids_host_ref(ids, lanes: np.ndarray, F: int, M: int, chain: list,
                         n_valid: int | None = None):
     """Scalar reference tokenizer (the spec): one Python iteration per read.

@@ -92,7 +92,8 @@ def _adversarial(tc, rng):
 
 def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
                       grow: bool = False, short: bool = False,
-                      adversarial: bool = False, sorted_reads: bool = False):
+                      adversarial: bool = False, sorted_reads: bool = False,
+                      cfg: dna.DnaConfig | None = None):
     """(cfg, state, lengths [R] int64, words int32 [W], init states [N]
     int64) of one encoded batch of R = n_lanes * r_pl reads of width L,
     and with sorted_reads its LCPs ([R] int64, meta.compute_lcp) last: the
@@ -105,11 +106,15 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     2^ADVERSARIAL_LOG2_BUCKETS rows, so that most buckets are full, made
     harder before the batch (_adversarial): counts at 255, keys in two
     cells, new keys racing for one empty cell; the batch's rows repeat
-    k-mers."""
-    log2b = ADVERSARIAL_LOG2_BUCKETS if adversarial else LOG2_BUCKETS
-    cfg = dataclasses.replace(bench_dna_config(n_lanes),
-                              smer_log2_buckets=log2b,
-                              bmer_log2_buckets=log2b)
+    k-mers. cfg: the geometry, when it is not the bench row's with
+    2^LOG2_BUCKETS-row tables; its n_lanes must be n_lanes."""
+    if cfg is None:
+        log2b = ADVERSARIAL_LOG2_BUCKETS if adversarial else LOG2_BUCKETS
+        cfg = dataclasses.replace(bench_dna_config(n_lanes),
+                                  smer_log2_buckets=log2b,
+                                  bmer_log2_buckets=log2b)
+    if cfg.n_lanes != n_lanes:
+        raise ValueError(f"cfg has {cfg.n_lanes} lanes, not {n_lanes}")
     rng = np.random.default_rng(seed)
     R = n_lanes * r_pl
     genome, state, encode = _warm(cfg, rng, seed, R, L, device)
@@ -154,7 +159,7 @@ def _warm(cfg, rng, seed, R, L, device):
             *_reads(rng, genome, R, L, seed + 1 + k), state=state)
         state = dna.dna_collect_updates(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), c, eff, n, ctx, sym,
-            act)
+            act, skip_sb=True)
     return genome, state, encode
 
 

@@ -461,6 +461,30 @@ def test_stream_interleaved_pe_equals_reference(tmp_path, chunk):
                       jfastq.concat_fastq(want))
 
 
+@pytest.mark.parametrize("chunk", [300, 4096])
+def test_stream_interleaved_pe_mate_count_error_is_the_references(tmp_path,
+                                                                   chunk):
+    """Mate files of 37 and 148 reads: the 111 unpaired reads span more
+    than one chunk, and the port's streamed reader (at 2 * chunk, the
+    reference's chunks) raises the reference's error word for word, whose
+    count is the unpaired reads buffered when the shorter file ended."""
+    m1, m2 = _pe_mates(tmp_path)
+    long2 = str(tmp_path / "long2.fastq")
+    with open(m2) as f, open(long2, "w") as g:
+        g.write(f.read() * 4)
+    msgs = []
+    for gen in (lambda: jpipeline()._stream_interleaved_pe((m1, long2),
+                                                           chunk),
+                lambda: pipeline._stream_interleaved_pe((m1, long2),
+                                                        2 * chunk)):
+        with pytest.raises(ValueError, match="mate counts differ") as e:
+            list(gen())
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+    n = int(msgs[0].split(" ended with ")[1].split()[0])
+    assert 0 < n < 111
+
+
 def jpipeline():
     from fqsqueezer_tpu import pipeline as jp
 
@@ -502,6 +526,9 @@ def _port_sources():
 def test_port_sources_import_nothing_of_jax_or_the_reference_package():
     files = _port_sources()
     assert len(files) > 20
+    rel = {os.path.relpath(f, REPO) for f in files}
+    assert {"fqsqueezer_tpu_torch/checkpoint.py",
+            "fqsqueezer_tpu_torch/parallel/mesh_pipeline.py"} <= rel
     bad = []
     for path in files:
         with open(path) as f:

@@ -282,13 +282,14 @@ def _header_blob(arc):
         rd.close()
 
 
-# `what` None: a mode this package decodes (the cases keep their ids)
+# `what` None: a mode this package decodes; "routed": a mesh header, which
+# the CLI's d routes to parallel.mesh_pipeline (the cases keep their ids)
 _D_CASES = [
     ({"quality_mode": jparams.QualityMode.LOSSLESS}, None),
     ({"dna_mode": jparams.DnaMode.SE_SORTED}, None),
     ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, None),
     ({"id_mode": jparams.IdMode.INSTRUMENT}, None),
-    ({"mesh_dp": 2}, "mesh"),
+    ({"mesh_dp": 2}, "routed"),
     ({"dna_row_global": 0}, "row-global"),
     ({"id_mode": jparams.IdMode.LOSSLESS, "id_codec_v": 1}, "id codec v1"),
 ]
@@ -302,10 +303,26 @@ _D_CASES = [
 def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
     """Each header the port lacks is refused with one line; the quality and
     id modes it has decode instead (an archive with no group: an empty
-    FASTQ)."""
+    FASTQ), and so does a mesh header through the CLI, which routes it to
+    the mesh decode, while pipeline.decompress_file raises the reference's
+    error for it."""
     arc = _header_only_archive(tmp_path / "a.fqst", **fields)
     if what is None:
         _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
+        return
+    if what == "routed":
+        out = str(tmp_path / "o.fq")
+        assert cli.main(["d", "--device", "cpu", "-v", "0", "-out", out,
+                         arc]) == 0
+        assert os.path.getsize(out) == 0
+        with pytest.raises(ValueError) as e:
+            pipeline.decompress_file(tparams.Params(), arc, out,
+                                     device="cpu")
+        with pytest.raises(ValueError) as f:
+            jp.decompress_file(jparams.Params(), arc, out)
+        assert str(e.value) == str(f.value)
+        assert str(e.value) == ("archive was written on a 2x1 mesh — use "
+                                "parallel.mesh_pipeline.decompress_file_mesh")
         return
     with pytest.raises(SystemExit) as e:
         cli.main(["d", "--device", "cpu", "-out", str(tmp_path / "o.fq"),
@@ -323,9 +340,11 @@ def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
 def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     """No visible card and no --device (in a fresh process, which shows
     the exit code and that no traceback is printed); a file that is not
-    an archive; an archive of a mode the port lacks (a mesh); a
+    an archive; an archive of a mode the port lacks (id codec v1); a
     missing file. Each is exit 1 with one line, and writes no output
-    file."""
+    file. And a mesh archive (the reference's dp=2 writer, a committed
+    fixture) whose first group's payload crc is broken: exit 1 with one
+    line, after that group's reads."""
     arc = _header_only_archive(tmp_path / "ok.fqst")
     out = str(tmp_path / "o.fq")
     res = subprocess.run(
@@ -337,15 +356,40 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     assert "no CUDA device" in lines[0]
     bad = tmp_path / "bad.fqst"
     bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
-    mesh_arc = _header_only_archive(tmp_path / "mesh.fqst", mesh_dp=2)
+    v1_arc = _header_only_archive(tmp_path / "v1.fqst",
+                                  id_mode=jparams.IdMode.LOSSLESS,
+                                  id_codec_v=1)
     for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
-                       (mesh_arc, "mesh"),
+                       (v1_arc, "id codec v1"),
                        (str(tmp_path / "none.fqst"), "none.fqst")):
         with pytest.raises(SystemExit) as e:
             cli.main(["d", "--device", "cpu", "-out", out, path])
         msg = e.value.code
         assert isinstance(msg, str) and "\n" not in msg and what in msg
     assert not os.path.exists(out)
+    mesh_arc = _mesh_archive_with_bad_crc(tmp_path / "mesh.fqst")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["d", "--device", "cpu", "-v", "0", "-out", out, mesh_arc])
+    msg = e.value.code
+    assert isinstance(msg, str) and "\n" not in msg
+    assert msg == "error: payload checksum mismatch (seq mesh decode)"
+
+
+def _mesh_archive_with_bad_crc(path):
+    """The committed mesh fixture snap_dp2tp1 (fqsqueezer_tpu_torch/
+    testdata/mesh) with its first group's payload crc changed by one."""
+    from fqsqueezer_tpu_torch.archive import ArchiveReader
+
+    src = os.path.join(REPO, "fqsqueezer_tpu_torch", "testdata", "mesh",
+                       "snap_dp2tp1.fqst")
+    rd = ArchiveReader(src)
+    at = rd.f.tell()            # the first group's crc, a uvarint
+    rd.close()
+    with open(src, "rb") as f:
+        blob = bytearray(f.read())
+    blob[at] ^= 1
+    path.write_bytes(bytes(blob))
+    return str(path)
 
 
 _SE = ["-s", "-om", "o", "-qm", "8", "-im", "n"]

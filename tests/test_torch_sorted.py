@@ -157,7 +157,7 @@ def dna_batch():
             lcp=meta.compute_lcp(c, n, N))
         state = dna.dna_collect_updates(
             td, state._replace(s_tc=s_tc, b_tc=b_tc), c, eff, n, ctx, sym,
-            act)
+            act, skip_sb=True)
     codes, lengths = _prefix_reads(20, R_PL * N, L_DNA, dup_lane=5)
     c = torch.from_numpy(codes.astype(np.int64))
     n = torch.from_numpy(lengths.astype(np.int64))
