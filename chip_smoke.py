@@ -95,7 +95,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
                quality stream. Prints the decode's wall time and reads/s
                (the fixtures are small) and the copy of the K2 tables each
                shard decodes against, timed alone.
- 12. k3      — kernel K3 (the quality decode scan) against its plain torch
+ 12. mesh_write — mesh archives written on the card: (a) the two
+               committed -gs 5 mesh fixtures (MESH_WRITE_FIXTURES, their
+               inputs and Params as the reference's writer had them)
+               through mesh_pipeline.compress_file_mesh, each archive's
+               sha256 held to the committed file's, K1 launched once a
+               group (every stream's [T, dp x N] grid in one launch); (b)
+               the CLI's e -dp/-tp at full width (MESH_WRITE_CLI: the 100k
+               corpus at -s -om o -qm o -im o -gs 5 -dp 4 -tp 2, 2048
+               lanes a shard, 8192-read batches; 10,000 pairs at -p -om o
+               -qm o -im o -gs 5 -dp 2 -tp 1, 1024 lanes a shard) and its
+               d: the decode equal to the input (BYTE-EXACT, both mates),
+               K1 once a group, K2 once a read row of each shard (expanded
+               rows with the PE anchors), K3 once a shard and batch.
+               Prints each compress's and decode's time and reads/s. (c)
+               The single-step encoders (pipeline._encode_batch, and
+               sharded.sharded_encode at 4 x 2) on a tiny batch on the
+               card: exactly their CPU outputs, one K1 launch each.
+ 13. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
@@ -108,7 +125,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                rows, timed beside its chain floor). Then on
                that batch K3 and the plain scan timed, the chain floor (K3
                on 32 lanes) and the bound.
- 13. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 14. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -136,7 +153,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound; on the PE batch also the row-end
                PE step (torch ops between K2's launches).
- 14. decode  — the 20k archive through the port's CLI `d` with no
+ 15. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -147,7 +164,8 @@ Then the run's wall time; the last two lines are the kernels' JSON record
 (K1, K2 at the main path's, sorted order's and the PE row's shape, and K3
 for each symbol count) and the result line. K1's launches are those of
 the three timed compresses (the main path's, the sorted row's and the PE
-row's), K3's for 8 symbols those of the two timed SE decodes.
+row's) and of [mesh_write]'s four mesh compresses, K3's for 8 symbols
+those of the two timed SE decodes.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
 compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
@@ -331,6 +349,23 @@ MESH_FIXTURES = (
       "47fb693487e5e1270b3ae23f4b089c1e0ba08bc131e7dcb53c4cbd76a5c7f139")),
 )
 MESH_DIR = os.path.join(REPO, "fqsqueezer_tpu_torch", "testdata", "mesh")
+# [mesh_write]: the -gs 5 mesh fixtures written on the card, with the
+# reference writer's inputs (tests/test_torch_mesh.py's SPECS, mesh_params
+# at "gs5" and GS5_GROUP_MEM, copied here: the card has no JAX): (name,
+# kind, reads or pairs, dp, tp, -qm, -im, group budget in bytes); the
+# corpora are _corpus's and _pe_corpus's
+MESH_WRITE_FIXTURES = (
+    ("gs5_se_dp4tp2", "se", 3000, 4, 2, "illumina_8", "lossless", 1 << 20),
+    ("gs5_pe_dp2tp1", "pe", 600, 2, 1, "none", "none", 512 << 10),
+)
+# and the CLI's e -dp/-tp at full width, each archive decoded by its d and
+# held to the input (BYTE-EXACT): (reads or pairs, flags)
+MESH_WRITE_CLI = (
+    (FULL_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                  "-dp", "4", "-tp", "2")),
+    (10_000, ("-p", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5", "-dp",
+              "2", "-tp", "1")),
+)
 # (N, r_pl, L, grown tables, short word stream) of the K2 checks on encoded
 # random batches
 K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
@@ -1132,6 +1167,184 @@ def phase_mesh():
     torch.cuda.synchronize()
 
 
+def _mesh_fixture_params(kind, qm, im):
+    """The Params the -gs 5 mesh fixtures were written with
+    (tests/test_torch_mesh.py's mesh_params(.., "gs5")): the CLI's -gs 5
+    geometry with 16 lanes and 2048-read (SE) or 256-read (PE) batches,
+    original order."""
+    from fqsqueezer_tpu_torch.params import (DnaMode, IdMode, Params,
+                                             QualityMode)
+
+    p = Params()
+    p.genome_size = 5
+    p.adjust_kmer_sizes()
+    p.dna_mode = DnaMode.SE_ORIGINAL if kind == "se" else DnaMode.PE_ORIGINAL
+    p.quality_mode = QualityMode(qm)
+    p.id_mode = IdMode(im)
+    p.n_lanes = 16
+    p.verbosity = 0
+    p.max_batch_reads = 2048 if kind == "se" else 256
+    return p
+
+
+def _encoders_on_card():
+    """The single-step encoders (pipeline._encode_batch, and
+    sharded.sharded_encode at dp 4 x tp 2 with 53 of 64 reads) on a tiny
+    batch (__graft_entry__'s configuration: 8 lanes, 2^12-bucket tables,
+    lossless qualities and ids), on the card and on the CPU: every
+    stream's words, counts and states and every array of the new state
+    equal, each call one K1 launch on the card. Returns the calls
+    checked."""
+    import numpy as np
+    import torch
+
+    from fqsqueezer_tpu_torch import checkpoint, pipeline
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.parallel import sharded
+    from fqsqueezer_tpu_torch.params import IdMode, Params
+    from fqsqueezer_tpu_torch.streams import ids
+
+    def host(t):
+        return t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+    for dp, tp in ((1, 1), (4, 2)):
+        p = Params()
+        p.genome_size = 1
+        p.adjust_kmer_sizes()
+        p.n_lanes, p.max_batch_reads, p.local_log2_cells = 8, 64, 10
+        p.smer_log2_buckets = p.bmer_log2_buckets = 12
+        p.dna_siv_cap = 8
+        p.id_mode, p.max_id_len = IdMode.LOSSLESS, 12
+        p.mesh_dp, p.mesh_tp = dp, tp
+        cfgs = pipeline.make_configs(p)
+        R, L = 16 * dp, 40
+        rng = np.random.default_rng(dp)
+        codes = rng.integers(0, 4, (R, L))
+        qsyms = rng.integers(0, 8, (R, L))
+        lengths = np.full((R,), L)
+        planes = ids.encode_ids_host(
+            [f"SIM.{r} {r}".encode() for r in range(R)],
+            ids.mesh_read_lanes(R, dp, 8), cfgs[3].n_fields,
+            cfgs[3].max_id_len, [None] * dp)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            state = pipeline.state_create(cfgs[0], cfgs[1], cfgs[3], dev)
+            on = lambda a: torch.from_numpy(a).to(dev)
+            args = (on(codes), on(codes), on(lengths), on(qsyms),
+                    tuple(on(a) for a in planes))
+            before = rans.K1_LAUNCHES
+            if dp == 1:
+                outs = pipeline._encode_batch(*cfgs, state, *args)
+            else:
+                outs = sharded.sharded_encode(*cfgs, state, *args, R - 11,
+                                              dp)
+            torch.cuda.synchronize()
+            got[dev] = ([host(t) for o in outs[:4] for t in o],
+                        checkpoint.state_to_arrays(outs[4]),
+                        rans.K1_LAUNCHES - before)
+        (c_st, c_new, c_k1), (g_st, g_new, g_k1) = got["cpu"], got["cuda"]
+        same = (len(c_st) == len(g_st)
+                and all(np.array_equal(a, b) for a, b in zip(c_st, g_st))
+                and sorted(c_new) == sorted(g_new)
+                and all(c_new[k].dtype == g_new[k].dtype
+                        and np.array_equal(c_new[k], g_new[k])
+                        for k in c_new))
+        if not same or (c_k1, g_k1) != (0, 1):
+            raise RuntimeError(f"the single-step encode at dp {dp} x tp "
+                               f"{tp} differs on the card from its CPU "
+                               f"outputs, or K1 launched {g_k1} times "
+                               f"(want 1) for it")
+    return 2
+
+
+def phase_mesh_write():
+    """Mesh archives written on the card. (a) The two committed -gs 5
+    fixtures through mesh_pipeline.compress_file_mesh: each archive's
+    sha256 the committed file's (the reference mesh writer's), K1 launched
+    once a group. (b) The CLI's e -dp/-tp at full width (MESH_WRITE_CLI:
+    100k reads at 4 x 2 shards of 2048 lanes, 10k pairs at 2 x 1 of 1024),
+    then its d: the output equal to the input, byte for byte, K1 launched
+    once a group, K2 once a read row of each shard (expanded rows with the
+    PE anchors) and K3 once a shard and batch. (c) The single-step
+    encoders on the card against their CPU outputs (_encoders_on_card).
+    Returns K1's launches in (a) and (b)."""
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.io import fastq
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed
+
+    k1 = 0
+    for name, kind, n, dp, tp, qm, im, budget in MESH_WRITE_FIXTURES:
+        p = _mesh_fixture_params(kind, qm, im)
+        arc = os.path.join(WORK, f"{name}.written.fqst")
+        data = None
+        if kind == "pe":
+            paths = _pe_corpus(n)
+            data = pipeline.interleave_pe(*(fastq.read_fastq(f)
+                                            for f in paths))
+        else:
+            paths = [_corpus(n)[0]]
+        _reset_launches()
+        _, dt = timed(lambda: mesh_pipeline.compress_file_mesh(
+            p, paths[0], arc, dp=dp, tp=tp, data=data,
+            group_mem_bytes=budget))
+        launches = rans.K1_LAUNCHES
+        k1 += launches
+        groups = _n_groups(arc, p.n_lanes)
+        sha = _sha256(arc)
+        want = _sha256(os.path.join(MESH_DIR, f"{name}.fqst"))
+        if sha != want or launches != groups:
+            raise RuntimeError(f"mesh_write {name}: sha256 {sha} (the "
+                               f"reference's {want}), K1 launched "
+                               f"{launches} times for {groups} groups")
+        print(f"[mesh_write] {name} ({dp}x{tp} mesh, {p.n_lanes} lanes, "
+              f"{n} {'pairs' if kind == 'pe' else 'reads'}, a small "
+              f"fixture): compress_file_mesh {dt:.3f} s, sha256 == the "
+              f"reference mesh writer's, K1 launches {launches} for "
+              f"{groups} groups")
+
+    for n, flags in MESH_WRITE_CLI:
+        pe = "-p" in flags
+        srcs = list(_pe_corpus(n)) if pe else [_corpus(n)[0]]
+        tag = "_".join(flags[flags.index("-dp"):]).replace("-", "")
+        arc = os.path.join(WORK, f"mesh_{'pe' if pe else 'se'}_{tag}.fqst")
+        outs = [f"{arc}.{k}.fastq" for k in (1, 2)][:len(srcs)]
+        out_args = ["-out", outs[0]] + (["-out2", outs[1]] if pe else [])
+        _reset_launches()
+        rc, c_dt = timed(lambda: cli.main(["e", *flags, "-v", "0", "-out",
+                                           arc, *srcs]))
+        launches = rans.K1_LAUNCHES
+        k1 += launches
+        _reset_launches()
+        rc2, d_dt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
+        k3, k2 = _launch_counts()
+        p, batches, rows, k3_want, reads = _mesh_rows(arc)
+        groups = _n_groups(arc, p.n_lanes)
+        if rc != 0 or rc2 != 0 or [_sha256(o) for o in outs] != [
+                _sha256(f) for f in srcs]:
+            raise RuntimeError(f"mesh_write `{' '.join(flags)}`: e returned "
+                               f"{rc}, d {rc2}, or the decode differs from "
+                               f"the input")
+        if launches != groups or k2 != rows or k3 != k3_want:
+            raise RuntimeError(f"mesh_write `{' '.join(flags)}`: K1 launched "
+                               f"{launches} times for {groups} groups, K2 "
+                               f"{k2} for {rows} shard rows, K3 {k3} (want "
+                               f"{k3_want})")
+        print(f"[mesh_write] `e {' '.join(flags)}` ({p.mesh_dp}x{p.mesh_tp} "
+              f"mesh, {p.n_lanes} lanes a shard, {reads} reads in {batches} "
+              f"batches): compress {c_dt:.3f} s, {reads / c_dt:.1f} reads/s, "
+              f"{os.path.getsize(arc)} B; d {d_dt:.3f} s, "
+              f"{reads / d_dt:.1f} reads/s; BYTE-EXACT; K1 launches "
+              f"{launches} for {groups} group(s), K2 {k2} (dp x shard rows), "
+              f"K3 {k3}")
+    n = _encoders_on_card()
+    print(f"[mesh_write] the single-step encoders (pipeline._encode_batch, "
+          f"sharded.sharded_encode at 4 x 2) on the card == their CPU "
+          f"outputs, exact, one K1 launch each ({n} calls)")
+    return k1
+
+
 def phase_verify():
     """The Tier-1 verify recipe through the port's CLI on the card."""
     from fqsqueezer_tpu_torch import cli
@@ -1482,6 +1695,7 @@ def main() -> int:
     phase_verify()
     phase_resume()
     phase_mesh()
+    mesh_k1 = phase_mesh_write()
     k3 = phase_k3()
     k2 = phase_k2()
     k3_launches[8], k2_launches = phase_decode()
@@ -1495,7 +1709,7 @@ def main() -> int:
         "name": "rans_encode_walk (K1)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/rans_encode.cu",
         "replaces": "fqsqueezer_tpu/ops/rans.py:100",
-        "launches": launches + sorted_k1 + pe_k1, **k1}, {
+        "launches": launches + sorted_k1 + pe_k1 + mesh_k1, **k1}, {
         "name": "dna_decode_row (K2)", "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",

@@ -34,10 +34,11 @@ come from the archive's header): `e -gs 5 -out X.fqst in.fastq` runs the
 defaults, -s -om s -qm 8 -im i. As in the reference CLI, an input above
 256 MiB is block-streamed in 256 MiB chunks when its mode streams
 (original order, or SE sorted order with -im n); sorted order with ids,
-and PE sorted order, load the whole input. `d` of an archive written on
-a dp x tp mesh (the reference CLI's -dp/-tp) decodes it on one device
-(parallel.mesh_pipeline); writing one (`e -dp/-tp`) exits 1 with one line
-naming the mesh, as does a file that is not an archive.
+and PE sorted order, load the whole input. `e -dp N -tp M` writes an
+archive of a dp x tp mesh, as the reference CLI's -dp/-tp (SE and PE,
+the whole input read, never streamed), and `d` of one decodes it, both
+on one device (parallel.mesh_pipeline); a mesh the reference cannot
+shard, and a file that is not an archive, exit 1 with one line.
 The work runs on the first CUDA card; a machine without a visible card
 exits 1 with one line unless `--device cpu` asks for the CPU.
 """
@@ -181,14 +182,15 @@ def stream_chunk_bytes(p: Params) -> int:
     """The chunk size `e` streams p.file_names in, or 0 to load them: above
     STREAM_THRESHOLD in all, original order streams in every id mode (PE
     through the paired chunk reader, the first two files) and SE sorted
-    order with -im n (its external bin sort carries no ids)."""
+    order with -im n (its external bin sort carries no ids). A mesh
+    (-dp/-tp) never streams."""
     is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
     total = sum(os.path.getsize(f)
                 for f in (p.file_names[:2] if is_pe else p.file_names)
                 if os.path.exists(f))
-    streams = (p.dna_mode in (DnaMode.SE_ORIGINAL, DnaMode.PE_ORIGINAL)
-               or (p.dna_mode == DnaMode.SE_SORTED
-                   and p.id_mode == IdMode.NONE))
+    streams = p.mesh_dp * p.mesh_tp <= 1 and (
+        p.dna_mode in (DnaMode.SE_ORIGINAL, DnaMode.PE_ORIGINAL)
+        or (p.dna_mode == DnaMode.SE_SORTED and p.id_mode == IdMode.NONE))
     return STREAM_CHUNK_BYTES if streams and total > STREAM_THRESHOLD else 0
 
 
@@ -207,6 +209,33 @@ def _mesh_archive(p: Params, path: str) -> bool:
 
 def _not_ported(what: str):
     return SystemExit(f"error: {what} not yet ported to fqsqueezer_tpu_torch")
+
+
+def _compress(p: Params, device) -> dict:
+    """`e`: the reference CLI's routes — a mesh (-dp/-tp) to
+    parallel.mesh_pipeline, PE to pipeline.compress_pe, SE to
+    pipeline.compress_file, streamed where stream_chunk_bytes says."""
+    from . import pipeline
+
+    files = p.file_names
+    is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
+    if p.mesh_dp > 1 or p.mesh_tp > 1:
+        from .parallel import mesh_pipeline
+
+        write = (mesh_pipeline.compress_pe_mesh if is_pe
+                 else mesh_pipeline.compress_file_mesh)
+        stats = write(p, *files[:1 + is_pe], p.out_path, dp=p.mesh_dp,
+                      tp=p.mesh_tp, device=device)
+        stats.setdefault("ratio", stats["in_bytes"] / max(
+            1, stats["out_bytes"]))
+        return stats
+    if is_pe:
+        return pipeline.compress_pe(p, files[0], files[1], p.out_path,
+                                    device=device,
+                                    stream_chunk_bytes=stream_chunk_bytes(p))
+    return pipeline.compress_file(
+        p, files if len(files) > 1 else files[0], p.out_path, device=device,
+        stream_chunk_bytes=stream_chunk_bytes(p))
 
 
 def main(argv=None) -> int:
@@ -231,20 +260,14 @@ def main(argv=None) -> int:
                 else "host CPU")
         print(f"device: {device} ({name})")
     t0 = time.time()
-    if compress and p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED):
-        if len(p.file_names) < 2:
+    if compress:
+        if (p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
+                and len(p.file_names) < 2):
             raise SystemExit("paired-end mode needs two input files")
         try:
-            stats = pipeline.compress_pe(
-                p, p.file_names[0], p.file_names[1], p.out_path,
-                device=device, stream_chunk_bytes=stream_chunk_bytes(p))
+            stats = _compress(p, device)
         except ValueError as e:
             raise SystemExit(f"error: {e}")
-    elif compress:
-        src = p.file_names if len(p.file_names) > 1 else p.file_names[0]
-        stats = pipeline.compress_file(
-            p, src, p.out_path, device=device,
-            stream_chunk_bytes=stream_chunk_bytes(p))
         if p.verbosity >= 1:
             print(f"reads: {stats['n_reads']}  in: {stats['in_bytes']}  "
                   f"out: {stats['out_bytes']}  ratio: {stats['ratio']:.3f}  "

@@ -32,7 +32,7 @@ WORD_BITS = 16
 WORD_MASK = (1 << 16) - 1
 
 GROUP_PAD_ROWS = 512   # group grid rows are padded to this granularity
-GROUP_MAX_BATCHES = 64
+GROUP_MAX_BATCHES = 64   # batches a single-device group holds at most
 
 # Launches of K1 (the CUDA walk) in this process; the plain walk never counts.
 K1_LAUNCHES = 0
@@ -212,23 +212,54 @@ def rans_encode(freq: torch.Tensor, cum: torch.Tensor, scale_bits: int,
     return words, words.numel(), x
 
 
-def rans_encode_groups(grids, scale_bits: int, row_bounds):
-    """Encode the concatenated [T, N] grids of one group flush, one per
-    stream, each as one chained walk from fresh lanes — all of them in one
-    K1 launch on a CUDA device. row_bounds: per grid, the
-    [GROUP_MAX_BATCHES + 1] cumulative row offsets of its batches (unused
-    tail entries repeat the last value). Returns per grid (words [n] int32,
-    n_per [GROUP_MAX_BATCHES] int64, states [N]): batch k's words are the
-    contiguous slice [sum(n_per[:k]), sum(n_per[:k+1]))."""
+def rans_encode_shards(grids, scale_bits: int, row_bounds, n_shards: int):
+    """Encode the concatenated [T, S * N] grids of one group flush, one per
+    stream, whose lane columns are S shards of N lanes each: shard s owns
+    columns [s * N, (s + 1) * N) and codes its own word stream. Each grid
+    is one chained walk from fresh lanes (a walk over the group's batches
+    in reverse: lanes never interact, so the shards' walks are one walk)
+    — all of them in one K1 launch on a CUDA device. row_bounds: per grid,
+    the cumulative row offsets of its K batches ([K + 1], any K; entries
+    past T count as T). Returns per grid (words [n] int32 in (shard, t,
+    lane) order, n_per [S, K] int64, states [S * N]): shard s's words are
+    a contiguous run, shard after shard, and within it batch k's words the
+    run of n_per[s, k] after those of its batches before k."""
     out = []
     for (wplane, eplane, x), rb in zip(
             rans_encode_walks(grids, scale_bits), row_bounds):
         T = wplane.shape[0]
-        row_sums = eplane.sum(dim=1)
-        crow = torch.cat([row_sums.new_zeros(1), torch.cumsum(row_sums, 0)])
-        at = crow[torch.clamp(rb.to(torch.int64), max=T)]
-        out.append((_compact(wplane, eplane), at[1:] - at[:-1], x))
+        w = wplane.reshape(T, n_shards, -1).transpose(0, 1)
+        e = eplane.reshape(T, n_shards, -1).transpose(0, 1)
+        row_sums = e.sum(dim=2)
+        crow = torch.cat([row_sums.new_zeros((n_shards, 1)),
+                          torch.cumsum(row_sums, 1)], dim=1)
+        at = crow[:, torch.clamp(rb.to(torch.int64), max=T)]
+        out.append((_compact(w, e), at[:, 1:] - at[:, :-1], x))
     return out
+
+
+def rans_encode_groups(grids, scale_bits: int, row_bounds):
+    """Encode the concatenated [T, N] grids of one group flush, one per
+    stream, each as one chained walk from fresh lanes — all of them in one
+    K1 launch on a CUDA device (rans_encode_shards with one shard).
+    row_bounds: per grid, the cumulative row offsets of its batches.
+    Returns per grid (words [n] int32, n_per [K] int64, states [N]):
+    batch k's words are the contiguous slice [sum(n_per[:k]),
+    sum(n_per[:k+1]))."""
+    return [(w, n[0], x) for w, n, x in
+            rans_encode_shards(grids, scale_bits, row_bounds, 1)]
+
+
+def rans_encode_fresh(grids, scale_bits: int, n_shards: int = 1):
+    """The single-step encode of a batch's grids, one per stream, each
+    [T, S * N] of S shards: every shard of every grid coded from fresh
+    lanes, all in one K1 launch on a CUDA device (rans_encode_shards with
+    one batch). Returns per grid (words [n] int32 shard-major, n_words
+    [S] int64, states [S * N])."""
+    bounds = [torch.tensor([0, f.shape[0]], device=f.device)
+              for f, _ in grids]
+    return [(w, n[:, 0], x) for w, n, x in
+            rans_encode_shards(grids, scale_bits, bounds, n_shards)]
 
 
 def rans_encode_group(freq: torch.Tensor, cum: torch.Tensor, scale_bits: int,

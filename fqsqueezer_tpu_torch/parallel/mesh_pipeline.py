@@ -1,4 +1,4 @@
-"""Mesh archives decoded on one device.
+"""Mesh archives written and decoded on one device.
 
 The reference package writes an archive over a dp x tp mesh of devices
 (fqsqueezer_tpu/parallel/mesh_pipeline.py): a batch's reads are cut into
@@ -10,19 +10,27 @@ copy of the s/b tables), and the state then evolves once from the whole
 batch — the shards' events gathered, the s/b tables replayed row block by
 row block.
 
-This module decodes such an archive on one device, as the reference does
-with fewer devices than the mesh (decompress_file_mesh_seq): the shards in
+This module writes such an archive on one device (compress_file_mesh,
+compress_pe_mesh): the shards of a batch in turn (sharded.sharded_model),
+their grids side by side, and at each group end one walk a stream over
+the group's [T, dp x N] grid — one K1 launch on a CUDA device — whose
+words are cut by shard and batch (rans.rans_encode_shards). The bytes are
+the reference mesh writer's. It decodes one as the reference does with
+fewer devices than the mesh (decompress_file_mesh_seq): the shards in
 turn against the frozen state (_seq_decode_shard; the DNA scan with
 dna_decode_batch(apply_update=False), so each shard's rows update a
 private copy of the s/b tables, on a CUDA device one K2 launch a read row
 of the shard, and K3 once a shard and batch), then one state update from
-the gathered shards (_seq_collect), and at each group end the mesh's table
-maintenance (_maintenance_local: no growth — mesh tables are presized —
-and the mesh's SIV prune rule). The output is the reference's, byte for
-byte. Writing mesh archives is not ported (pipeline.unported_modes).
+the gathered shards (pipeline.collect_batch, the writer's), and at each
+group end the mesh's table maintenance (_maintenance_local: no growth —
+mesh tables are presized — and the mesh's SIV prune rule). The output is
+the reference's, byte for byte. The mesh across several cards (NCCL) is
+not ported: on one card the tp axis changes no value, so it only rides
+the header.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -31,9 +39,197 @@ import torch
 from .. import archive
 from .. import pipeline as base
 from ..io import fastq
-from ..ops import models, tables
-from ..params import DnaMode, Params
+from ..ops import rans, tables
+from ..params import DnaMode, IdMode, Params
 from ..streams import dna, ids, meta, quality
+from . import sharded
+
+
+def compress_file_mesh(p: Params, in_path: str, out_path: str, dp: int,
+                       tp: int = 1, data: Optional[fastq.FastqData] = None,
+                       group_mem_bytes: int = 512 << 20,
+                       snapshot_prefix: Optional[str] = None,
+                       device=None) -> dict:
+    """Compress `in_path` (or `data`, a PE input's pairs interleaved: see
+    compress_pe_mesh) into a dp x tp mesh archive at `out_path`, on
+    `device` (default: the first CUDA card, see pipeline.resolve_device):
+    the reference's compress_file_mesh, byte for byte. The whole input is
+    read (no streaming), in sorted order sorted first. Every batch holds
+    a multiple of dp x n_lanes reads (pairs whole) at the input's width;
+    a group ends where its grids reach group_mem_bytes (u16 freq and cum
+    of every stream), whatever its batch count. snapshot_prefix: save the
+    state after each group's maintenance (checkpoint.snapshot_path(prefix,
+    g + 1) for group g), as pipeline.compress_file does. Returns the
+    reference's stats dict."""
+    is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
+    if is_pe and data is None:
+        raise ValueError("mesh PE: use compress_pe_mesh (two inputs)")
+    device = _mesh_setup(p, dp, tp, device)
+    if data is None:
+        data = fastq.read_fastq(in_path)
+    if p.dna_mode == DnaMode.SE_SORTED:
+        order = fastq.sort_order(data.codes, data.lengths)
+        data = fastq.FastqData(data.codes[order], data.quals[order],
+                               data.lengths[order],
+                               [data.ids[i] for i in order])
+    id_list = data.ids
+    if p.id_mode == IdMode.INSTRUMENT:
+        id_list = ids.instrument_prefix(id_list)
+    id_chain = None
+    if p.id_mode != IdMode.NONE:
+        p.max_id_len = max(8, max((len(s) for s in id_list), default=8))
+        p.id_n_fields = ids.count_fields(id_list)
+        id_chain = [None] * dp       # one file-order chain a dp shard
+
+    dcfg, qcfg, mcfg, icfg = base.make_configs(p)
+    state = base.state_create(dcfg, qcfg, icfg, device)
+    maint = _maintenance_local(dcfg)
+    n_streams = (2 + (qcfg is not None) + (icfg is not None)
+                 + (dcfg.pe_log2_buckets > 0))
+    qfwd = quality.qual_maps(qcfg.mode, qcfg.qt)[0] if qcfg else None
+    writer = archive.ArchiveWriter(out_path, p.store_params())
+    N = p.n_lanes
+    align = dp * N * (2 if is_pe else 1)   # PE: pairs never straddle a lane
+
+    group_fc = []      # per batch: [(f, c) [T, dp * N] per stream]
+    group_meta = []    # per batch: (take, L)
+    group_bytes = group_crc = group_idx = 0
+
+    def flush_group():
+        nonlocal group_fc, group_meta, group_bytes, group_crc, group_idx, state
+        if not group_meta:
+            return
+        grids, bounds = zip(*(
+            base._group_grid([fc[si] for fc in group_fc], p.scale_bits,
+                             dp * N) for si in range(n_streams)))
+        coded = [(w.cpu().numpy(), n.cpu().numpy(), x.cpu().numpy())
+                 for w, n, x in rans.rans_encode_shards(
+                     grids, p.scale_bits, bounds, dp)]
+        # shard-major (shard, stream) state blocks and word runs; a
+        # stream's words run shard by shard, batch by batch within one
+        starts = [(np.cumsum(n) - n.reshape(-1)).reshape(n.shape)
+                  for _, n, _ in coded]
+        states = [x[s * N:(s + 1) * N] for s in range(dp)
+                  for _, _, x in coded]
+        batches = [(take, L, [(w[at[s, k]:at[s, k] + n[s, k]], n[s, k])
+                              for s in range(dp)
+                              for (w, n, _), at in zip(coded, starts)])
+                   for k, (take, L) in enumerate(group_meta)]
+        writer.write_group(states, batches, payload_crc=group_crc)
+        group_fc, group_meta, group_bytes, group_crc = [], [], 0, 0
+        if id_chain is not None:
+            # groups stay independently decodable: the chains restart
+            id_chain[:] = [None] * dp
+        state = _run_maintenance(p, dcfg, maint, state)
+        if snapshot_prefix is not None:
+            from .. import checkpoint
+
+            checkpoint.save_state(state, checkpoint.snapshot_path(
+                snapshot_prefix, group_idx + 1))
+        group_idx += 1
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(
+            device)
+
+    for start, take, padded in base.batch_schedule(
+            data.n_reads, N, p.max_batch_reads, align=align):
+        codes = base._pad_batch(data.codes[start:start + take], padded)
+        lengths = base._pad_batch(data.lengths[start:start + take],
+                                  padded).astype(np.int32)
+        qsyms = None
+        if qfwd is not None:
+            qsyms = to_dev(qfwd[np.minimum(base._pad_batch(
+                data.quals[start:start + take], padded), 95)])
+        id_batch = ()
+        if icfg is not None:
+            id_batch = tuple(torch.from_numpy(a).to(device) for a in
+                             ids.encode_ids_host(
+                                 id_list[start:start + take]
+                                 + [b""] * (padded - take),
+                                 ids.mesh_read_lanes(padded, dp, N),
+                                 icfg.n_fields, icfg.max_id_len, id_chain,
+                                 n_valid=take))
+        grids, state = sharded.sharded_model(
+            dcfg, qcfg, mcfg, icfg, state, to_dev(codes), qsyms,
+            to_dev(lengths), id_batch, take, dp)
+        L = codes.shape[1]
+        group_crc = base.payload_crc(group_crc, np.where(
+            np.arange(L)[None, :] < lengths[:take, None], codes[:take],
+            0).astype(np.uint8), lengths[:take])
+        group_fc.append(grids)
+        group_meta.append((take, L))
+        group_bytes += sum(f.numel() * 2 + c.numel() * 2 for f, c in grids)
+        if group_bytes >= group_mem_bytes:
+            flush_group()
+    flush_group()
+    writer.close()
+
+    in_paths = (list(in_path) if isinstance(in_path, (list, tuple))
+                else [in_path])
+    in_bytes = sum(os.path.getsize(f) for f in in_paths
+                   if os.path.exists(f))
+    out_bytes = os.path.getsize(out_path)
+    return {"n_reads": data.n_reads, "out_bytes": out_bytes,
+            "in_bytes": in_bytes,
+            "bits_per_base": 8.0 * out_bytes / max(1, int(
+                data.lengths.sum()))}
+
+
+def compress_pe_mesh(p: Params, in1: str, in2: str, out_path: str, dp: int,
+                     tp: int = 1, snapshot_prefix: Optional[str] = None,
+                     device=None) -> dict:
+    """Paired-end over a mesh: the mates read whole (in PE sorted order
+    sorted by mate 1), their pairs interleaved, then compress_file_mesh."""
+    device = _mesh_setup(p, dp, tp, device)
+    d1 = fastq.read_fastq(in1)
+    d2 = fastq.read_fastq(in2)
+    if p.dna_mode == DnaMode.PE_SORTED:
+        order = fastq.sort_order(d1.codes, d1.lengths)
+        d1 = fastq.FastqData(d1.codes[order], d1.quals[order],
+                             d1.lengths[order], [d1.ids[i] for i in order])
+        d2 = fastq.FastqData(d2.codes[order], d2.quals[order],
+                             d2.lengths[order], [d2.ids[i] for i in order])
+    stats = compress_file_mesh(p, in1, out_path, dp, tp,
+                               data=base.interleave_pe(d1, d2),
+                               snapshot_prefix=snapshot_prefix,
+                               device=device)
+    stats["in_bytes"] = os.path.getsize(in1) + os.path.getsize(in2)
+    return stats
+
+
+def _mesh_setup(p: Params, dp: int, tp: int, device) -> torch.device:
+    """Set the mesh in the Params (it gates make_configs' knobs: the PE
+    anchors, route_sb), refuse with one line (ValueError) what the port
+    lacks or the mesh cannot shard, and resolve the device — all before
+    the input is read."""
+    p.mesh_dp, p.mesh_tp = dp, tp
+    missing = base.unported_modes(p)
+    if missing:
+        raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
+                         + ", ".join(missing))
+    sharded.check_mesh(base.make_configs(p)[0], dp, tp)
+    return base.resolve_device(device)
+
+
+def _run_maintenance(p: Params, dcfg, maint, state: base.CodecState):
+    """The group-end maintenance (_maintenance_local) with the reference's
+    telemetry: at verbosity 1 the fills [s_used, b_used, siv_nz], and a
+    warning where an s/b table passes the single-device growth threshold
+    (mesh tables are presized, so new k-mers start to drop)."""
+    if p.verbosity >= 1:
+        f = base.fill_stats_device(dcfg, state.dna).cpu().numpy()
+        print(f"  mesh fills: smer {int(f[0]):,} bmer {int(f[1]):,} "
+              f"siv nz {int(f[2]):,}")
+        for name, used, log2b in (("smer", int(f[0]), dcfg.smer_log2_buckets),
+                                  ("bmer", int(f[1]), dcfg.bmer_log2_buckets)):
+            cap = (1 << log2b) * tables.KBUCKET
+            if used * base.GROW_DEN > cap * base.GROW_NUM:
+                print(f"  WARNING: mesh {name} table fill "
+                      f"{used / cap:.2f} exceeds the growth threshold; "
+                      f"mesh tables are presized (no sharded growth) — "
+                      f"new k-mers are being dropped. Raise -gs.")
+    return state._replace(dna=maint(state.dna))
 
 
 def decompress_file_mesh(p_cli: Params, in_path: str, out_path: str,
@@ -90,7 +286,7 @@ def _seq_decode_shard(dcfg, qcfg, mcfg, icfg, R_shard: int, L: int,
     lane_states: the shard's word plane (int32) and lane states (int64) of
     each stream, in archive order; n_valid: the shard's real reads.
     Returns (lengths [R_shard], codes [R_shard, L], qsyms or None, the id
-    planes or None, the events of each stream for _seq_collect — (meta
+    planes or None, the events of each stream for collect_batch — (meta
     ctx, syms), the DNA rows', (qual ctx, syms, active) or None, (id ctx,
     syms, active) or None — and the streams' final lane states)."""
     m_w, d_w, *rest_w = planes
@@ -118,7 +314,7 @@ def _seq_decode_shard(dcfg, qcfg, mcfg, icfg, R_shard: int, L: int,
     if qcfg is not None:
         q_w, q_x = rest_w.pop(0), rest_x.pop(0)
         # the scan alone (K3 on a CUDA device): the shard's model update
-        # would be dropped, the gathered batch's is _seq_collect's
+        # would be dropped, the gathered batch's is collect_batch's
         syms, q_x, _ = quality.qual_decode_scan(
             qcfg, state.qual, lengths.to(torch.int32).contiguous(), q_w, q_x,
             L)
@@ -143,35 +339,6 @@ def _seq_decode_shard(dcfg, qcfg, mcfg, icfg, R_shard: int, L: int,
             q_out, i_out), xs
 
 
-def _seq_collect(dcfg, state: base.CodecState, m_g, dna_g, q_g, i_g,
-                 codes_true_g, lengths_true_g) -> base.CodecState:
-    """The batch's state update from its gathered shards (each argument
-    the shards' events concatenated in shard order) — the reference's
-    collect: the models take every shard's events in one update, and the
-    DNA tables replay the gathered batch's s/b events row block by row
-    block (dna_collect_updates without skip_sb)."""
-    m_model = models.model_update(
-        state.meta, m_g[0].reshape(-1), m_g[1].reshape(-1),
-        torch.ones(m_g[0].numel(), dtype=torch.bool, device=m_g[0].device))
-    if dcfg.pe_log2_buckets > 0:
-        codes3, eff, lengths3, ctx, sym, active, pe_syms, pe_act = dna_g
-        d_state = dna.dna_collect_updates(
-            dcfg, state.dna, codes3, eff, lengths3, ctx, sym, active,
-            pe_syms=pe_syms, pe_act=pe_act, codes_true=codes_true_g,
-            lengths_true=lengths_true_g)
-    else:
-        d_state = dna.dna_collect_updates(dcfg, state.dna, *dna_g)
-    q_model = i_model = None
-    if q_g is not None:
-        q_model = models.model_update(state.qual, *(a.reshape(-1)
-                                                    for a in q_g))
-    if i_g is not None:
-        i_model = models.model_update(state.id, *(a.reshape(-1)
-                                                  for a in i_g))
-    return base.CodecState(dna=d_state, meta=m_model, qual=q_model,
-                           id=i_model)
-
-
 def _maintenance_local(dcfg):
     """The mesh's group-boundary table maintenance on one device — the
     reference's _maintenance_local, not pipeline.grow_tables: no growth
@@ -192,16 +359,6 @@ def _maintenance_local(dcfg):
         return dna_state._replace(siv=siv, s_tc=s_tc, b_tc=b_tc)
 
     return step
-
-
-def _cat(parts):
-    """Concatenate the shards' outputs along the reads, leaf by leaf
-    (None stays None)."""
-    if parts[0] is None:
-        return None
-    if isinstance(parts[0], (tuple, list)):
-        return tuple(_cat(list(p)) for p in zip(*parts))
-    return torch.cat(parts, dim=0)
 
 
 def _decode_mesh_groups(p: Params, reader, writers, device, start_group,
@@ -257,9 +414,10 @@ def _decode_mesh_groups(p: Params, reader, writers, device, start_group,
                     cur[s], n_valid)
                 outs.append(out)
             (lengths_g, codes_g, qsyms_g, id_g, m_g, dna_g, q_g,
-             i_g) = (_cat([o[i] for o in outs]) for i in range(8))
-            state = _seq_collect(dcfg, state, m_g, dna_g, q_g, i_g, codes_g,
-                                 lengths_g)
+             i_g) = (sharded.cat_shards([o[i] for o in outs])
+                     for i in range(8))
+            state = base.collect_batch(dcfg, state, m_g, dna_g, q_g, i_g,
+                                       codes_g, lengths_g)
 
             lengths = lengths_g[:take].cpu().numpy().astype(np.int32)
             codes = codes_g[:take].cpu().numpy()

@@ -54,18 +54,17 @@ class CodecState(NamedTuple):
     id: Optional[torch.Tensor] = None
 
 
-def _unported_codecs(p: Params) -> list:
-    if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
-        return [f"id codec v{p.id_codec_v} (legacy id_codec_v header value)"]
-    return []
-
-
 def unported_modes(p: Params) -> list:
-    """Names of the Params' modes this package cannot compress yet: a mesh
-    archive is decoded (parallel.mesh_pipeline) but not written."""
-    out = _unported_codecs(p)
-    if p.mesh_dp * p.mesh_tp > 1:
-        out.append("multi-chip mesh (-dp/-tp)")
+    """Names of the Params' modes this package can neither write nor
+    decode: id codec v1, and a mesh's owner-routed s/b exchange
+    (mesh_route_sb > 0, which no entry point of either package sets)."""
+    out = []
+    if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
+        out.append(f"id codec v{p.id_codec_v} (legacy id_codec_v header "
+                   f"value)")
+    if p.mesh_route_sb > 0 and p.mesh_dp * p.mesh_tp > 1:
+        out.append("mesh_route_sb > 0 (a mesh's owner-routed s/b update "
+                   "exchange)")
     return out
 
 
@@ -130,69 +129,148 @@ def state_create(dcfg, qcfg, icfg=None, device=None) -> CodecState:
         id=None if icfg is None else ids.id_state_create(device))
 
 
-def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
-                 codes: torch.Tensor, qsyms: Optional[torch.Tensor],
-                 lengths: torch.Tensor, id_batch=(), n_valid=None):
-    """Modeling + state evolution of one batch. codes: [R, L8] int64 base
-    codes (N = 4), qsyms: [R, L8] int64 quantized qualities (None without
-    a quality stream), lengths: [R] int64, id_batch: the encode_ids_host
-    planes as tensors (with an id stream), n_valid: the batch's real reads.
-    Returns ([(freq, cum) int32 [T, N] lane grids per stream: meta, dna,
-    then qual, id and pe where present], new state). A PE batch has its
-    pairs interleaved; with the anchors on, the DNA codec models the
-    anchored 3-row recoding (dna.dna_pe_encode) and the pe stream's grid
-    is the last."""
+def _model_rows(dcfg, qcfg, mcfg, icfg, state: CodecState,
+                codes: torch.Tensor, qsyms: Optional[torch.Tensor],
+                lengths: torch.Tensor, id_batch=(), n_valid=None,
+                kcodes: Optional[torch.Tensor] = None):
+    """Modeling of one batch, or of one dp shard of a mesh batch, against
+    `state`, which is left as it was. codes: [R, L] int64 base codes (N =
+    4), kcodes: the k-mer codes the DNA rows start from (default: codes
+    with N as 0), qsyms: [R, L] int64 quantized qualities (None without a
+    quality stream), lengths: [R] int64, id_batch: the encode_ids_host
+    planes as tensors (with an id stream), n_valid: the real reads.
+    Returns (grids, events, (s_tc, b_tc)): the (freq, cum) int32 [T, N]
+    lane grids of each stream (meta, dna, then qual, id and pe where
+    present), the batch's events as collect_batch takes them, and the s/b
+    tables the DNA row loop carried. A PE batch has its pairs interleaved;
+    with the anchors on, the DNA codec models the anchored 3-row recoding
+    (dna.dna_pe_encode) and the pe stream's grid is the last."""
     lcp = (meta.compute_lcp(codes, lengths, mcfg.n_lanes, mcfg.lcp_stride)
            if mcfg.with_lcp else None)
-
     m_ctx, m_syms, m_f, m_c = meta.meta_modeling(mcfg, state.meta, lengths,
                                                  lcp)
-    m_model = models.model_update(
-        state.meta, m_ctx.reshape(-1), m_syms.reshape(-1),
-        torch.ones(m_ctx.numel(), dtype=torch.bool, device=codes.device))
 
     # the DNA codec's rows: the reads, or with the PE anchors their
     # anchored 3-row recoding
-    d_codes, d_lengths, d_lcp, anchor_mask, pe_kw = (codes, lengths, lcp,
-                                                     None, {})
+    d_codes, d_lengths, d_lcp, anchor_mask = codes, lengths, lcp, None
+    pe_ev = ()
     if dcfg.pe_log2_buckets > 0:
         (d_codes, d_lengths, anchor_mask, d_lcp, pe_syms, pe_act, pe_f, pe_c,
          _) = dna.dna_pe_encode(dcfg, state.dna, codes, lengths, lcp=lcp)
-        pe_kw = dict(pe_syms=pe_syms, pe_act=pe_act, codes_true=codes,
-                     lengths_true=lengths)
+        pe_ev = (pe_syms, pe_act)
+        kcodes = None          # the recoded rows have their own
+    if kcodes is None:
+        kcodes = torch.where(d_codes >= 4, 0, d_codes)
     (eff, d_ctx, d_sym, d_f, d_c, d_act, s_tc,
      b_tc) = dna.dna_process_batch_rg(
-        dcfg, state.dna, d_codes, torch.where(d_codes >= 4, 0, d_codes),
-        d_lengths, lcp=d_lcp, anchor_mask=anchor_mask)
-    d_state = dna.dna_collect_updates(
-        dcfg, state.dna._replace(s_tc=s_tc, b_tc=b_tc), d_codes, eff,
-        d_lengths, d_ctx, d_sym, d_act, skip_sb=True, **pe_kw)
+        dcfg, state.dna, d_codes, kcodes, d_lengths, lcp=d_lcp,
+        anchor_mask=anchor_mask)
 
-    def grid(a, n):
-        return common.to_grid(a, n).to(torch.int32).contiguous()
-
+    grid = common.lane_grid
     grids = [(grid(m_f, mcfg.n_lanes), grid(m_c, mcfg.n_lanes)),
              (grid(d_f, dcfg.n_lanes), grid(d_c, dcfg.n_lanes))]
-    q_model = None
+    q_ev = i_ev = None
     if qcfg is not None:
         q_ctx, q_f, q_c, q_act = quality.qual_modeling(
             qcfg, state.qual, qsyms, lengths)
-        q_model = models.model_update(
-            state.qual, q_ctx.reshape(-1), qsyms.reshape(-1),
-            q_act.reshape(-1))
+        q_ev = (q_ctx, qsyms, q_act)
         grids.append((grid(q_f, qcfg.n_lanes), grid(q_c, qcfg.n_lanes)))
-    i_model = None
     if icfg is not None:
         i_ctx, i_syms, i_f, i_c, i_act = ids.id_modeling(
             icfg, state.id, *id_batch, n_valid=n_valid)
-        i_model = models.model_update(
-            state.id, i_ctx.reshape(-1), i_syms.reshape(-1),
-            i_act.reshape(-1))
+        i_ev = (i_ctx, i_syms, i_act)
         grids.append((grid(i_f, icfg.n_lanes), grid(i_c, icfg.n_lanes)))
-    if dcfg.pe_log2_buckets > 0:
+    if pe_ev:
         grids.append((grid(pe_f, dcfg.n_lanes), grid(pe_c, dcfg.n_lanes)))
-    return grids, CodecState(dna=d_state, meta=m_model, qual=q_model,
-                             id=i_model)
+    events = ((m_ctx, m_syms),
+              (d_codes, eff, d_lengths, d_ctx, d_sym, d_act) + pe_ev,
+              q_ev, i_ev)
+    return grids, events, (s_tc, b_tc)
+
+
+def collect_batch(dcfg, state: CodecState, m_ev, dna_ev, q_ev, i_ev,
+                  codes_true, lengths_true,
+                  skip_sb: bool = False) -> CodecState:
+    """A batch's state update from its events (each the batch's, or its
+    dp shards' concatenated in shard order): the meta model from (ctx,
+    syms), the DNA state from its rows' (codes, eff, lengths, ctx, sym,
+    active[, pe_syms, pe_act]) — codes_true, lengths_true: the
+    interleaved reads the pair table takes with the PE anchors — the
+    quality and id models from (ctx, syms, active) where present.
+    skip_sb: the s/b tables in `state` already took the batch's rows (a
+    single device's row loop); without it (a mesh batch, whose shards
+    modeled against the batch-frozen tables) the rows' s/b events are
+    replayed row block by row block (dna.dna_collect_updates)."""
+    m_model = models.model_update(
+        state.meta, m_ev[0].reshape(-1), m_ev[1].reshape(-1),
+        torch.ones(m_ev[0].numel(), dtype=torch.bool,
+                   device=m_ev[0].device))
+    d_codes, eff, d_lengths, d_ctx, d_sym, d_act, *pe_ev = dna_ev
+    pe_kw = {}
+    if pe_ev:
+        pe_kw = dict(pe_syms=pe_ev[0], pe_act=pe_ev[1],
+                     codes_true=codes_true, lengths_true=lengths_true)
+    d_state = dna.dna_collect_updates(
+        dcfg, state.dna, d_codes, eff, d_lengths, d_ctx, d_sym, d_act,
+        skip_sb=skip_sb, **pe_kw)
+    q_model = i_model = None
+    if q_ev is not None:
+        q_model = models.model_update(state.qual,
+                                      *(a.reshape(-1) for a in q_ev))
+    if i_ev is not None:
+        i_model = models.model_update(state.id,
+                                      *(a.reshape(-1) for a in i_ev))
+    return CodecState(dna=d_state, meta=m_model, qual=q_model, id=i_model)
+
+
+def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
+                 codes: torch.Tensor, qsyms: Optional[torch.Tensor],
+                 lengths: torch.Tensor, id_batch=(), n_valid=None,
+                 kcodes: Optional[torch.Tensor] = None):
+    """Modeling + state evolution of one batch on one device (_model_rows,
+    then collect_batch on the tables the row loop carried). Returns
+    (grids, new state)."""
+    grids, events, (s_tc, b_tc) = _model_rows(
+        dcfg, qcfg, mcfg, icfg, state, codes, qsyms, lengths, id_batch,
+        n_valid, kcodes)
+    rows = state._replace(dna=state.dna._replace(s_tc=s_tc, b_tc=b_tc))
+    return grids, collect_batch(dcfg, rows, *events, codes, lengths,
+                                skip_sb=True)
+
+
+def _step_inputs(qcfg, icfg, codes, kcodes, lengths, qsyms, id_batch):
+    """A single-step encode's inputs as _model_rows takes them: int64
+    tensors on codes' device (qsyms None without a quality stream,
+    id_batch () without an id stream)."""
+    codes = torch.as_tensor(codes).to(torch.int64)
+    on = lambda a: torch.as_tensor(a).to(codes.device)
+    return (codes, on(kcodes).to(torch.int64), on(lengths).to(torch.int64),
+            None if qcfg is None else on(qsyms).to(torch.int64),
+            tuple(on(a) for a in id_batch) if icfg is not None else ())
+
+
+def _encode_batch(dcfg, qcfg, mcfg, icfg, state: CodecState, codes,
+                  kcodes, lengths, qsyms, id_batch):
+    """One batch modeled and coded from fresh lanes, every stream's walk
+    in one K1 launch on a CUDA device: the reference's single-step encode
+    (no group chaining; the file pipeline codes at its group flush).
+    codes, kcodes: [R, L], lengths: [R], qsyms: [R, L] (unused without a
+    quality stream), id_batch: the encode_ids_host planes (unused without
+    an id stream); any integer dtype. Returns ((words, n_words, states)
+    of meta, of id, of dna, of qual, new state) — an absent stream's
+    words and states are empty and its n_words 0."""
+    codes, kcodes, lengths, qsyms, id_batch = _step_inputs(
+        qcfg, icfg, codes, kcodes, lengths, qsyms, id_batch)
+    grids, new_state = _model_batch(dcfg, qcfg, mcfg, icfg, state, codes,
+                                    qsyms, lengths, id_batch, kcodes=kcodes)
+    coded = [(w, w.numel(), x) for w, _, x in
+             rans.rans_encode_fresh(grids, dcfg.scale_bits)]
+    empty = (codes.new_zeros((0,), dtype=torch.int32), 0,
+             codes.new_zeros((0,)))
+    m_out, d_out = coded[0], coded[1]
+    q_out = coded[2] if qcfg is not None else empty
+    i_out = coded[2 + (qcfg is not None)] if icfg is not None else empty
+    return m_out, i_out, d_out, q_out, new_state
 
 
 def _decode_batch(dcfg, qcfg, mcfg, icfg, R: int, L: int,
@@ -239,7 +317,7 @@ def _decode_batch(dcfg, qcfg, mcfg, icfg, R: int, L: int,
 def _group_grid(fcs, scale_bits: int, n_lanes: int):
     """One stream's group grid: its per-batch (f, c) grids concatenated in
     batch order, the rows padded to GROUP_PAD_ROWS with exact no-ops.
-    Returns ((f, c), row_bounds) on the grids' device."""
+    Returns ((f, c), row_bounds [K + 1]) on the grids' device."""
     rows = [int(f.shape[0]) for f, _ in fcs]
     bounds = np.concatenate([[0], np.cumsum(rows)]).astype(np.int64)
     T = int(bounds[-1])
@@ -251,9 +329,7 @@ def _group_grid(fcs, scale_bits: int, n_lanes: int):
                          device=dev)] if T_pad > T else []
     f = torch.cat([f for f, _ in fcs] + pad_f, dim=0)
     c = torch.cat([c for _, c in fcs] + pad_c, dim=0)
-    rb = np.full((rans.GROUP_MAX_BATCHES + 1,), T, np.int64)
-    rb[:len(bounds)] = bounds
-    return (f, c), torch.from_numpy(rb).to(dev)
+    return (f, c), torch.from_numpy(bounds).to(dev)
 
 
 GROW_MAX_DOUBLINGS = 4     # growth bits available in cell tags
@@ -725,10 +801,10 @@ def compress_file(p: Params, in_path: str, out_path: str,
 
 def unported_archive(p: Params) -> list:
     """What a loaded archive header asks for that this package cannot
-    decode: id codec v1, and header knobs whose code paths the port lacks
-    (dna.check_supported). A mesh header is decoded, by
+    decode: unported_modes, and header knobs whose code paths the port
+    lacks (dna.check_supported). A mesh header is decoded, by
     parallel.mesh_pipeline."""
-    missing = _unported_codecs(p)
+    missing = unported_modes(p)
     try:
         dna.check_supported(make_configs(p)[0])
     except NotImplementedError as e:

@@ -18,6 +18,11 @@ def to_grid(x: torch.Tensor, n_lanes: int) -> torch.Tensor:
         r_pl * L, n_lanes)
 
 
+def lane_grid(x: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """to_grid as the contiguous int32 grid the rANS walk (K1) takes."""
+    return to_grid(x, n_lanes).to(torch.int32).contiguous()
+
+
 def from_grid(y: torch.Tensor, n_lanes: int, L: int) -> torch.Tensor:
     """[T, N] -> [R, L]."""
     T, N = y.shape

@@ -824,6 +824,25 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
                           pe=pe_state)
 
 
+def dna_encode_batch(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
+                     lcp=None):
+    """One batch coded from fresh lanes (the reference's single-step
+    encode; its row-global branch, the one check_supported admits): the
+    row loop carries the s/b tables, the rest of the state evolves from
+    the batch. Returns (words, n_words, decoder initial states, new
+    state)."""
+    check_supported(cfg)
+    eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc = \
+        dna_process_batch_rg(cfg, state, codes, kcodes, lengths, lcp=lcp)
+    words, n_words, states = rans.rans_encode(
+        common.lane_grid(f, cfg.n_lanes), common.lane_grid(c, cfg.n_lanes),
+        cfg.scale_bits)
+    new_state = dna_collect_updates(
+        cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
+        ctx_all, sym_enc, code_active, skip_sb=True)
+    return words, n_words, states, new_state
+
+
 # ---------------------------------------------------------------------------
 # decoder: the per-position scan
 # ---------------------------------------------------------------------------

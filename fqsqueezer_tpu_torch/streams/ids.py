@@ -610,6 +610,21 @@ def id_modeling(cfg: IdConfig, model: torch.Tensor, flag, dsym, dmag, emat,
     return ctx, syms, f, c, active
 
 
+def id_encode_batch(cfg: IdConfig, model: torch.Tensor, flag, dsym, dmag,
+                    emat, elens, n_valid=None):
+    """One batch coded from fresh lanes (the reference's single-step
+    encode). Returns (words, n_words, decoder initial states, new
+    model)."""
+    ctx, syms, f, c, active = id_modeling(cfg, model, flag, dsym, dmag,
+                                          emat, elens, n_valid)
+    words, n_words, states = rans.rans_encode(
+        common.lane_grid(f, cfg.n_lanes), common.lane_grid(c, cfg.n_lanes),
+        cfg.scale_bits)
+    new_model = models.model_update(
+        model, ctx.reshape(-1), syms.reshape(-1), active.reshape(-1))
+    return words, n_words, states, new_model
+
+
 def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
                     words: torch.Tensor, init_states: torch.Tensor,
                     n_valid=None):

@@ -77,6 +77,21 @@ def meta_modeling(cfg: MetaConfig, model: torch.Tensor, lengths: torch.Tensor,
     return ctx, syms, f, c
 
 
+def meta_encode_batch(cfg: MetaConfig, model: torch.Tensor,
+                      lengths: torch.Tensor, lcp=None):
+    """One batch coded from fresh lanes (the reference's single-step
+    encode). Returns (words, n_words, decoder initial states, new
+    model)."""
+    ctx, syms, f, c = meta_modeling(cfg, model, lengths, lcp)
+    words, n_words, states = rans.rans_encode(
+        common.lane_grid(f, cfg.n_lanes), common.lane_grid(c, cfg.n_lanes),
+        cfg.scale_bits)
+    new_model = models.model_update(
+        model, ctx.reshape(-1), syms.reshape(-1),
+        torch.ones(ctx.numel(), dtype=torch.bool, device=ctx.device))
+    return words, n_words, states, new_model
+
+
 def meta_decode_batch(cfg: MetaConfig, model: torch.Tensor, R: int,
                       words: torch.Tensor, init_states: torch.Tensor):
     """Decode the (length[, lcp]) tuples of R reads. Returns (lengths [R]

@@ -130,6 +130,20 @@ def qual_modeling(cfg: QualConfig, model: torch.Tensor, qsyms: torch.Tensor,
     return ctx, f, c, active
 
 
+def qual_encode_batch(cfg: QualConfig, model: torch.Tensor,
+                      qsyms: torch.Tensor, lengths: torch.Tensor):
+    """One batch coded from fresh lanes (the reference's single-step
+    encode). Returns (words, n_words, decoder initial states, new
+    model)."""
+    ctx, f, c, active = qual_modeling(cfg, model, qsyms, lengths)
+    words, n_words, states = rans.rans_encode(
+        common.lane_grid(f, cfg.n_lanes), common.lane_grid(c, cfg.n_lanes),
+        cfg.scale_bits)
+    new_model = models.model_update(
+        model, ctx.reshape(-1), qsyms.reshape(-1), active.reshape(-1))
+    return words, n_words, states, new_model
+
+
 # ---------------------------------------------------------------------------
 # decode scan: kernel K3 and its plain version
 # ---------------------------------------------------------------------------

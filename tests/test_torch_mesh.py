@@ -3,9 +3,10 @@
 The reference package writes an archive over a dp x tp mesh of devices
 (fqsqueezer_tpu.parallel.mesh_pipeline.compress_file_mesh) and decodes it
 on any number of devices with decompress_file_mesh_seq. The port decodes
-such archives (fqsqueezer_tpu_torch.parallel.mesh_pipeline); it does not
-write them. The reference's mesh writer is too slow for the fast tests
-(a minute and more per archive on one CPU core), so the archives here are
+such archives (fqsqueezer_tpu_torch.parallel.mesh_pipeline; its writer is
+held to the same fixtures in tests/test_torch_mesh_write.py). The
+reference's mesh writer is too slow for the fast tests (a minute and more
+per archive on one CPU core), so the archives here are
 committed fixtures it wrote (fqsqueezer_tpu_torch/testdata/mesh/, see its
 README), with the sha256 of the reference decoder's output beside them
 (SHA256SUMS). Each fast test decodes a fixture with the port on the CPU

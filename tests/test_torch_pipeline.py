@@ -252,16 +252,21 @@ def _header_only_archive(path, **fields):
 
 def _decodes_to_empty_fastq(arc, out):
     """A header-only archive of a ported mode decodes, through the CLI and
-    through pipeline.decompress_file, to an empty FASTQ (a paired-end
+    through pipeline.decompress_file (a mesh one through
+    mesh_pipeline.decompress_file_mesh), to an empty FASTQ (a paired-end
     archive to two, the second at -out2)."""
     p = tparams.Params.load_params(_header_blob(arc))
     assert pipeline.unported_archive(p) == []
     pe = p.dna_mode in (tparams.DnaMode.PE_ORIGINAL,
                         tparams.DnaMode.PE_SORTED)
     out2 = out + ".2"
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+
+    decompress = (mesh_pipeline.decompress_file_mesh
+                  if p.mesh_dp * p.mesh_tp > 1 else pipeline.decompress_file)
     for decode in (lambda: cli.main(["d", "--device", "cpu", "-out", out,
                                      "-out2", out2, arc]),
-                   lambda: pipeline.decompress_file(
+                   lambda: decompress(
                        tparams.Params(), arc, out, out2, device="cpu")):
         assert decode() in (0, {"n_reads": 0})
         assert os.path.getsize(out) == 0
@@ -405,7 +410,7 @@ _E_CASES = [
     (["e", "-s", "-om", "o", "-qm", "n", "-im", "n", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "8", "-im", "o", "a.fq"], None),
     (["e", "-s", "-om", "o", "-qm", "8", "a.fq"], None),
-    (["e", *_SE, "-dp", "2", "a.fq"], "mesh"),
+    (["e", *_SE, "-dp", "2", "a.fq"], None),
 ]
 
 
@@ -416,8 +421,8 @@ _E_CASES = [
          "argv7-id mode", "argv8-mesh"])
 def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
     """Each mode the port lacks exits 1 with one line; the quality and id
-    modes it has pass its mode check, and a header-only archive of their
-    Params decodes to an empty FASTQ."""
+    modes it has, and a dp x tp mesh, pass its mode check, and a
+    header-only archive of their Params decodes to an empty FASTQ."""
     if what is None:
         from fqsqueezer_tpu_torch.archive import ArchiveWriter
 
@@ -439,31 +444,47 @@ def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
     assert msg.endswith("not yet ported to fqsqueezer_tpu_torch")
 
 
-def test_cli_refuses_streamed_input(tmp_path):
-    """Of the inputs above the streaming threshold the CLI still refuses
-    those of a mode the port lacks (a mesh: exit 1, one line, before it
-    reads a byte); eligible single-end (tests/test_torch_sorted.py) and
-    paired-end original-order ones stream, paired-end sorted order loads
-    its mates, as in the reference CLI."""
+def test_cli_refuses_streamed_input(tmp_path, monkeypatch):
+    """Of the inputs above the streaming threshold, eligible single-end
+    (tests/test_torch_sorted.py) and paired-end original-order ones
+    stream, paired-end sorted order loads its mates, as in the reference
+    CLI; a mesh (-dp) passes the mode check and its compress does not
+    stream: the CLI hands the whole file to the mesh writer, SE and PE."""
     big = []
     for name in ("big_1.fastq", "big_2.fastq"):
         with open(tmp_path / name, "wb") as f:
             f.truncate((256 << 20) + 1)    # sparse: no data written
         big.append(str(tmp_path / name))
-    res = subprocess.run(
-        [sys.executable, "-m", "fqsqueezer_tpu_torch.cli", "e", *_SE, "-dp",
-         "2", "--device", "cpu", "-out", str(tmp_path / "o.fqst"), big[0]],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert res.returncode == 1
-    lines = res.stderr.strip().splitlines()
-    assert len(lines) == 1 and "mesh" in lines[0], res.stderr
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+
+    calls = []
+
+    def record(name):
+        def writer(p, *args, dp, tp, device):
+            calls.append((name, args, dp, tp, device.type))
+            return {"n_reads": 0, "in_bytes": 1, "out_bytes": 1,
+                    "bits_per_base": 0.0}
+        return writer
+
+    for name in ("compress_file_mesh", "compress_pe_mesh"):
+        monkeypatch.setattr(mesh_pipeline, name, record(name))
+    out = str(tmp_path / "o.fqst")
+    for argv in ([*_SE, "-dp", "2", big[0]],
+                 ["-p", "-om", "o", "-dp", "2", "-tp", "1", *big]):
+        p = cli.parse_args(["e", *argv])
+        assert pipeline.unported_modes(p) == []
+        assert cli.stream_chunk_bytes(p) == 0
+        assert cli.main(["e", *argv, "--device", "cpu", "-v", "0", "-out",
+                         out]) == 0
+    assert calls == [("compress_file_mesh", (big[0], out), 2, 1, "cpu"),
+                     ("compress_pe_mesh", (*big, out), 2, 1, "cpu")]
     assert cli.stream_chunk_bytes(cli.parse_args(["e", *_SE, big[0]])) \
         == cli.STREAM_CHUNK_BYTES
     assert cli.stream_chunk_bytes(cli.parse_args(
         ["e", "-p", "-om", "o", *big])) == cli.STREAM_CHUNK_BYTES
     assert cli.stream_chunk_bytes(cli.parse_args(
         ["e", "-p", "-om", "s", "-im", "n", *big])) == 0
-    assert not os.path.exists(tmp_path / "o.fqst")
+    assert not os.path.exists(out)
 
 
 def _chip_smoke():
