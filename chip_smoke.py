@@ -112,7 +112,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
                The single-step encoders (pipeline._encode_batch, and
                sharded.sharded_encode at 4 x 2) on a tiny batch on the
                card: exactly their CPU outputs, one K1 launch each.
- 13. k3      — kernel K3 (the quality decode scan) against its plain torch
+ 13. legacy  — the JAX package's older writers (params.HEADER_GENERATIONS:
+               H0, the first writer's batch-frozen table_* tables, ctx v1,
+               no mix or ramp, three repairs, id codec v1; H5 and H6, the
+               row-global ktable_* tables with u16 counters, H6 with ctx
+               v2 and the rough rescue): LEGACY's archives — the 20k
+               corpus at -s -om o -qm o -im o -gs 5 under H0, H5 and H6,
+               at -s -om s -qm o -im n under H0, and 10k pairs at -p -om
+               o -qm o -im o under H6 — written through
+               pipeline.compress_file / compress_pe on the card, each
+               sha256 held to the JAX writer's, and decoded through the
+               CLI's d to the input (BYTE-EXACT) or the JAX decoder's
+               sha256; then LEGACY_FULL's, the 100k corpus under H0 and
+               H6 at -s -om o -qm o -im o -gs 5 (2048 lanes), timed both
+               ways, BYTE-EXACT. K1 at least once a group flush, K2 once a
+               read row, K3 once a batch.
+ 14. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
@@ -125,7 +140,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                rows, timed beside its chain floor). Then on
                that batch K3 and the plain scan timed, the chain floor (K3
                on 32 lanes) and the bound.
- 14. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 15. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -153,7 +168,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound; on the PE batch also the row-end
                PE step (torch ops between K2's launches).
- 15. decode  — the 20k archive through the port's CLI `d` with no
+ 16. k2_legacy — K2's instantiations for the older headers
+               (K2_LEGACY: table cells batch-frozen; ktable cells with the
+               row update under H5 and H6 and batch-frozen; K2 cells
+               batch-frozen, and with the row update under the older
+               writers' knobs) against the plain row step, exact, tables
+               included: encoded random batches (K2_LEGACY_SHAPES: N 8,
+               256 and 2048, grown tables, short word streams) and a
+               sorted one each, then the real second batches of LEGACY's
+               archives; K2, its chain floor, the plain row step and the
+               bound timed on the H0 (original and sorted order), H5 and
+               H6 batches.
+ 17. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -161,8 +187,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
                least once a batch and K2 once a read row. Prints decode
                reads/s, wall time, peak CUDA memory and the launches.
 Then the run's wall time; the last two lines are the kernels' JSON record
-(K1, K2 at the main path's, sorted order's and the PE row's shape, and K3
-for each symbol count) and the result line. K1's launches are those of
+(K1, K2 at the main path's, sorted order's and the PE row's shape, K2's
+table-cell instantiations at H0's original- and sorted-order batches and
+its ktable-cell one at H6's, and K3 for each symbol count) and the result
+line. K1's launches are those of
 the three timed compresses (the main path's, the sorted row's and the PE
 row's) and of [mesh_write]'s four mesh compresses, K3's for 8 symbols
 those of the two timed SE decodes.
@@ -181,7 +209,11 @@ compress_file / compress_pe with snapshot_prefix at the row's budget
 (tests/test_torch_checkpoint.py::test_chip_smoke_resume_digests), the
 MESH_FIXTURES digests from fqsqueezer_tpu.parallel.mesh_pipeline.
 decompress_file_mesh_seq (tests/test_torch_mesh.py::
-test_reference_regenerates_fixture_and_digests).
+test_reference_regenerates_fixture_and_digests), the LEGACY and
+LEGACY_FULL digests from fqsqueezer_tpu.pipeline.compress_file /
+compress_pe at the Params of the reference CLI's parse_args under the
+row's header generation, and decompress_file for the decode digest
+(tests/test_torch_legacy.py::test_chip_smoke_legacy_digests).
 All were computed with the reference package on a CPU.
 """
 from __future__ import annotations
@@ -378,6 +410,59 @@ K2_LCP_SHAPES = ((8, 3, 40), (256, 2, 104), (1024, 4, 104), (2048, 2, 264))
 # (N, pairs a lane, L) of the K2 checks on paired-end batches whose
 # anchored rows copy their anchors (dna_batches.pe_row_inputs)
 K2_PE_SHAPES = ((8, 5, 40), (8, 5, 104), (1024, 2, 104))
+# The older writers' headers (params.HEADER_GENERATIONS: H0 the first
+# writer's batch-frozen table_* tables, ctx v1, id codec v1; H5 and H6 the
+# row-global ktable_* tables, H6 with ctx v2 and the rough rescue):
+# (generation, reads, or pairs with -p, flags, the JAX writer's archive
+# sha256, the JAX decoder's FASTQ sha256 or None where the decode must be
+# the input itself). The first row is the H0 table family's timed batch,
+# the second its sorted one, the fourth the ktable family's.
+LEGACY = (
+    ("H0", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "3190cb6ceeb5bb334e22129227dfa41da8d5671dd4831064b139d8fc27367d6d",
+     None),
+    ("H0", DIGEST_READS, ("-s", "-om", "s", "-qm", "o", "-im", "n", "-gs",
+                          "5"),
+     "8381ecb50a37e4a9be45eff91e7da7a367ce59393dc6350b7af0488ebf76db9b",
+     "647a3c522cdc29f6b130a4d5437b90e8268c4e27d70fade6afcc2bd646416fb3"),
+    ("H5", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "a5af217161531853091a6728794f518a6851c451b79eb2ece311e407b74bbb91",
+     None),
+    ("H6", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "6d127151b38871a25f4c167bc1e617df7eb1935fa213c3210c04a6e658d66d21",
+     None),
+    ("H6", 10_000, ("-p", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5"),
+     "22d26f425c6053d2a22a5fb2546084e374f3f1682e077b25033d182fe85eb0e3",
+     None),
+)
+# the full-width round trips (generation, reads, flags, archive sha256):
+# compress and decode timed, the decode BYTE-EXACT
+LEGACY_FULL = (
+    ("H0", FULL_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                        "5"),
+     "7d9d1073d1d52bcb84db13bcf1247a6b45562e07f97e578b0efa3a2c4e0faa36"),
+    ("H6", FULL_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                        "5"),
+     "ba26cf43a41cfb5ccb15afefc124095e05b1ae73be6f76425e040060d01e7c2a"),
+)
+# the K2 instantiations the older headers add, checked against the plain
+# row step on encoded random batches: (name, generation (None: today's
+# header), batch-frozen tables, other knobs); (N, r_pl, L, grown tables,
+# short word stream) of each check, and (N, r_pl, L) of a sorted batch
+K2_LEGACY = (("table cells, batch-frozen (H0)", "H0", False, {}),
+             ("ktable cells, row update (H5)", "H5", False, {}),
+             ("ktable cells, row update, rough (H6)", "H6", False, {}),
+             ("ktable cells, batch-frozen", "H6", True, {}),
+             ("K2 cells, batch-frozen", None, True, {}),
+             ("K2 cells, row update, the older knobs", None, False,
+              {"ctx_v": 1, "rough": 0, "let_pb2": 0, "mix_w": 0,
+               "prefix_ramp": False, "pmer_gate": 20, "repair_iters": 3}))
+K2_LEGACY_SHAPES = ((8, 2, 104, False, False), (256, 2, 40, True, True),
+                    (2048, 2, 104, False, False))
+K2_LEGACY_SORTED = (256, 2, 104)
 
 
 def bench_params():
@@ -1370,6 +1455,108 @@ def phase_verify():
           f"archive sha256 == reference, decode BYTE-EXACT")
 
 
+def _legacy_params(gen, flags, files):
+    """The Params of an older writer's header (params.header_generation)
+    for `e` with these flags and input files."""
+    from fqsqueezer_tpu_torch import cli
+    from fqsqueezer_tpu_torch.params import header_generation
+
+    return header_generation(cli.parse_args(["e", *flags, "-v", "0",
+                                             *files]), gen)
+
+
+def _legacy_paths(gen, n, flags):
+    """(input files, archive, decoded FASTQs) of a LEGACY row."""
+    tag = f"legacy_{gen}_{n}_{''.join(flags).replace('-', '')}"
+    files = list(_pe_corpus(n)) if "-p" in flags else [_corpus(n)[0]]
+    outs = [os.path.join(WORK, f"{tag}.dec_{k}.fastq")
+            for k in range(1, len(files) + 1)]
+    return files, os.path.join(WORK, f"{tag}.fqst"), outs
+
+
+def _legacy_round_trip(gen, n, flags, want):
+    """Compress one legacy row through pipeline.compress_file (or
+    compress_pe) on the card, hold the archive to the JAX writer's sha256,
+    decode it through the CLI's d; returns (compress s, decode s, K1
+    launches, group flushes, K2 launches, read rows, decoded FASTQs)."""
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed
+
+    files, arc, outs = _legacy_paths(gen, n, flags)
+    p = _legacy_params(gen, flags, files)
+    write = pipeline.compress_pe if "-p" in flags else pipeline.compress_file
+    _reset_launches()
+    _, dt = timed(lambda: write(p, *files, arc))
+    k1 = rans.K1_LAUNCHES
+    groups = _n_groups(arc, p.n_lanes)
+    sha = _sha256(arc)
+    if sha != want or k1 < max(1, groups):
+        raise RuntimeError(f"legacy {gen} `{' '.join(flags)}`: archive "
+                           f"sha256 {sha} != the JAX writer's {want}, or K1 "
+                           f"launched {k1} times in {groups} flushes")
+    _reset_launches()
+    out_args = ["-out", outs[0]] + (["-out2", outs[1]] if len(outs) > 1
+                                    else [])
+    rc, ddt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
+    if rc != 0:
+        raise RuntimeError(f"legacy {gen}: the CLI's d returned {rc}")
+    k3, k2 = _check_decode_launches(arc, p.quality_mode.value != "none",
+                                    f"legacy {gen} `{' '.join(flags)}`")
+    return dt, ddt, k1, groups, k2, _batches_and_rows(arc)[1], outs
+
+
+def _same_bytes(got, want, what):
+    for g, w in zip(got, want):
+        with open(g, "rb") as a, open(w, "rb") as b:
+            if a.read() != b.read():
+                raise RuntimeError(f"{what}: the decode differs from the "
+                                   f"input")
+
+
+def phase_legacy():
+    """Archives of the JAX package's older writers (LEGACY, LEGACY_FULL):
+    each written on the card byte for byte as the JAX writer wrote it,
+    decoded through the CLI's d (no --device: the card) to the input
+    (BYTE-EXACT) or the JAX decoder's FASTQ, K2 launched once a read row
+    (an expanded row with the PE anchors), K1 at least once a group
+    flush. The 100k rows are timed both ways. Returns the K2 launches of
+    the 100k H0 and H6 decodes and of the sorted H0 one."""
+    launches = {}
+    for gen, n, flags, want, want_dec in LEGACY:
+        dt, ddt, k1, groups, k2, rows, outs = _legacy_round_trip(
+            gen, n, flags, want)
+        files = _legacy_paths(gen, n, flags)[0]
+        if want_dec is None:
+            _same_bytes(outs, files, f"legacy {gen} `{' '.join(flags)}`")
+            how = "BYTE-EXACT"
+        elif _sha256(outs[0]) != want_dec:
+            raise RuntimeError(f"legacy {gen} `{' '.join(flags)}`: decode "
+                               f"sha256 {_sha256(outs[0])} != the JAX "
+                               f"decoder's {want_dec}")
+        else:
+            how = "sha256 == the JAX decoder's"
+        if flags[flags.index("-om") + 1] == "s":
+            launches["H0 sorted"] = k2
+        print(f"[legacy] {gen} {n} {'pairs' if '-p' in flags else 'reads'} "
+              f"`{' '.join(flags)}`: archive sha256 == the JAX writer's, "
+              f"decode {how}; e {dt:.2f} s (K1 {k1} in {groups} flushes), "
+              f"d {ddt:.2f} s (K2 {k2} for {rows} rows)")
+    for gen, n, flags, want in LEGACY_FULL:
+        files = _legacy_paths(gen, n, flags)[0]
+        dt, ddt, k1, groups, k2, rows, outs = _legacy_round_trip(
+            gen, n, flags, want)
+        _same_bytes(outs, files, f"legacy {gen} {n}")
+        launches[gen] = k2
+        print(f"[legacy] {gen} {n} reads `{' '.join(flags)}` "
+              f"({_legacy_params(gen, flags, files).n_lanes} lanes): "
+              f"archive sha256 == the JAX writer's, decode BYTE-EXACT; "
+              f"compress {n / dt:.1f} reads/s ({dt:.3f} s, K1 {k1} in "
+              f"{groups} flushes), decode {n / ddt:.1f} reads/s "
+              f"({ddt:.3f} s, K2 {k2} for {rows} read rows)")
+    return launches
+
+
 def _k3_check(cfg, model, lengths, words, init, L, what):
     """K3 == the plain scan on the card, exactly; returns K3's outputs."""
     import torch
@@ -1565,6 +1752,77 @@ def phase_k2():
     return out
 
 
+def _k2_timed(key, batch, rows):
+    """K2, its chain floor, the plain row step and the bound on one real
+    batch's checked rows; prints them and returns the kernels line's
+    numbers."""
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.tools import k2_compare as k2c
+
+    args = [a for a, _ in rows]
+    ms = k2c.replay_ms(args, reps=20)
+    floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
+    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a) for a in args], 2)
+    bound_ms, bound_by = k2c.k2_bound_ms(rows)
+    cfg, L = batch[0], batch[5]
+    steps = len(rows) * L
+    print(f"[k2] {key} (N={cfg.n_lanes}, {len(rows)} rows, L={L}): K2 "
+          f"{ms:.4f} ms a batch ({ms / steps * 1e3:.2f} us a step), chain "
+          f"floor ({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by}")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "chain_floor_ms": floor_ms}
+
+
+def phase_k2_legacy():
+    """The K2 instantiations of the older headers (K2_LEGACY) == the plain
+    row step on encoded random batches and on the real batches of the
+    [legacy] archives; times the table family's (H0, original and sorted
+    order) and the ktable family's (H5, H6) real batches. Returns the
+    kernels line's numbers of those four."""
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.tools import k2_compare as k2c
+    from fqsqueezer_tpu_torch.utils import dna_batches as db
+
+    n_checks = 0
+    for name, gen, frozen, knobs in K2_LEGACY:
+        for seed, (N, r_pl, L, grow, short) in enumerate(K2_LEGACY_SHAPES):
+            cfg = (db.legacy_dna_config(gen, N) if gen
+                   else db.bench_dna_config(N))
+            cfg = dataclasses.replace(
+                cfg, smer_log2_buckets=db.LOG2_BUCKETS,
+                bmer_log2_buckets=db.LOG2_BUCKETS, **knobs)
+            if frozen:
+                cfg = dataclasses.replace(cfg, row_global=False, rough=0)
+            k2c.check_rows(*db.dna_decode_inputs(
+                40 + seed, N, r_pl, L, "cuda", grow, short, cfg=cfg), L,
+                what=f"{name} N={N} r_pl={r_pl} L={L} grown={grow} "
+                     f"short={short}")
+            n_checks += 1
+        N, r_pl, L = K2_LEGACY_SORTED
+        cfg = dataclasses.replace(cfg, n_lanes=N)
+        *batch, lcp = db.dna_decode_inputs(50, N, r_pl, L, "cuda",
+                                           sorted_reads=True, cfg=cfg)
+        k2c.check_rows(*batch, L, lcp, what=f"{name}, sorted N={N}")
+        n_checks += 1
+    out = {}
+    for k, (gen, n, flags, _, _) in enumerate(LEGACY):
+        batch = k2c.real_dna_batch(_legacy_paths(gen, n, flags)[1])
+        rows = k2c.check_rows(*batch, what=f"the legacy {gen} "
+                                           f"`{' '.join(flags)}` batch")
+        n_checks += 1
+        if k < 4:
+            key = f"{gen} sorted" if k == 1 else gen
+            out[key] = _k2_timed(f"the legacy {key} batch", batch, rows)
+    print(f"[k2] the older headers' instantiations exact on {n_checks} "
+          f"batches ({len(K2_LEGACY)} kinds x random, sorted; the "
+          f"{len(LEGACY)} [legacy] archives' real batches), tables "
+          f"included")
+    return out
+
+
 def _batches_and_rows(arc):
     """(batches, read rows) an archive holds (the port's own reader): one
     K3 launch a batch, one K2 launch a read row (an expanded row, with the
@@ -1696,8 +1954,10 @@ def main() -> int:
     phase_resume()
     phase_mesh()
     mesh_k1 = phase_mesh_write()
+    legacy_k2 = phase_legacy()
     k3 = phase_k3()
     k2 = phase_k2()
+    k2.update(phase_k2_legacy())
     k3_launches[8], k2_launches = phase_decode()
     k3_launches[8] += sorted_k3
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -1723,7 +1983,22 @@ def main() -> int:
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
-        "launches": pe_k2, **k2["pe"]}] + [{
+        "launches": pe_k2, **k2["pe"]}, {
+        "name": "dna_decode_row (K2, table cells, batch-frozen: the H0 "
+                "header)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": legacy_k2["H0"], **k2["H0"]}, {
+        "name": "dna_decode_row (K2, table cells, batch-frozen, sorted "
+                "order: the H0 header)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": legacy_k2["H0 sorted"], **k2["H0 sorted"]}, {
+        "name": "dna_decode_row (K2, ktable cells, row update: the H6 "
+                "header)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": legacy_k2["H6"], **k2["H6"]}] + [{
         "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode})",
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",

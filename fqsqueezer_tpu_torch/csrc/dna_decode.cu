@@ -4,23 +4,36 @@
 // Replaces the XLA scan of fqsqueezer_tpu/streams/dna.py: dna_decode_batch
 // (its `outer` scan over read rows around the `inner` step over positions;
 // the JAX package has no Pallas kernel on the decode side). Its plain
-// version is streams/dna.py:dna_decode_row_plain, step for step, for the
-// header the JAX writer stores (dna.check_supported: ctx v2, rough rescue,
-// let_pb2, two-level mix, prefix ramp, no pmer gate, one repair). For lane
-// n at position i of the row:
-//   finds    SIV word of pkey; the canonical s and b queries (canon strand,
-//            hash bucket and tag, 4 end-letter slots) into the K2 tables,
-//            one 32-byte row each, the bucket widened by the tag's growth
-//            bits when the table has grown
-//   ramp     at prefix_len <= i < siv_len-1 the SIV ranges of the decoded
-//            prefix replace the SIV counts (SWAR byte folds)
-//   combine  the cascade (b, mixed, s, SIV); at i >= s_w the rough rescue:
-//            srun counts s/b misses, 3 single-base substitutions of the s
-//            window at the suspect offset, one s find each
+// version is streams/dna.py:dna_decode_row_plain, step for step, for every
+// header dna.check_supported admits. Template parameters: the s/b table
+// family (kFam: K2 cells, rows of 4 tag24|count8 words; ktable cells, 6-word
+// rows of 4 tags and 4 u16 counters; or the first writer's context-keyed
+// table cells, 16-word rows of 8 tags and 8 u8x4 count words; each u32 word
+// held in an int64), whether the row updates the tables (kRowUpdate:
+// row-global headers; batch-frozen ones update them once a batch, outside
+// the kernel), sorted order's prefix copy (kLcp), and whether the header's
+// knobs are the JAX writer's of today (kToday: compile-time constants);
+// otherwise the knobs, uniform over a launch, come in Args. For lane n at
+// position i of the row:
+//   finds    SIV word of pkey (at i < pmer_gate when the gate is set); the
+//            s and b queries — canonical (canon strand, hash bucket and
+//            tag, 4 end-letter slots) or, in context-keyed tables, the
+//            forward (k-1)-base window's bucket and tag — one table row
+//            each, the bucket widened by the tag's growth bits when the
+//            table has grown
+//   ramp     with the prefix ramp, at prefix_len <= i < siv_len-1 the SIV
+//            ranges of the decoded prefix replace the SIV counts (SWAR
+//            byte folds)
+//   combine  the cascade (b, mixed, s, SIV); with the rough rescue, at i >=
+//            s_w: srun counts s/b misses, 3 single-base substitutions of
+//            the s window at the suspect offset, one s find each
 //   context  sorted counts quantized, position bucket, rank-miss history,
-//            previous level class; or the letters context
-//   cdf      fine row ctx and coarse row mixed: w_eff = w*b/(tf+b), cells
-//            f + g*w_eff/(tg+A) + 1, boundaries (cum << SB) / total
+//            previous level class (ctx v2), in the layout of the header
+//            (rough: 23 bits, v2: 22, v1: 20); or the letters context,
+//            its position bucket coarse (pb >> 2) under let_pb2
+//   cdf      with the two-level mix, fine row ctx and coarse row mixed:
+//            w_eff = w*b/(tf+b), cells f + g*w_eff/(tg+A) + 1; without it
+//            cells f + 1; boundaries (cum << SB) / total
 //   decode   the masked max/min lookup, x = f*(x >> SB) + slot - c, and the
 //            lanes that renormalize take consecutive words of ONE stream in
 //            lane order: an exclusive scan over all N lanes at every step
@@ -33,22 +46,29 @@
 //            counts coded positions only. A template parameter (kLcp)
 //            keeps the prefix code out of original order's kernel.
 //   repair   on the cascade's counts from before the rough rescue, at most
-//            once a row; then the rolls of pkey, the s/b windows, their
-//            reverse complements, the letters and rank histories
+//            repair_iters times a row; then the rolls of pkey, the s/b
+//            windows, their reverse complements, the letters and rank
+//            histories
 //   out      base, eff (kc), ctx and sym of position i, int64 [N, L]
-//   events   at i >= k - 1 (k = smer_len, then bmer_len) and i < length:
-//            the row's canonical s-mer and b-mer insert event, whose key is
-//            the find's own query with the decoded kc as its candidate;
-//            its tables.k2_update decision (cell index, new word) is taken
-//            from the cells the find loaded
+//   events   (kRowUpdate) at i >= k - 1 (k = smer_len, then bmer_len) and
+//            i < length: the row's canonical s-mer and b-mer insert event,
+//            whose key is the find's own query with the decoded kc as its
+//            candidate; its update decision is taken from the cells the
+//            find loaded
 // and after the row's last position, the row's s/b table update (the end
 // of the reference's `outer` step, _apply_sb_updates): every decision was
 // taken against the row-start tables, one cluster barrier follows the
-// scan, and then every lane max-es its decisions into the tables with
-// 64-bit atomics, in place. That is k2_update's one gather and one
-// scatter-max: duplicate events of one key raise its count once, new keys
-// that pick one empty slot leave the larger word, a new key whose
-// row-start bucket is full is dropped, counts saturate at 255.
+// scan, and then every lane applies its decisions to the tables with
+// atomics, in place. K2 cells: k2_update's one gather and one scatter-max,
+// as 64-bit atomicMax of (cell index, new word): duplicate events of one
+// key raise its count once, new keys that pick one empty slot leave the
+// larger word, a new key whose row-start bucket is full is dropped, counts
+// saturate at 255. ktable cells: ktable_update's claim and add, as a
+// 32-bit atomicMax of the tag into the claimed cell and a 32-bit atomicAdd
+// of 1 << 16*(cell & 1) into the counter word of the decided cell; the add
+// goes there even where another key won the claim, and a counter at 0xFFFF
+// carries into its neighbour or out of the word, as the reference's u32
+// add does (the low half of the int64 word, whose high half stays 0).
 // x, ptr, pkey and the six window registers carry in and out (across rows,
 // as the reference's outer carry); lh, rh, rep_cnt, prevc and srun start
 // afresh each row. At i >= k - 1 the masked window registers hold only
@@ -71,8 +91,9 @@
 //    is stored into every block of the cluster, double-buffered by step
 //    parity, then ONE cluster barrier a step; each warp scans the at most
 //    64 warp totals from its own shared memory with shuffles.
-//  * Tables are read in place: a K2 row as two 16-byte loads, the SIV word
-//    and the model's 20-byte rows as 4-byte loads. Masked lanes read no
+//  * Tables are read in place: a table row as 16-byte loads (two for K2,
+//    three for ktable, eight for table rows), the SIV word and the model's
+//    20-byte rows as 4-byte loads. Masked lanes read no
 //    table row, but still read the letters context's model rows: the plain
 //    version writes the looked-up symbol of every lane.
 //  * The rough probes' three s rows are loaded beside the finds' rows,
@@ -88,11 +109,11 @@
 //    eight of them at once, then issues their atomics
 //    (fire-and-forget reductions).
 // Preconditions (the wrapper checks the shapes and 0 <= lcp <= length; the
-// other values are what the codec stores): K2 cells, SIV words, states and window registers are u32
-// values (the registers masked to their windows); model rows are
-// model_update's, smoothed totals at most 2^13, so with w*b < 2^31 and
-// w <= 2^18 every product and boundary of the cdf fits 32 bits; the s and
-// b tables do not overlap (they are updated in place).
+// other values are what the codec stores): table words, SIV words, states
+// and window registers are u32 values (the registers masked to their
+// windows); model rows are model_update's, smoothed totals at most 2^13, so
+// with w*b < 2^31 and w <= 2^18 every product and boundary of the cdf fits
+// 32 bits; the s and b tables do not overlap (they are updated in place).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cstring>
@@ -121,16 +142,21 @@ constexpr int kNone = 0, kPmer = 1, kSmer = 2, kMixed = 3, kBmer = 4,
               kRsmer = 5;
 constexpr uint32_t kLhMask = (1u << 15) - 1u;
 constexpr uint32_t kLhReset = 0b101101101101101u;
-constexpr int kCtxBits = 23;         // CODE_CTX_BITS_ROUGH
 constexpr int kLetBits = 19;         // LET_CTX_BITS
-constexpr uint32_t kCoarseCode = 1u << 10;   // N_COARSE_CODE_ROUGH
+// the s/b table families (dna.FAMILIES) and their row widths in words
+constexpr int kFamK2 = 0, kFamKtable = 1, kFamTable = 2;
+template <int kFam>
+__host__ __device__ constexpr int row_words() {
+  return kFam == kFamK2 ? 4 : kFam == kFamKtable ? 6 : 16;
+}
 
 // The launch's arguments, in the order of K2_ARGS in streams/dna.py.
 struct Args {
   const int64_t* siv;       // [4^(siv_len-1)] u32 words
-  int64_t* s_tc;            // [2^s_log2_rows, 4] u32 cells, updated in place
-  int64_t* b_tc;            // [2^b_log2_rows, 4]
-  const int32_t* model;     // [n_model_ctx + n_coarse_ctx, 5]
+  int64_t* s_tc;            // [2^s_log2_rows, row_words] u32 words
+  int64_t* b_tc;            // [2^b_log2_rows, row_words]; row-global:
+                            // updated in place
+  const int32_t* model;     // [n_model_ctx (+ n_coarse_ctx with the mix), 5]
   const int64_t* lengths;   // [N]
   const int32_t* words;     // [n_words] u16 values
   const int64_t* x_in;      // [N]
@@ -150,11 +176,16 @@ struct Args {
   int64_t n_words, N, L, siv_len, smer_len, bmer_len, prefix_len, sb;
   int64_t s_log2_rows, s_log2_base, b_log2_rows, b_log2_base, mix_w, mix_b;
   uint64_t* events;         // [2, L, N] scratch: the s, then b decisions
+  // the header's knobs: the table family (kFam), whether the row updates
+  // the tables (kRowUpdate), the context version, the rough rescue, coarse
+  // letters' position buckets, the prefix ramp, the pmer gate (0: none),
+  // repairs a row
+  int64_t family, row_update, ctx_v, rough, let_pb2, prefix_ramp, pmer_gate,
+      repair_iters;
 };
 constexpr int kNArgs = sizeof(Args) / sizeof(int64_t);
 static_assert(sizeof(void*) == sizeof(int64_t), "64-bit pointers");
 // regs rows: pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi (u32 halves)
-constexpr int kRepairIters = 1;   // the header's dna_repair_iters
 
 __device__ __forceinline__ uint64_t bases_mask(int n) {
   return n >= 32 ? ~0ull : (1ull << (2 * n)) - 1ull;
@@ -177,14 +208,17 @@ __device__ __forceinline__ uint32_t hash_tag(uint32_t lo, uint32_t hi) {
   return t | 0x80000000u;
 }
 
-// A canonical 4-candidate query of a width-k table: its (grown) bucket row
-// and each candidate's cell tag word (tables.k2tag << 8).
+// A query of a width-k table: its (grown) bucket row and each candidate's
+// cell tag (K2: tables.k2tag << 8; ktable: the 32-bit tag); a
+// context-keyed table's query has one tag, tw[0].
 struct Query {
   uint32_t row;
   uint32_t tw[4];
 };
 
-// c: the (k-1)-base context window, r: its reverse complement.
+// The canonical query, c: the (k-1)-base context window, r: its reverse
+// complement.
+template <int kFam>
 __device__ __forceinline__ Query canon_query(uint64_t c, uint64_t r, int k,
                                              int log2_base, int log2_rows) {
   const uint64_t m = bases_mask(k - 2);
@@ -205,37 +239,87 @@ __device__ __forceinline__ Query canon_query(uint64_t c, uint64_t r, int k,
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
     const uint32_t slot = s ? 4u * (3u - b) + (3u - c0) : 4u * c0 + b;
-    q.tw[b] = twb | slot << 8;
+    q.tw[b] = kFam == kFamK2 ? twb | slot << 8 : mt | slot;
   }
   return q;
 }
 
-// One bucket row of a K2 table: two 16-byte loads, the four u32 cells.
-__device__ __forceinline__ void load_cells(const int64_t* tc, uint32_t row,
-                                           uint32_t cell[4]) {
-  const longlong2* p = reinterpret_cast<const longlong2*>(tc) +
-                       2 * static_cast<size_t>(row);
-  const longlong2 a = __ldg(p);
-  const longlong2 b = __ldg(p + 1);
-  cell[0] = static_cast<uint32_t>(a.x);
-  cell[1] = static_cast<uint32_t>(a.y);
-  cell[2] = static_cast<uint32_t>(b.x);
-  cell[3] = static_cast<uint32_t>(b.y);
+// The context-keyed query (tables.table_find): the window c's (lo, hi)
+// halves hash to the bucket at creation size, widened by the tag's bits
+// [23, 27) once the table has grown.
+__device__ __forceinline__ Query context_query(uint64_t c, int log2_base,
+                                               int log2_rows) {
+  const uint32_t lo = static_cast<uint32_t>(c);
+  const uint32_t hi = static_cast<uint32_t>(c >> 32);
+  Query q = {};
+  q.tw[0] = hash_tag(lo, hi);
+  q.row = hash_bucket(lo, hi, log2_base);
+  const int grow = log2_rows - log2_base;
+  if (grow > 0) q.row |= ((q.tw[0] >> 23) & ((1u << grow) - 1u)) << log2_base;
+  return q;
 }
 
-// tables.k2_find on a loaded row: the 4 candidates' summed counts over the
-// row's matching cells; returns whether any cell matched.
-__device__ __forceinline__ bool k2_count(const uint32_t cell[4],
-                                         const Query& q, uint32_t cnt[4]) {
+// The s or b query of a family: canonical, or context-keyed.
+template <int kFam>
+__device__ __forceinline__ Query make_query(uint64_t c, uint64_t r, int k,
+                                            int log2_base, int log2_rows) {
+  if constexpr (kFam == kFamTable) {
+    return context_query(c, log2_base, log2_rows);
+  } else {
+    return canon_query<kFam>(c, r, k, log2_base, log2_rows);
+  }
+}
+
+// One bucket row of a table: its row_words<kFam>() u32 words, as 16-byte
+// loads of int64 pairs.
+template <int kFam>
+__device__ __forceinline__ void load_cells(const int64_t* tc, uint32_t row,
+                                           uint32_t* cell) {
+  constexpr int kW = row_words<kFam>();
+  const longlong2* p = reinterpret_cast<const longlong2*>(tc) +
+                       (kW / 2) * static_cast<size_t>(row);
+#pragma unroll
+  for (int k = 0; k < kW / 2; ++k) {
+    const longlong2 a = __ldg(p + k);
+    cell[2 * k] = static_cast<uint32_t>(a.x);
+    cell[2 * k + 1] = static_cast<uint32_t>(a.y);
+  }
+}
+
+// The find on a loaded row (tables.k2_find, ktable_find, table_find): the 4
+// candidates' counts; returns whether any cell matched.
+template <int kFam>
+__device__ __forceinline__ bool row_count(const uint32_t* cell,
+                                          const Query& q, uint32_t cnt[4]) {
   bool found = false;
+  if constexpr (kFam == kFamTable) {
+    // the matching cells' u8x4 count words, summed as u32
+    uint32_t word = 0;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    cnt[c] = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if ((cell[j] & 0xFFFFFF00u) == q.tw[c]) {
-        cnt[c] += cell[j] & 0xFFu;
+    for (int j = 0; j < 8; ++j) {
+      if (cell[j] == q.tw[0]) {
+        word += cell[8 + j];
         found = true;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 4; ++b) cnt[b] = (word >> (8 * b)) & 0xFFu;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      cnt[c] = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kFam == kFamK2) {
+          if ((cell[j] & 0xFFFFFF00u) == q.tw[c]) {
+            cnt[c] += cell[j] & 0xFFu;
+            found = true;
+          }
+        } else if (cell[j] == q.tw[c]) {   // a u16 counter, clipped to 255
+          const uint32_t c16 = (cell[4 + j / 2] >> (16 * (j & 1))) & 0xFFFFu;
+          cnt[c] += c16 < 255u ? c16 : 255u;
+          found = true;
+        }
       }
     }
   }
@@ -245,6 +329,7 @@ __device__ __forceinline__ bool k2_count(const uint32_t cell[4],
 // The query of rough probe k (0..2): the s window Sm (its reverse
 // complement RS) with the base at offset `age` replaced by the k-th of the
 // three others.
+template <int kFam>
 __device__ __forceinline__ Query rough_query(uint64_t Sm, uint64_t RS,
                                              int age, uint32_t k, int s_w,
                                              int smer, int lb, int lr) {
@@ -255,7 +340,7 @@ __device__ __forceinline__ Query rough_query(uint64_t Sm, uint64_t RS,
   const uint64_t Sj = (Sm & ~(3ull << a2)) | static_cast<uint64_t>(ju) << a2;
   const uint64_t Rj = (RS & ~(3ull << d2)) |
                       static_cast<uint64_t>(3u - ju) << d2;
-  return canon_query(Sj, Rj, smer, lb, lr);
+  return canon_query<kFam>(Sj, Rj, smer, lb, lr);
 }
 
 // The tag word of candidate b (a register select, not an indexed array).
@@ -296,6 +381,42 @@ __device__ __forceinline__ uint64_t k2_decide(const uint32_t cell[4],
     v = tw | 1u;
   }
   return static_cast<uint64_t>(row * 4u + d) << 32 | v;
+}
+
+// tables.ktable_update's decision for one insert event (tag tw) against its
+// bucket row's row-start cells: (what << 32 | row * 4 + cell), what = 1
+// for a found key (its first matching cell: the add only), the tag for a
+// new key (the first empty cell after rotating the empty mask by j =
+// ((tag >> 13) ^ tag) & 3: the claim and the add; a tag has bit 31 set, so
+// it is never 1), or 0 when the key is new and the row has no empty cell
+// (the event is dropped).
+__device__ __forceinline__ uint64_t kt_decide(const uint32_t cell[6],
+                                              uint32_t row, uint32_t tw) {
+  uint32_t bm = 0, d = 4;
+#pragma unroll
+  for (int c = 3; c >= 0; --c) {
+    if (cell[c] == tw) d = c;
+    bm |= (cell[c] == 0u ? 1u : 0u) << c;
+  }
+  uint32_t what = 1;
+  if (d == 4) {
+    if (bm == 0) return 0;
+    const uint32_t j = ((tw >> 13) ^ tw) & 3u;
+    const uint32_t rot = ((bm >> j) | (bm << (4u - j))) & 0xFu;
+    d = (j + static_cast<uint32_t>(__ffs(rot)) - 1u) & 3u;
+    what = tw;
+  }
+  return static_cast<uint64_t>(what) << 32 | (row * 4u + d);
+}
+
+template <int kFam>
+__device__ __forceinline__ uint64_t decide(const uint32_t* cell, uint32_t row,
+                                           uint32_t tw) {
+  if constexpr (kFam == kFamK2) {
+    return k2_decide(cell, row, tw);
+  } else {
+    return kt_decide(cell, row, tw);
+  }
 }
 
 __device__ __forceinline__ void unpack4(uint32_t w, uint32_t c[4]) {
@@ -352,9 +473,11 @@ __device__ __forceinline__ void load_row(const int32_t* __restrict__ model,
 
 // One lane's row update into one table: its decisions of positions
 // [from, end) (stride N), kEventBatch loads in flight before their
-// atomics (a decision of 0 is a dropped event).
-__device__ __forceinline__ void apply_events(const uint64_t* ev,
-                                             unsigned long long* cells,
+// atomics. K2: (cell << 32 | word), a word of 0 a dropped event; ktable:
+// kt_decide's, 0 a dropped event. The atomics work on the u32 value in the
+// low half of each int64 word.
+template <int kFam>
+__device__ __forceinline__ void apply_events(const uint64_t* ev, int64_t* tc,
                                              int from, int end, int N) {
   for (int i0 = from; i0 < end; i0 += kEventBatch) {
     uint64_t e[kEventBatch];
@@ -362,16 +485,36 @@ __device__ __forceinline__ void apply_events(const uint64_t* ev,
     for (int u = 0; u < kEventBatch; ++u)
       e[u] = i0 + u < end ? ev[static_cast<size_t>(i0 + u) * N] : 0ull;
 #pragma unroll
-    for (int u = 0; u < kEventBatch; ++u)
-      if (static_cast<uint32_t>(e[u]) != 0u)
-        atomicMax(cells + (e[u] >> 32), e[u] & 0xFFFFFFFFull);
+    for (int u = 0; u < kEventBatch; ++u) {
+      if constexpr (kFam == kFamK2) {
+        if (static_cast<uint32_t>(e[u]) != 0u)
+          atomicMax(reinterpret_cast<unsigned long long*>(tc) + (e[u] >> 32),
+                    e[u] & 0xFFFFFFFFull);
+      } else if (e[u] != 0ull) {
+        const uint32_t what = static_cast<uint32_t>(e[u] >> 32);
+        const uint32_t rc = static_cast<uint32_t>(e[u]);
+        const size_t row = rc >> 2, d = rc & 3u;
+        if (what != 1u)   // a new key's claim of its cell
+          atomicMax(reinterpret_cast<unsigned int*>(tc + row * 6 + d), what);
+        atomicAdd(reinterpret_cast<unsigned int*>(tc + row * 6 + 4 + d / 2),
+                  1u << (16 * (d & 1)));
+      }
+    }
   }
 }
 
-// kLcp: the row copies prefixes (sorted order; a.lcp and a.src are set).
-template <bool kLcp>
+// kFam: the table family; kRowUpdate: the row updates the tables
+// (row-global headers); kLcp: the row copies prefixes (sorted order; a.lcp
+// and a.src are set); kToday: the header's knobs are the ones the JAX
+// writer stores today (rough rescue, ctx v2, coarse letters' buckets,
+// prefix ramp, two-level mix, no pmer gate, one repair), compile-time
+// constants instead of Args values: with them loaded from Args the main
+// path's kernel took 127 registers against 119 and 8.5% longer a batch
+// (NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
+template <int kFam, bool kRowUpdate, bool kLcp, bool kToday>
 __global__ void __launch_bounds__(kThreads)
     dna_decode_row_kernel(const Args a) {
+  constexpr int kW = row_words<kFam>();
   __shared__ fqtz::ScanSmem scan_sm;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -394,11 +537,22 @@ __global__ void __launch_bounds__(kThreads)
   const int s_lb = static_cast<int>(a.s_log2_base);
   const int b_lr = static_cast<int>(a.b_log2_rows);
   const int b_lb = static_cast<int>(a.b_log2_base);
+  const bool mix = kToday || a.mix_w > 0;
   const uint32_t wb = static_cast<uint32_t>(a.mix_w * a.mix_b);
   const uint32_t mix_b = static_cast<uint32_t>(a.mix_b);
   const uint64_t pm_mask = bases_mask(siv_len - 1);
   const uint64_t s_mask = bases_mask(s_w), b_mask = bases_mask(b_w);
-  const uint32_t n_model_ctx = (1u << kCtxBits) + (1u << kLetBits);
+  // the header's knobs (uniform over the launch)
+  const bool rough = kToday || a.rough != 0;
+  const bool ctx_v2 = kToday || a.ctx_v >= 2;
+  const bool let_pb2 = kToday || a.let_pb2 != 0;
+  const bool ramp = kToday || a.prefix_ramp != 0;
+  const int pmer_gate = kToday ? 0 : static_cast<int>(a.pmer_gate);
+  const int repair_iters = kToday ? 1 : static_cast<int>(a.repair_iters);
+  // _ctx_bits: the code contexts' width, the letters' rows above them
+  const int ctx_bits = rough ? 23 : ctx_v2 ? 22 : 20;
+  const uint32_t n_model_ctx = (1u << ctx_bits) + (1u << kLetBits);
+  const uint32_t coarse_code = rough ? 1u << 10 : 1u << 9;  // N_COARSE_CODE*
   const uint32_t slot_mask = (1u << sb) - 1u;
 
   // carried registers
@@ -443,12 +597,13 @@ __global__ void __launch_bounds__(kThreads)
     const bool vb = active && i >= b_w;
     // what the step's second half reads of the first
     uint32_t counts_g[4], counts[4], sym = 0, ctx_all = 0;
-    uint32_t scell[4] = {0, 0, 0, 0}, bcell[4] = {0, 0, 0, 0};
+    uint32_t scell[kW] = {}, bcell[kW] = {};
     Query qs = {}, qb = {};
     int level_g = kNone, level = kNone;
     bool use_code = false, take = false;
     if (live) {   // lanes past N only take part in the scan
-      const bool vp = active && i >= siv_len - 1;
+      const bool vp =
+          active && i >= siv_len - 1 && (pmer_gate <= 0 || i < pmer_gate);
       const uint64_t Sm = S & s_mask;
       const uint64_t Bm = B & b_mask;
 
@@ -460,31 +615,35 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t pword =
           vp ? static_cast<uint32_t>(__ldg(a.siv + (pkey & pm_mask))) : 0u;
       if (vs || vb) {   // a b hit of two or more candidates adds the s counts
-        qs = canon_query(Sm, RS, smer, s_lb, s_lr);
-        load_cells(a.s_tc, qs.row, scell);
+        qs = make_query<kFam>(Sm, RS, smer, s_lb, s_lr);
+        load_cells<kFam>(a.s_tc, qs.row, scell);
       }
       if (vb) {
-        qb = canon_query(Bm, RB, bmer, b_lb, b_lr);
-        load_cells(a.b_tc, qb.row, bcell);
+        qb = make_query<kFam>(Bm, RB, bmer, b_lb, b_lr);
+        load_cells<kFam>(a.b_tc, qb.row, bcell);
       }
-      // the rough probes' rows, on the guess that the step misses: a miss
-      // probes at age srun (the run before it), if that is below s_w
-      uint32_t pcell[3][4];
+      // the rough probes' rows (canonical tables), on the guess that the
+      // step misses: a miss probes at age srun (the run before it), if
+      // that is below s_w
+      uint32_t pcell[3][kW];
       Query pq[3];
-      if (vs && srun <= s_w - 1) {
+      if constexpr (kFam != kFamTable) {
+        if (rough && vs && srun <= s_w - 1) {
 #pragma unroll
-        for (uint32_t k = 0; k < 3; ++k) {
-          pq[k] = rough_query(Sm, RS, srun, k, s_w, smer, s_lb, s_lr);
-          load_cells(a.s_tc, pq[k].row, pcell[k]);
+          for (uint32_t k = 0; k < 3; ++k) {
+            pq[k] =
+                rough_query<kFam>(Sm, RS, srun, k, s_w, smer, s_lb, s_lr);
+            load_cells<kFam>(a.s_tc, pq[k].row, pcell[k]);
+          }
         }
       }
       unpack4(pword, cp);
       fp = (cp[0] + cp[1] + cp[2] + cp[3]) > 0;
-      if (vs || vb) fs = k2_count(scell, qs, cs) && vs;
-      if (vb) fb = k2_count(bcell, qb, cb);
+      if (vs || vb) fs = row_count<kFam>(scell, qs, cs) && vs;
+      if (vb) fb = row_count<kFam>(bcell, qb, cb);
 
       // --- prefix ramp ---
-      if (active && i >= prefix_len && i < siv_len - 1) {
+      if (ramp && active && i >= prefix_len && i < siv_len - 1) {
         const int free = siv_len - 2 - i;
         const uint64_t pfx = pkey & bases_mask(i);
         const uint64_t span = 1ull << (2 * free);
@@ -523,7 +682,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) counts[c] = counts_g[c];
       level = level_g;
-      if (i >= s_w) {   // rough rescue
+      if (kFam != kFamTable && rough && i >= s_w) {   // rough rescue
+        // (canonical tables only: the rough rescue needs row-global
+        // canonical tables, and table rows are never probed)
         const bool miss = vs && !fs && !fb;
         srun = miss ? srun + 1 : 0;
         const int age = srun - 1;
@@ -532,7 +693,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (uint32_t k = 0; k < 3; ++k) {
             uint32_t c4[4];
-            k2_count(pcell[k], pq[k], c4);
+            row_count<kFam>(pcell[k], pq[k], c4);
 #pragma unroll
             for (int c = 0; c < 4; ++c) acc[c] += c4[c];
           }
@@ -567,31 +728,45 @@ __global__ void __launch_bounds__(kThreads)
         swap_desc(v0, v2);
         swap_desc(v1, v3);
         swap_desc(v1, v2);
-        const uint32_t lev = level == kRsmer ? 4u
-                                             : static_cast<uint32_t>(level - 1);
         const uint32_t nz = min(static_cast<uint32_t>(__popc(rh)), 4u);
-        ctx_all = lev | quant0(v0) << 3 | quant1(v1) << 7 | quant23(v2) << 10 |
-                  quant23(v3) << 12 | pb << 14 | nz << 18 | prevc << 21;
+        const uint32_t q = quant0(v0), q1 = quant1(v1), q2 = quant23(v2),
+                       q3 = quant23(v3);
+        if (rough) {   // a 3-bit level field
+          const uint32_t lev = level == kRsmer
+                                   ? 4u
+                                   : static_cast<uint32_t>(level - 1);
+          ctx_all = lev | q << 3 | q1 << 7 | q2 << 10 | q3 << 12 | pb << 14 |
+                    nz << 18 | prevc << 21;
+        } else {
+          ctx_all = static_cast<uint32_t>(level - 1) | q << 2 | q1 << 6 |
+                    q2 << 9 | q3 << 11 | pb << 13 | nz << 17 |
+                    (ctx_v2 ? prevc << 20 : 0u);
+        }
       } else {
-        ctx_all = (1u << kCtxBits) + ((lh & kLhMask) | (pb >> 2) << 15);
+        ctx_all = (1u << ctx_bits) +
+                  ((lh & kLhMask) | (let_pb2 ? pb >> 2 : pb) << 15);
       }
 
-      // --- cdf: the fine row mixed with its coarse parent ---
-      const uint32_t cctx =
-          ctx_all >= (1u << kCtxBits)
-              ? kCoarseCode + ((ctx_all & 0x3Fu) | ((ctx_all >> 15) & 0xFu) << 6)
-              : ctx_all & 0x3FFu;
-      uint32_t f5[kA], g5[kA];
+      // --- cdf: the fine row, mixed with its coarse parent ---
+      uint32_t f5[kA], g5[kA] = {0, 0, 0, 0, 0};
       load_row(a.model, ctx_all, f5);
-      load_row(a.model, n_model_ctx + cctx, g5);
-      uint32_t tf = 0, tg = 0;
+      uint32_t w_eff = 0, gden = 1;
+      if (mix) {
+        const uint32_t cctx =
+            ctx_all >= (1u << ctx_bits)
+                ? coarse_code +
+                      ((ctx_all & 0x3Fu) | ((ctx_all >> 15) & 0xFu) << 6)
+                : ctx_all & (coarse_code - 1u);
+        load_row(a.model, n_model_ctx + cctx, g5);
+        uint32_t tf = 0, tg = 0;
 #pragma unroll
-      for (int k = 0; k < kA; ++k) {
-        tf += f5[k];
-        tg += g5[k];
+        for (int k = 0; k < kA; ++k) {
+          tf += f5[k];
+          tg += g5[k];
+        }
+        w_eff = wb / (tf + mix_b);
+        gden = tg + kA;
       }
-      const uint32_t w_eff = wb / (tf + mix_b);
-      const uint32_t gden = tg + kA;
       uint32_t cum5[kA];
       uint32_t run = 0;
 #pragma unroll
@@ -661,19 +836,21 @@ __global__ void __launch_bounds__(kThreads)
       }
       const bool trig = level_g >= kSmer && cbase == 0 && bestc >= 2 &&
                         best != kc;
-      if (trig && active && rep_cnt < kRepairIters) {
+      if (trig && active && rep_cnt < repair_iters) {
         ++rep_cnt;
         kc = best;
       }
     }
     // the event's key is the find's query (the window before i) with kc
     // as its last base: decided now, applied after the row
-    if (vs)
-      ev_s[static_cast<size_t>(i) * N] =
-          k2_decide(scell, qs.row, tag_word(qs, kc));
-    if (vb)
-      ev_b[static_cast<size_t>(i) * N] =
-          k2_decide(bcell, qb.row, tag_word(qb, kc));
+    if constexpr (kRowUpdate) {
+      if (vs)
+        ev_s[static_cast<size_t>(i) * N] =
+            decide<kFam>(scell, qs.row, tag_word(qs, kc));
+      if (vb)
+        ev_b[static_cast<size_t>(i) * N] =
+            decide<kFam>(bcell, qb.row, tag_word(qb, kc));
+    }
     pkey = (pkey << 2 | kc) & pm_mask;
     S = (S << 2 | kc) & s_mask;
     B = (B << 2 | kc) & b_mask;
@@ -711,14 +888,36 @@ __global__ void __launch_bounds__(kThreads)
   // puts every one of them before the first write. It also keeps every
   // block resident until no block stores into its shared memory.
   cluster.sync();
-  if (live) {
-    const int end = length < L ? static_cast<int>(length) : L;
-    unsigned long long* s_cells =
-        reinterpret_cast<unsigned long long*>(a.s_tc);
-    unsigned long long* b_cells =
-        reinterpret_cast<unsigned long long*>(a.b_tc);
-    apply_events(ev_s, s_cells, s_w, end, N);
-    apply_events(ev_b, b_cells, b_w, end, N);
+  if constexpr (kRowUpdate) {
+    if (live) {
+      const int end = length < L ? static_cast<int>(length) : L;
+      apply_events<kFam>(ev_s, a.s_tc, s_w, end, N);
+      apply_events<kFam>(ev_b, a.b_tc, b_w, end, N);
+    }
+  }
+}
+
+// The kernel of one instantiation: (family, row update, lcp, today's
+// knobs). A context-keyed table never takes the row update
+// (dna.check_supported), and only K2 cells with the row update take
+// today's knobs, so the other combinations are not instantiated.
+using KernelFn = void (*)(Args);
+template <int kFam>
+KernelFn kernel_of(bool row_update, bool lcp, bool today) {
+  if constexpr (kFam == kFamTable) {
+    return lcp ? &dna_decode_row_kernel<kFam, false, true, false>
+               : &dna_decode_row_kernel<kFam, false, false, false>;
+  } else {
+    if constexpr (kFam == kFamK2) {
+      if (row_update && today)
+        return lcp ? &dna_decode_row_kernel<kFam, true, true, true>
+                   : &dna_decode_row_kernel<kFam, true, false, true>;
+    }
+    return row_update
+               ? (lcp ? &dna_decode_row_kernel<kFam, true, true, false>
+                      : &dna_decode_row_kernel<kFam, true, false, false>)
+               : (lcp ? &dna_decode_row_kernel<kFam, false, true, false>
+                      : &dna_decode_row_kernel<kFam, false, false, false>);
   }
 }
 
@@ -734,6 +933,10 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
   memcpy(&a, args, sizeof(Args));
   const auto s_at = reinterpret_cast<uintptr_t>(a.s_tc);
   const auto b_at = reinterpret_cast<uintptr_t>(a.b_tc);
+  // bytes a table row: its u32 words, each held in an int64
+  const uint64_t row_bytes = a.family == kFamK2       ? 32
+                             : a.family == kFamKtable ? 48
+                                                      : 128;
   if (a.N < 1 || a.N > kMaxLanes || a.L < 1 || a.n_words < 1 || a.sb < 1 ||
       a.sb > 16 || a.siv_len < 3 || a.siv_len > 17 || a.smer_len < 3 ||
       a.smer_len > 33 || a.bmer_len < 3 || a.bmer_len > 33 ||
@@ -741,17 +944,28 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
       a.s_log2_rows < a.s_log2_base || a.s_log2_rows > a.s_log2_base + 4 ||
       a.b_log2_base < 1 || a.b_log2_rows < a.b_log2_base ||
       a.b_log2_rows > a.b_log2_base + 4 || a.s_log2_rows > 30 ||
-      a.b_log2_rows > 30 || a.mix_w < 1 || a.mix_w > (1 << 18) ||
+      a.b_log2_rows > 30 || a.mix_w < 0 || a.mix_w > (1 << 18) ||
       a.mix_b < 1 || a.mix_w * a.mix_b >= (1ll << 31) ||
       a.N * a.L >= (1ll << 31) || (s_at & 15u) != 0 || (b_at & 15u) != 0 ||
       a.events == nullptr || (a.lcp == nullptr) != (a.src == nullptr) ||
       (reinterpret_cast<uintptr_t>(a.events) & 7u) != 0 ||
-      (s_at < b_at + (32ull << a.b_log2_rows) &&
-       b_at < s_at + (32ull << a.s_log2_rows)))   // the tables overlap
+      a.family < kFamK2 || a.family > kFamTable ||
+      (a.family == kFamTable && a.row_update != 0) || a.ctx_v < 1 ||
+      a.pmer_gate < 0 || a.repair_iters < 0 || a.repair_iters >= (1 << 20) ||
+      (a.rough != 0 && (a.family == kFamTable || a.row_update == 0 ||
+                        a.ctx_v < 2)) ||
+      (s_at < b_at + (row_bytes << a.b_log2_rows) &&
+       b_at < s_at + (row_bytes << a.s_log2_rows)))   // the tables overlap
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = static_cast<int>((a.N + kThreads - 1) / kThreads);
-  void (*kernel)(Args) = a.lcp != nullptr ? &dna_decode_row_kernel<true>
-                                           : &dna_decode_row_kernel<false>;
+  const bool upd = a.row_update != 0, lcp = a.lcp != nullptr;
+  const bool today = a.rough != 0 && a.ctx_v >= 2 && a.let_pb2 != 0 &&
+                     a.prefix_ramp != 0 && a.mix_w > 0 && a.pmer_gate == 0 &&
+                     a.repair_iters == 1;
+  const KernelFn kernel =
+      a.family == kFamK2       ? kernel_of<kFamK2>(upd, lcp, today)
+      : a.family == kFamKtable ? kernel_of<kFamKtable>(upd, lcp, today)
+                               : kernel_of<kFamTable>(false, lcp, today);
   return static_cast<int>(fqtz::launch_one_cluster(
       kernel, n_blocks, kThreads, static_cast<cudaStream_t>(stream), a));
 }

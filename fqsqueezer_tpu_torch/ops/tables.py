@@ -1,18 +1,23 @@
-"""k-mer counter stores as dense integer arrays — the main path's subset.
+"""k-mer counter stores as dense integer arrays.
 
 Port of fqsqueezer_tpu/ops/tables.py: the packed SIV (u8x4 next-base counters
-per (p-1)-mer context) and the K2 canonical k-mer tables (single-word
-tag24|count8 cells, 4 per bucket row). All u32 words are held in int64, so
-K2 cells, whose bit 31 is always set, order correctly under a signed
-scatter-max. The reference's dropped scatters (mode="drop") are explicit
-masks here: an invalid event either adds 0, or max-es 0, into a cell, or
-lands in a dump slot that is cut off.
+per (p-1)-mer context), the three s/b table families and the paired-end
+pair table. All u32 words are held in int64, so a word with bit 31 set
+orders correctly under a signed scatter-max, and every u32 add is masked
+back to 32 bits where the reference's wraps. The reference's dropped
+scatters (mode="drop") are explicit masks here: an invalid event either
+adds 0, or max-es 0, into a cell, or lands in a dump slot that is cut off.
 
-The paired-end pair table (pair_*: bucketed minimizer -> partner-minimizer
-slots, 8 cells a bucket) is ported too. Not ported yet: the legacy 8-cell
-k-mer tables (table_*), the u16-counter KTable (ktable_* with
-dna_sb_proto=0) and the in-batch local tables (local_*, klocal_*); they
-serve only older archive headers.
+The s/b table families, by row width:
+  * table_* (BUCKET = 8 cells, 16 words a row): context-keyed cells, a
+    tag and 4 packed u8 next-base counts each, updated once a batch with
+    claim rounds (the first writer's tables, dna_canon = 0);
+  * ktable_* (KBUCKET = 4 cells, KW = 6 words a row): canonical k-mer
+    cells, 4 tags then 4 u16 counters packed 2 a word, clipped to 255 at
+    find (dna_canon = 1, dna_sb_proto = 0);
+  * k2_* (KBUCKET single-word cells, 4 words a row): tag24 | count8
+    (dna_sb_proto = 1). ktable_* dispatches to k2_* on the row width.
+Not ported: the in-batch local tables (local_*, klocal_*).
 """
 from __future__ import annotations
 
@@ -39,12 +44,39 @@ def pack_counts(c4: torch.Tensor) -> torch.Tensor:
             | (c4[..., 3] << 24))
 
 
-_CTZ4 = (0, 0, 1, 0, 2, 0, 1, 0, 3, 0, 1, 0, 2, 0, 1, 0)
+_CTZ8 = tuple((x & -x).bit_length() - 1 if x else 0 for x in range(256))
 
 
-def _ctz4(x: torch.Tensor) -> torch.Tensor:
-    """Count trailing zeros of a 4-bit mask (0 for x == 0)."""
-    return torch.tensor(_CTZ4, dtype=torch.int64, device=x.device)[x]
+def _ctz(x: torch.Tensor) -> torch.Tensor:
+    """Count trailing zeros of an 8-bit mask (0 for x == 0, where the
+    reference's value differs but is never used)."""
+    return torch.tensor(_CTZ8, dtype=torch.int64, device=x.device)[x]
+
+
+def _claim_slot(bm, j, width: int):
+    """The claim slot of a new key: the first set bit of the bucket's
+    empty-cell mask bm after rotating it right by j."""
+    rot = ((bm >> j) | (bm << (width - j))) & ((1 << width) - 1)
+    return (j + _ctz(rot)) & (width - 1)
+
+
+def _first_match(match: torch.Tensor) -> torch.Tensor:
+    """Index of the first True along the last axis (0 where none is)."""
+    return torch.argmax(match.to(torch.int64), dim=-1)
+
+
+def _empty_mask(cells: torch.Tensor) -> torch.Tensor:
+    """[..., W] cells -> [...] bit mask of the empty ones."""
+    w = 1 << torch.arange(cells.shape[-1], dtype=torch.int64,
+                          device=cells.device)
+    return torch.where(cells == EMPTY, w, 0).sum(dim=-1)
+
+
+def _scatter_max(tc: torch.Tensor, idx, src) -> torch.Tensor:
+    """A new table: tc's flat words max-ed with src at idx (idx [n] flat
+    word indices; an event that must not land maxes 0 into word 0)."""
+    return tc.reshape(-1).clone().scatter_reduce_(
+        0, idx, src, "amax").reshape(tc.shape)
 
 
 def swar_sat_add_u8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -185,22 +217,17 @@ def k2_update(tc: torch.Tensor, bkt: torch.Tensor, tag: torch.Tensor,
     tw = k2tag(tag) << 8
     match = (row & _K2_TAG) == tw[:, None]
     found = match.any(dim=1) & valid
-    cell = torch.argmax(match.to(torch.int64), dim=1)  # first match
+    cell = _first_match(match)
     cellv = torch.where(match, row, 0).sum(dim=1) & MASK32
-    weights = torch.tensor([1, 2, 4, 8], dtype=torch.int64, device=tc.device)
-    bm = torch.where(row == EMPTY, weights, 0).sum(dim=1)
+    bm = _empty_mask(row)
     want = valid & ~found & (bm > 0)
-    j = ((tag >> 13) ^ tag) & (KBUCKET - 1)
-    rot = ((bm >> j) | (bm << (KBUCKET - j))) & ((1 << KBUCKET) - 1)
-    slot = (j + _ctz4(rot)) & (KBUCKET - 1)
+    slot = _claim_slot(bm, ((tag >> 13) ^ tag) & (KBUCKET - 1), KBUCKET)
     dcell = torch.where(found, cell, slot)
     newv = torch.where(found, cellv + ((cellv & 0xFF) < 0xFF).to(torch.int64),
                        tw | 1)
     ok = found | want
-    idx = torch.where(ok, bkt * KBUCKET + dcell, 0)
-    src = torch.where(ok, newv, 0)
-    return tc.reshape(-1).clone().scatter_reduce_(
-        0, idx, src, "amax").reshape(n_buckets, KBUCKET)
+    return _scatter_max(tc, torch.where(ok, bkt * KBUCKET + dcell, 0),
+                        torch.where(ok, newv, 0))
 
 
 def k2_grow(tc: torch.Tensor, log2_base: int) -> torch.Tensor:
@@ -221,36 +248,280 @@ def k2_grow(tc: torch.Tensor, log2_base: int) -> torch.Tensor:
     return new[:dump].reshape(2 * n_buckets, KBUCKET)
 
 
-def _require_k2(tc: torch.Tensor) -> None:
-    if tc.shape[-1] != KBUCKET:
-        raise NotImplementedError(
-            "only K2 s/b tables (dna_sb_proto=1, dna_canon=1) are ported")
+# ---------------------------------------------------------------------------
+# KTable: canonical k-mer cells with u16 counters (dna_sb_proto = 0)
+# ---------------------------------------------------------------------------
+# Same queries as K2 (bucket from the middle hash, the 4 candidates' 32-bit
+# tags), rows of KBUCKET tags then KBUCKET u16 slot counters packed two a
+# u32 word. An update is the fused 3-pass protocol: one row gather decides,
+# a scatter-max claims new keys' tags, a scatter-add adds 1 << 16*(cell & 1)
+# to the counter word of the decided cell. The add goes to that cell even
+# where another key won its claim, and a counter at 0xFFFF carries into its
+# neighbour (or out of the word): the u32 sum is masked to 32 bits, as the
+# reference's wraps. Counters are clipped to 255 at find.
+
+KW = KBUCKET + KBUCKET // 2   # row width in u32 words
+
+
+def ktable_create(log2_buckets: int, device=None) -> torch.Tensor:
+    return torch.zeros((1 << log2_buckets, KW), dtype=torch.int64,
+                       device=device)
+
+
+def _is_k2(tc: torch.Tensor) -> bool:
+    return tc.shape[-1] == KBUCKET
+
+
+def _counters(w: torch.Tensor) -> torch.Tensor:
+    """[..., KBUCKET // 2] packed words -> [..., KBUCKET] u16 counters."""
+    return torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(
+        w.shape[:-1] + (KBUCKET,))
 
 
 def ktable_find(tc, bkt, tags4, log2_base: int = -1):
-    _require_k2(tc)
-    return k2_find(tc, bkt, tags4, log2_base)
+    """4-way next-base query: bkt [...] base buckets (middle hash at
+    creation size), tags4 [..., 4] candidate tags. Returns ([..., 4]
+    counts, [...] found) from one row gather; K2 tables take k2_find."""
+    if _is_k2(tc):
+        return k2_find(tc, bkt, tags4, log2_base)
+    log2_buckets = _log2_rows(tc)
+    if log2_base < 0:
+        log2_base = log2_buckets
+    row = tc[kbucket_of(tags4[..., 0], bkt, log2_buckets, log2_base)]
+    match = row[..., None, :KBUCKET] == tags4[..., :, None]  # [..., 4, KB]
+    cnt = torch.clamp(_counters(row[..., KBUCKET:]), max=255)
+    counts = torch.where(match, cnt[..., None, :], 0).sum(dim=-1)
+    return counts, match.flatten(-2).any(dim=-1)
 
 
 def ktable_update(tc, bkt, tag, valid, log2_base: int = -1):
-    _require_k2(tc)
-    return k2_update(tc, bkt, tag, valid, log2_base)
+    """Batch insert/increment of canonical k-mer events (bkt/tag/valid [n]
+    flat): the fused protocol of the block comment. Returns a new table;
+    K2 tables take k2_update."""
+    if _is_k2(tc):
+        return k2_update(tc, bkt, tag, valid, log2_base)
+    log2_buckets = _log2_rows(tc)
+    if log2_base < 0:
+        log2_base = log2_buckets
+    bkt = kbucket_of(tag, bkt, log2_buckets, log2_base)
+    tags_r = tc[bkt][:, :KBUCKET]
+    match = tags_r == tag[:, None]
+    found = match.any(dim=1) & valid
+    bm = _empty_mask(tags_r)
+    want = valid & ~found & (bm > 0)
+    slot = _claim_slot(bm, ((tag >> 13) ^ tag) & (KBUCKET - 1), KBUCKET)
+    tc = _scatter_max(tc, torch.where(want, bkt * KW + slot, 0),
+                      torch.where(want, tag, 0))
+    dcell = torch.where(found, _first_match(match), slot)
+    ok = found | want
+    inc = torch.where(ok, 1 << ((dcell & 1) << 4), 0)
+    flat = tc.reshape(-1).index_add_(
+        0, torch.where(ok, bkt * KW + KBUCKET + (dcell >> 1), 0), inc)
+    return (flat & MASK32).reshape(tc.shape)
 
 
 def ktable_grow(tc, log2_base: int):
-    _require_k2(tc)
-    return k2_grow(tc, log2_base)
+    """Double the bucket count: every cell moves, keeping its slot, to
+    bucket (old | growth bit << old_log2), the bit read from its tag; its
+    u16 counter moves with it into the destination's packed word."""
+    if _is_k2(tc):
+        return k2_grow(tc, log2_base)
+    n_buckets = tc.shape[0]
+    log2b = _log2_rows(tc)
+    tags = tc[:, :KBUCKET]
+    cnt16 = _counters(tc[:, KBUCKET:])
+    new_bkt = torch.arange(n_buckets, dtype=torch.int64,
+                           device=tc.device)[:, None] + (
+        (tags >> (23 + log2b - log2_base)) & 1) * n_buckets
+    slot = torch.arange(KBUCKET, dtype=torch.int64, device=tc.device)[None]
+    live = tags != EMPTY
+    dump = 2 * n_buckets * KW
+    new = torch.zeros(dump + 1, dtype=torch.int64, device=tc.device)
+    new.scatter_(0, torch.where(live, new_bkt * KW + slot, dump).reshape(-1),
+                 tags.reshape(-1))
+    # each destination u16 half is written by one source cell at most
+    new.index_add_(0, torch.where(live, new_bkt * KW + KBUCKET + (slot >> 1),
+                                  dump).reshape(-1),
+                   (cnt16 << (16 * (slot & 1))).reshape(-1))
+    return new[:dump].reshape(2 * n_buckets, KW)
 
 
 def ktable_clamp(tc):
-    """K2 cells saturate at 255 inside the update itself: a no-op."""
-    _require_k2(tc)
-    return tc
+    """Clamp each u16 counter to 0x8000 (run at every group end by both
+    sides); K2 cells saturate inside the update: a no-op."""
+    if _is_k2(tc):
+        return tc
+    w = tc[:, KBUCKET:]
+    lo = torch.clamp(w & 0xFFFF, max=0x8000)
+    hi = torch.clamp(w >> 16, max=0x8000)
+    return torch.cat([tc[:, :KBUCKET], lo | (hi << 16)], dim=1)
 
 
 def ktable_fill_stats(tc):
-    _require_k2(tc)
-    return (tc != EMPTY).sum(), tc.shape[0] * KBUCKET
+    """(used cells, capacity)."""
+    cells = tc if _is_k2(tc) else tc[:, :KBUCKET]
+    return (cells != EMPTY).sum(), tc.shape[0] * KBUCKET
+
+
+# ---------------------------------------------------------------------------
+# CountTable: context-keyed (tag, u8x4 counts) cells (dna_canon = 0)
+# ---------------------------------------------------------------------------
+# One row a bucket: BUCKET tags, then BUCKET u8x4-packed next-base count
+# words. A key is a (lo, hi) context; its bucket comes from the bucket hash
+# at creation size and, once the table has grown, growth bits from tag bits
+# [23, 27). Updated once a batch (tables frozen inside it), with both
+# strands' events.
+
+BUCKET = 8   # cells a bucket row, here and in the pair table
+W_TABLE = 2 * BUCKET
+
+
+def table_create(log2_buckets: int, device=None) -> torch.Tensor:
+    return torch.zeros((1 << log2_buckets, W_TABLE), dtype=torch.int64,
+                       device=device)
+
+
+def bucket_of(lo, hi, log2_buckets: int, log2_base: int) -> torch.Tensor:
+    """Bucket of a key in a table grown from 2^log2_base to 2^log2_buckets
+    buckets."""
+    b = kmers.hash_bucket(lo, hi, min(log2_buckets, log2_base))
+    grow = log2_buckets - log2_base
+    if grow > 0:
+        t = kmers.hash_tag(lo, hi)
+        b = b | (((t >> 23) & ((1 << grow) - 1)) << log2_base)
+    return b
+
+
+def table_grow(tc: torch.Tensor, log2_base: int) -> torch.Tensor:
+    """Double the bucket count: every live cell moves, keeping its slot, to
+    bucket (old | growth bit << old_log2), its tag and count together."""
+    n_buckets = tc.shape[0]
+    log2b = _log2_rows(tc)
+    tags = tc[:, :BUCKET]
+    new_bkt = torch.arange(n_buckets, dtype=torch.int64,
+                           device=tc.device)[:, None] + (
+        (tags >> (23 + log2b - log2_base)) & 1) * n_buckets
+    slot = torch.arange(BUCKET, dtype=torch.int64, device=tc.device)[None]
+    live = tags != EMPTY
+    dump = 2 * n_buckets * W_TABLE
+    new = torch.zeros(dump + 1, dtype=torch.int64, device=tc.device)
+    for off, vals in ((0, tags), (BUCKET, tc[:, BUCKET:])):
+        new.scatter_(0, torch.where(live, new_bkt * W_TABLE + off + slot,
+                                    dump).reshape(-1), vals.reshape(-1))
+    return new[:dump].reshape(2 * n_buckets, W_TABLE)
+
+
+def table_find(tc: torch.Tensor, lo, hi, log2_base: int = -1):
+    """Query contexts lo/hi [...] (u32 key halves). Returns ([..., 4]
+    counts, [...] found) from one row gather."""
+    log2_buckets = _log2_rows(tc)
+    if log2_base < 0:
+        log2_base = log2_buckets
+    row = tc[bucket_of(lo, hi, log2_buckets, log2_base)]
+    match = row[..., :BUCKET] == kmers.hash_tag(lo, hi)[..., None]
+    word = torch.where(match, row[..., BUCKET:], 0).sum(dim=-1) & MASK32
+    return unpack_counts(word), match.any(dim=-1)
+
+
+def table_update(tc: torch.Tensor, lo, hi, base, valid, bkt=None, tag=None,
+                 log2_base: int = -1, rounds: int = 2) -> torch.Tensor:
+    """Batch insert/increment of (context -> next base) events, lo/hi/base/
+    valid [n]. Returns a new table.
+
+    rounds >= 1, the claim-round protocol: in round r every event whose
+    key is absent from its bucket and whose bucket has an empty cell
+    scatter-maxes its tag into the empty cell found by rotating the
+    bucket's empty mask by (tag >> (13 + 3r)) & 7; then every event
+    re-probes, and the events whose key is present add their base's count
+    (one saturating u8 delta word a cell, _scatter_delta_u8). Keys still
+    unplaced are dropped. rounds == 0, the fused protocol: one gather
+    decides, claims scatter-max, and every deciding event (found, or
+    claiming) adds its count to its decided cell, even where another key
+    won the claim."""
+    n = lo.shape[0]
+    n_buckets = tc.shape[0]
+    dev = tc.device
+    if bkt is None:
+        log2_buckets = _log2_rows(tc)
+        bkt = bucket_of(lo, hi, log2_buckets,
+                        log2_buckets if log2_base < 0 else log2_base)
+    if tag is None:
+        tag = kmers.hash_tag(lo, hi)
+    bkt = torch.where(valid, bkt, torch.arange(n, dtype=torch.int64,
+                                               device=dev) & (n_buckets - 1))
+
+    def probe(tc):
+        tags_r = tc[bkt][:, :BUCKET]
+        match = tags_r == tag[:, None]
+        return tags_r, match, match.any(dim=1) & valid
+
+    if rounds == 0:
+        tags_r, match, found = probe(tc)
+        bm = _empty_mask(tags_r)
+        want = valid & ~found & (bm > 0)
+        slot = _claim_slot(bm, (tag >> 13) & (BUCKET - 1), BUCKET)
+        tc = _scatter_max(tc, torch.where(want, bkt * W_TABLE + slot, 0),
+                          torch.where(want, tag, 0))
+        dcell = torch.where(found, _first_match(match), slot)
+        ok = found | want
+        # one u32 counter a (cell, base), saturated once at 255
+        d = torch.zeros(n_buckets * 4 * BUCKET, dtype=torch.int64,
+                        device=dev).index_add_(
+            0, torch.where(ok, bkt * 4 * BUCKET + 4 * dcell + (base & 3), 0),
+            ok.to(torch.int64))
+        d = torch.clamp(d.reshape(n_buckets, BUCKET, 4), max=255)
+        delta = (d[..., 0] | (d[..., 1] << 8) | (d[..., 2] << 16)
+                 | (d[..., 3] << 24))
+        return torch.cat([tc[:, :BUCKET],
+                          swar_sat_add_u8(tc[:, BUCKET:], delta)], dim=1)
+
+    for r in range(rounds):
+        tags_r, _, found = probe(tc)
+        bm = _empty_mask(tags_r)
+        want = valid & ~found & (bm > 0)
+        slot = _claim_slot(bm, (tag >> (13 + 3 * r)) & (BUCKET - 1), BUCKET)
+        tc = _scatter_max(tc, torch.where(want, bkt * W_TABLE + slot, 0),
+                          torch.where(want, tag, 0))
+    _, match, found = probe(tc)
+    delta = _scatter_delta_u8(n_buckets * BUCKET,
+                              bkt * BUCKET + _first_match(match), base, found)
+    return torch.cat([tc[:, :BUCKET], swar_sat_add_u8(
+        tc[:, BUCKET:], delta.reshape(n_buckets, BUCKET))], dim=1)
+
+
+def table_fill_stats(tc: torch.Tensor):
+    """(used cells, capacity)."""
+    return (tc[:, :BUCKET] != EMPTY).sum(), tc.shape[0] * BUCKET
+
+
+# ---------------------------------------------------------------------------
+# Group-end steps on an s/b table of any family, chosen by its row width
+# ---------------------------------------------------------------------------
+
+def _is_table(tc: torch.Tensor) -> bool:
+    return tc.shape[-1] == W_TABLE
+
+
+def sb_cells(tc: torch.Tensor) -> int:
+    """Cells a bucket row."""
+    return BUCKET if _is_table(tc) else KBUCKET
+
+
+def sb_grow(tc: torch.Tensor, log2_base: int) -> torch.Tensor:
+    """Double the bucket count by the family's grow step."""
+    return table_grow(tc, log2_base) if _is_table(tc) else ktable_grow(
+        tc, log2_base)
+
+
+def sb_clamp(tc: torch.Tensor) -> torch.Tensor:
+    """Clamp u16 counters away from their wrap; a no-op on the families
+    without them (table_* u8 counts, K2 cells)."""
+    return tc if _is_table(tc) else ktable_clamp(tc)
+
+
+def sb_fill_stats(tc: torch.Tensor):
+    """(used cells, capacity)."""
+    return table_fill_stats(tc) if _is_table(tc) else ktable_fill_stats(tc)
 
 
 # ---------------------------------------------------------------------------
@@ -260,9 +531,6 @@ def ktable_fill_stats(tc):
 # slot holds (key tag, value lo, value hi, weight); several slots of a
 # bucket may share the key tag with different values. Values are stored
 # exactly, since the decoder rebuilds an anchor's bases from them.
-
-BUCKET = 8   # cells a pair-table bucket row
-_CTZ8 = tuple((x & -x).bit_length() - 1 if x else 0 for x in range(256))
 
 
 def pair_create(log2_buckets: int, device=None):
@@ -304,18 +572,14 @@ def pair_update(pt, klo, khi, vlo_n, vhi_n, w, valid):
                                    device=dev) & (n_buckets - 1))
     tag = kmers.hash_tag(klo, khi)
     ticket = kmers.hash_tag(mul_u32(vlo_n, 0x9E3779B1) ^ tag, vhi_n)
-    weights = 1 << torch.arange(BUCKET, dtype=torch.int64, device=dev)
     j = (ticket >> 13) & (BUCKET - 1)
-    ctz8 = torch.tensor(_CTZ8, dtype=torch.int64, device=dev)
     for r in range(2):
         row_t, row_l, row_h = tags[bkt], vlo[bkt], vhi[bkt]
         found = ((row_t == tag[:, None]) & (row_l == vlo_n[:, None])
                  & (row_h == vhi_n[:, None])).any(dim=1) & valid
-        bm = torch.where(row_t == EMPTY, weights, 0).sum(dim=1)
+        bm = _empty_mask(row_t)
         want = valid & ~found & (bm > 0)
-        jr = (j + 3 * r) & (BUCKET - 1)
-        rot = ((bm >> jr) | (bm << (BUCKET - jr))) & ((1 << BUCKET) - 1)
-        slot = (jr + ctz8[rot]) & (BUCKET - 1)
+        slot = _claim_slot(bm, (j + 3 * r) & (BUCKET - 1), BUCKET)
         cell = torch.where(want, bkt * BUCKET + slot, n_buckets * BUCKET)
         claim = torch.zeros(((n_buckets + 1) * BUCKET,), dtype=torch.int64,
                             device=dev).scatter_reduce_(0, cell, ticket,
@@ -330,9 +594,8 @@ def pair_update(pt, klo, khi, vlo_n, vhi_n, w, valid):
     match2 = ((tags[bkt] == tag[:, None]) & (vlo[bkt] == vlo_n[:, None])
               & (vhi[bkt] == vhi_n[:, None]))
     found2 = match2.any(dim=1) & valid
-    cell2 = torch.argmax(match2.to(torch.int64), dim=1)   # first match
     cnt = cnt.reshape(-1).clone().index_add_(
-        0, torch.where(found2, bkt * BUCKET + cell2, 0),
+        0, torch.where(found2, bkt * BUCKET + _first_match(match2), 0),
         torch.where(found2, w, 0)).reshape(n_buckets, BUCKET)
     return tags, vlo, vhi, torch.clamp(cnt, max=1 << 20)
 
@@ -350,6 +613,14 @@ class LocalBackend:
 
     def siv_update(self, siv, keys, valid):
         return siv_update(siv, keys, valid)
+
+    def table_find(self, tc, lo, hi, log2_base=-1):
+        return table_find(tc, lo, hi, log2_base)
+
+    def table_update(self, tc, lo, hi, base, valid, log2_base=-1,
+                     rounds=2):
+        return table_update(tc, lo, hi, base, valid, log2_base=log2_base,
+                            rounds=rounds)
 
     def ktable_find(self, tc, bkt, tags4, log2_base=-1):
         return ktable_find(tc, bkt, tags4, log2_base)

@@ -198,13 +198,29 @@ def compress_pe_mesh(p: Params, in1: str, in2: str, out_path: str, dp: int,
     return stats
 
 
+def mesh_unported(p: Params) -> list:
+    """What a mesh header asks for that this package cannot write or
+    decode: pipeline.unported_archive's list, and one entry for a header
+    of the older writers (s/b tables other than row-global K2 cells, or id
+    codec v1), which single-device archives take but mesh ones do not
+    yet."""
+    missing = base.unported_archive(p)
+    dcfg = base.make_configs(p)[0]
+    if not (dcfg.row_global and dcfg.canon and dcfg.sb_proto):
+        missing.append("a mesh with s/b tables other than row-global K2 "
+                       "cells (dna_row_global, dna_canon, dna_sb_proto)")
+    if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
+        missing.append(f"a mesh with id codec v{p.id_codec_v}")
+    return missing
+
+
 def _mesh_setup(p: Params, dp: int, tp: int, device) -> torch.device:
     """Set the mesh in the Params (it gates make_configs' knobs: the PE
     anchors, route_sb), refuse with one line (ValueError) what the port
     lacks or the mesh cannot shard, and resolve the device — all before
     the input is read."""
     p.mesh_dp, p.mesh_tp = dp, tp
-    missing = base.unported_modes(p)
+    missing = mesh_unported(p)
     if missing:
         raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
                          + ", ".join(missing))
@@ -259,7 +275,7 @@ def decompress_file_mesh_seq(p_cli: Params, in_path: str, out_path: str,
     reader = archive.ArchiveReader(in_path)
     try:
         p = Params.load_params(reader.header_blob, base=p_cli)
-        missing = base.unported_archive(p)
+        missing = mesh_unported(p)
         if missing:
             raise ValueError(", ".join(missing) + " not yet ported to "
                              "fqsqueezer_tpu_torch")

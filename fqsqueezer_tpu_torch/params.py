@@ -233,3 +233,32 @@ class Params:
                 v = type(cur)(v)
             setattr(p, k, v)
         return p
+
+
+# The header generations of the older writers whose archives the port
+# decodes and writes: the knob values each writer stored or, where its
+# header lacked a key, the value load_params gives it. H0, the first
+# writer: no knob key at all, so exactly _HDR_LEGACY (batch-frozen
+# context-keyed table_* tables, ctx v1, id codec v1). H5, the first
+# row-global writer: canonical tables with u16 counters (dna_sb_proto 0),
+# ctx v1, no rough rescue, fine letters' position buckets. H6: H5 with ctx
+# v2 and the rough rescue.
+_H5 = {"dna_pe_pos_ctx": 0, "dna_ctx_v": 1, "dna_pe_mesh": 0,
+       "dna_rough": 0, "dna_sb_proto": 0, "mesh_route_sb": 0,
+       "dna_let_pb2": 0}
+HEADER_GENERATIONS = {
+    "H0": dict(Params._HDR_LEGACY),
+    "H5": _H5,
+    "H6": dict(_H5, dna_ctx_v=2, dna_rough=1),
+}
+
+
+def header_generation(p: Params, gen: str) -> Params:
+    """p with the header knobs of an older writer (HEADER_GENERATIONS),
+    its k-mer geometry re-tuned from p.genome_size as that writer did
+    (adjust_kmer_sizes: the context-keyed tables of H0 take one bucket bit
+    fewer than canonical ones). Changes p in place and returns it."""
+    for k, v in HEADER_GENERATIONS[gen].items():
+        setattr(p, k, v)
+    p.adjust_kmer_sizes()
+    return p

@@ -56,12 +56,9 @@ class CodecState(NamedTuple):
 
 def unported_modes(p: Params) -> list:
     """Names of the Params' modes this package can neither write nor
-    decode: id codec v1, and a mesh's owner-routed s/b exchange
-    (mesh_route_sb > 0, which no entry point of either package sets)."""
+    decode: a mesh's owner-routed s/b exchange (mesh_route_sb > 0, which
+    no entry point of either package sets)."""
     out = []
-    if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
-        out.append(f"id codec v{p.id_codec_v} (legacy id_codec_v header "
-                   f"value)")
     if p.mesh_route_sb > 0 and p.mesh_dp * p.mesh_tp > 1:
         out.append("mesh_route_sb > 0 (a mesh's owner-routed s/b update "
                    "exchange)")
@@ -142,9 +139,10 @@ def _model_rows(dcfg, qcfg, mcfg, icfg, state: CodecState,
     Returns (grids, events, (s_tc, b_tc)): the (freq, cum) int32 [T, N]
     lane grids of each stream (meta, dna, then qual, id and pe where
     present), the batch's events as collect_batch takes them, and the s/b
-    tables the DNA row loop carried. A PE batch has its pairs interleaved;
-    with the anchors on, the DNA codec models the anchored 3-row recoding
-    (dna.dna_pe_encode) and the pe stream's grid is the last."""
+    tables the DNA row loop carried (batch-frozen ones: the state's). A PE
+    batch has its pairs interleaved; with the anchors on, the DNA codec
+    models the anchored 3-row recoding (dna.dna_pe_encode) and the pe
+    stream's grid is the last."""
     lcp = (meta.compute_lcp(codes, lengths, mcfg.n_lanes, mcfg.lcp_stride)
            if mcfg.with_lcp else None)
     m_ctx, m_syms, m_f, m_c = meta.meta_modeling(mcfg, state.meta, lengths,
@@ -162,7 +160,7 @@ def _model_rows(dcfg, qcfg, mcfg, icfg, state: CodecState,
     if kcodes is None:
         kcodes = torch.where(d_codes >= 4, 0, d_codes)
     (eff, d_ctx, d_sym, d_f, d_c, d_act, s_tc,
-     b_tc) = dna.dna_process_batch_rg(
+     b_tc) = dna.dna_process_batch(
         dcfg, state.dna, d_codes, kcodes, d_lengths, lcp=d_lcp,
         anchor_mask=anchor_mask)
 
@@ -198,9 +196,11 @@ def collect_batch(dcfg, state: CodecState, m_ev, dna_ev, q_ev, i_ev,
     interleaved reads the pair table takes with the PE anchors — the
     quality and id models from (ctx, syms, active) where present.
     skip_sb: the s/b tables in `state` already took the batch's rows (a
-    single device's row loop); without it (a mesh batch, whose shards
-    modeled against the batch-frozen tables) the rows' s/b events are
-    replayed row block by row block (dna.dna_collect_updates)."""
+    single device's row loop over row-global tables); without it
+    batch-frozen tables take the batch's s/b events, and row-global ones
+    (a mesh batch, whose shards modeled against the batch-frozen tables)
+    the rows' events replayed row block by row block
+    (dna.dna_collect_updates)."""
     m_model = models.model_update(
         state.meta, m_ev[0].reshape(-1), m_ev[1].reshape(-1),
         torch.ones(m_ev[0].numel(), dtype=torch.bool,
@@ -228,14 +228,14 @@ def _model_batch(dcfg, qcfg, mcfg, icfg, state: CodecState,
                  lengths: torch.Tensor, id_batch=(), n_valid=None,
                  kcodes: Optional[torch.Tensor] = None):
     """Modeling + state evolution of one batch on one device (_model_rows,
-    then collect_batch on the tables the row loop carried). Returns
-    (grids, new state)."""
+    then collect_batch on the tables the row loop carried, or on the
+    batch-frozen ones). Returns (grids, new state)."""
     grids, events, (s_tc, b_tc) = _model_rows(
         dcfg, qcfg, mcfg, icfg, state, codes, qsyms, lengths, id_batch,
         n_valid, kcodes)
     rows = state._replace(dna=state.dna._replace(s_tc=s_tc, b_tc=b_tc))
     return grids, collect_batch(dcfg, rows, *events, codes, lengths,
-                                skip_sb=True)
+                                skip_sb=dcfg.row_global)
 
 
 def _step_inputs(qcfg, icfg, codes, kcodes, lengths, qsyms, id_batch):
@@ -339,8 +339,8 @@ SIV_PRUNE_NUM, SIV_PRUNE_DEN = 5, 10  # prune singletons when fill > 0.5
 
 def fill_stats_device(dcfg, dna_state) -> torch.Tensor:
     """[s_used, b_used, siv_nz] as one device tensor."""
-    su, _ = tables.ktable_fill_stats(dna_state.s_tc)
-    bu, _ = tables.ktable_fill_stats(dna_state.b_tc)
+    su, _ = tables.sb_fill_stats(dna_state.s_tc)
+    bu, _ = tables.sb_fill_stats(dna_state.b_tc)
     nz, _ = tables.siv_fill(dna_state.siv)
     return torch.stack([su, bu, nz])
 
@@ -357,17 +357,17 @@ def grow_tables(dcfg, dna_state, verbosity: int = 0, stats=None):
                             ("b", dcfg.bmer_log2_buckets, int(stats[1]))):
         tc = getattr(new, pre + "_tc")
         cur = tc.shape[0].bit_length() - 1
-        cap = tc.shape[0] * tables.KBUCKET
+        cap = tc.shape[0] * tables.sb_cells(tc)
         if verbosity >= 2:
             print(f"  {pre}mer fill: {used}/{cap} ({used / cap:.3f})"
                   f" [2^{cur} buckets]")
         if cur - base < GROW_MAX_DOUBLINGS and used * GROW_DEN > cap * GROW_NUM:
-            new = new._replace(**{pre + "_tc": tables.ktable_grow(tc, base)})
+            new = new._replace(**{pre + "_tc": tables.sb_grow(tc, base)})
             if verbosity >= 1:
                 print(f"  {pre}mer table grown to 2^{cur + 1} buckets "
                       f"(fill {used / cap:.2f})")
-    new = new._replace(s_tc=tables.ktable_clamp(new.s_tc),
-                       b_tc=tables.ktable_clamp(new.b_tc))
+    new = new._replace(s_tc=tables.sb_clamp(new.s_tc),
+                       b_tc=tables.sb_clamp(new.b_tc))
     nz = int(stats[2])
     cap = 4 * new.siv.shape[0]
     if verbosity >= 2:
@@ -772,7 +772,7 @@ def compress_file(p: Params, in_path: str, out_path: str,
                                  ids_raw + [b""] * (padded - take),
                                  ids.read_lanes(padded, p.n_lanes),
                                  icfg.n_fields, icfg.max_id_len, id_chain,
-                                 n_valid=take))
+                                 n_valid=ids.host_n_valid(icfg, take)))
         grids, state = _model_batch(dcfg, qcfg, mcfg, icfg, state,
                                     to_dev(codes_u8), qsyms, to_dev(lengths),
                                     id_batch, take)
@@ -882,9 +882,9 @@ def fit_words(words: np.ndarray, cap: int, device) -> torch.Tensor:
 
 
 def own_state(state: CodecState, device) -> CodecState:
-    """A caller's codec state on `device`, with copies of its K2 s/b
-    tables: K2 updates the tables it decodes against in place, and a
-    caller's state (a loaded snapshot, which the caller may decode from
+    """A caller's codec state on `device`, with copies of its s/b tables:
+    K2 updates row-global tables in place as it decodes, and a caller's
+    state (a loaded snapshot, which the caller may decode from
     again) must stay as it was. The other arrays are only read; the state
     updates make new ones."""
     def on(t):
@@ -958,7 +958,7 @@ def _decode_groups(p: Params, reader, writers, device, start_group=0,
                 id_out = ids.decode_ids_host(
                     *(a.numpy() for a in id_planes),
                     ids.read_lanes(padded, p.n_lanes), id_chain,
-                    n_valid=take)[:take]
+                    n_valid=ids.host_n_valid(icfg, take))[:take]
             # PE: even reads to mate 1's file, odd reads to mate 2's
             nw = len(writers)
             for k, writer in enumerate(writers):

@@ -1,18 +1,25 @@
 """DNA stream codec: k-mer-statistics modeling, encode and decode.
 
-Port of fqsqueezer_tpu/streams/dna.py, the row-global encode path of the
-header defaults (canonical K2 s/b tables, rough 1-substitution rescue, ctx
-v2, prefix ramp, two-level model mix, packed model view), in original and
-sorted read order. The method is the
-reference's (see that module's docstring): per-base next-symbol counts come
-from a cascade of k-mer counter stores, the actual base is coded as its rank
-among count-sorted candidates under a count-conditioned context, and a
+Port of fqsqueezer_tpu/streams/dna.py, in original and sorted read order:
+the s/b tables of every family (canonical K2 cells, canonical u16-counter
+ktable cells, the first writer's context-keyed table cells), updated a read
+row at a time (row-global) or once a batch, and every header knob of the
+cascade, the contexts and the model (ctx v1 and v2, the rough
+1-substitution rescue, the two-level model mix or the fine rows alone, the
+prefix ramp, the pmer gate, the repair budget, the letters' position
+buckets). The method is the reference's (see that module's docstring):
+per-base next-symbol counts come from a cascade of k-mer counter stores,
+the actual base is coded as its rank among count-sorted candidates under
+a count-conditioned context, and a
 letters model covers the read prefix and positions with no counts.
 
-Encode runs one batch as a Python loop over its read rows (row rd = read rd
-of every lane): per row, greedy repair against the row-fresh tables, the
-cascade, contexts and (freq, cum), then the row's s/b insert events — the
-order the decoder replays. Every op inside a row is [N, L]-wide. In
+Row-global encode runs one batch as a Python loop over its read rows (row
+rd = read rd of every lane): per row, greedy repair against the row-fresh
+tables, the cascade, contexts and (freq, cum), then the row's s/b insert
+events — the order the decoder replays. Every op inside a row is [N,
+L]-wide. With batch-frozen tables (dna_row_global = 0) repair, the cascade
+and the contexts run once over the whole batch against the batch-start
+tables, and the batch's s/b events apply after it (dna_collect_updates). In
 sorted order a read's first lcp positions (meta.compute_lcp: the prefix it
 shares with the previous read of its lane) are not coded: the decoder
 copies them from the previous read row; they still feed repair, the
@@ -21,13 +28,14 @@ cascade's windows and the row's insert events.
 Decode (dna_decode_batch) replays that order one position at a time for
 all lanes: per read row a scan over the L positions, each step the cascade,
 the context and cdf, one rANS step, repair and the register rolls; then the
-row's s/b insert events. The reference runs the scan through XLA (not
-Pallas). Here each read row — the scan and the row's s/b table update, the
-reference's whole `outer` step — is one call of dna_decode_row: on CUDA
-tensors kernel K2 (csrc/dna_decode.cu), one launch a row that updates the
-tables in place; on CPU tensors dna_decode_row_plain, the same scan as
-torch ops on the lanes' [N] tensors, then _apply_sb_updates. The batch's
-model and SIV update stays torch.
+row's s/b insert events where the tables are row-global. The reference
+runs the scan through XLA (not Pallas). Here each read row — the scan and
+the row's s/b table update, the reference's whole `outer` step — is one
+call of dna_decode_row: on CUDA tensors kernel K2 (csrc/dna_decode.cu),
+one launch a row that updates row-global tables in place; on CPU tensors
+dna_decode_row_plain, the same scan as torch ops on the lanes' [N]
+tensors, then _apply_sb_updates. The batch's model and SIV update, and
+the s/b update of batch-frozen tables, stay torch.
 
 Paired-end reads (pairs interleaved: even rows read1, odd rows read2)
 run through the same codec. With the anchor machinery on
@@ -43,9 +51,10 @@ order's shared prefixes use (a row has either an anchor or a prefix,
 never both). The pair table and the pe model evolve once a batch, from
 the true interleaved reads (dna_collect_updates).
 
-Not ported yet: sorted-mode position contexts (dna_sorted_ctx),
-paired-end position contexts (dna_pe_pos_ctx), the legacy
-(non-row-global, non-canonical, u16-cell) paths.
+Not ported yet (check_supported): the in-batch local tables and model
+deltas of headers without row-global updates, row-global updates of the
+context-keyed tables, sorted-mode position contexts (dna_sorted_ctx) and
+paired-end position contexts (dna_pe_pos_ctx).
 """
 from __future__ import annotations
 
@@ -150,33 +159,23 @@ class DnaConfig:
 
 
 def check_supported(cfg: DnaConfig) -> None:
-    """Raise for configurations whose code paths are not ported yet."""
+    """Raise, one entry for each, for configurations whose code paths are
+    not ported yet (ROADMAP.md lists them)."""
     missing = []
-    if not (cfg.canon and cfg.sb_proto and cfg.row_global):
-        missing.append("non-K2 / non-row-global s/b tables")
-    if cfg.local_model_inc > 0:
-        missing.append("in-batch model deltas")
+    local = cfg.local_log2_cells > 0 and not cfg.row_global
+    if local:
+        missing.append("local_log2_cells>0 without row-global updates "
+                       "(dna_row_global=0: in-batch local s/b tables)")
+    if local and cfg.local_model_inc > 0:
+        missing.append("local_model_inc>0 with local tables (in-batch model "
+                       "deltas)")
+    if cfg.row_global and not cfg.canon:
+        missing.append("dna_canon=0 with dna_row_global=1 (row-global "
+                       "updates of the context-keyed tables)")
     if cfg.sorted_ctx:
-        missing.append("sorted-mode position contexts")
+        missing.append("dna_sorted_ctx=1 (sorted-mode position contexts)")
     if cfg.pe_pos_ctx:
         missing.append("dna_pe_pos_ctx=1 (paired-end position contexts)")
-    # header knobs other than the ones the JAX writer stores: their branches
-    # are held against the reference by no test
-    if cfg.ctx_v != 2:
-        missing.append(f"dna_ctx_v={cfg.ctx_v} (contexts other than v2)")
-    if not cfg.rough:
-        missing.append("dna_rough=0 (no rough 1-substitution rescue)")
-    if not cfg.let_pb2:
-        missing.append("dna_let_pb2=0 (fine letters position buckets)")
-    if cfg.mix_w <= 0:
-        missing.append("dna_mix_w=0 (no two-level model mix)")
-    if not cfg.prefix_ramp:
-        missing.append("dna_prefix_ramp=0 (no prefix ramp)")
-    if cfg.pmer_gate > 0:
-        missing.append(f"dna_pmer_gate={cfg.pmer_gate} (gated SIV level)")
-    if cfg.repair_iters != 1:
-        missing.append(f"dna_repair_iters={cfg.repair_iters} (repairs "
-                       f"other than one a read)")
     if missing:
         raise NotImplementedError(
             "not ported to fqsqueezer_tpu_torch: " + ", ".join(missing))
@@ -184,7 +183,9 @@ def check_supported(cfg: DnaConfig) -> None:
 
 class DnaState(NamedTuple):
     siv: torch.Tensor
-    s_tc: torch.Tensor   # K2 rows [n_buckets, KBUCKET]
+    # s/b tables, [n_buckets, width] u32 words in int64; the width is the
+    # family's: tables.KBUCKET (K2), tables.KW (ktable), tables.W_TABLE
+    s_tc: torch.Tensor
     b_tc: torch.Tensor
     # [n_model (+ n_coarse if cfg.mix_w > 0), A_SYM]: the coarse parent
     # family lives behind the fine rows in the same array
@@ -202,13 +203,27 @@ def dna_state_create(cfg: DnaConfig, device=None) -> DnaState:
     if cfg.pe_log2_buckets > 0:
         pe_state = tables.pair_create(cfg.pe_log2_buckets, device) + (
             models.model_create(pe.PE_N_CTX, pe.PE_N_SYM, device),)
+    mk = table_family(cfg)[1]
     return DnaState(
         siv=tables.siv_create(cfg.siv_len, device),
-        s_tc=tables.k2_create(cfg.smer_log2_buckets, device),
-        b_tc=tables.k2_create(cfg.bmer_log2_buckets, device),
+        s_tc=mk(cfg.smer_log2_buckets, device),
+        b_tc=mk(cfg.bmer_log2_buckets, device),
         model=models.model_create(n_model, A_SYM, device),
         pe=pe_state,
     )
+
+
+# the s/b table families, in the order of K2's kFam template parameter
+FAMILIES = ("k2", "ktable", "table")
+
+
+def table_family(cfg: DnaConfig):
+    """(family name, create function, row width) of cfg's s/b tables."""
+    if cfg.canon and cfg.sb_proto:
+        return "k2", tables.k2_create, tables.KBUCKET
+    if cfg.canon:
+        return "ktable", tables.ktable_create, tables.KW
+    return "table", tables.table_create, tables.W_TABLE
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +290,18 @@ def _canon_insert(c_lo, c_hi, r_lo, r_hi, base, k: int, log2_cells: int):
     c0 = kmers.top_base(c_lo, c_hi, k - 1)
     slot = torch.where(s, 4 * (3 - base) + (3 - c0), 4 * c0 + base)
     return bkt, mt | slot
+
+
+def _cascade_parts(state: DnaState, pm_ctx, s_lo, s_hi, b_lo, b_hi, vp, vs,
+                   vb, be=tables.LOCAL, s_log2b=-1, b_log2b=-1):
+    """Raw per-level finds over the SIV and the context-keyed s/b tables
+    (keys: the forward (k-1)-base windows). Returns (cp, cs, cb [..., 4],
+    fp, fs, fb)."""
+    cp = be.siv_find(state.siv, pm_ctx)
+    cs, fs = be.table_find(state.s_tc, s_lo, s_hi, s_log2b)
+    cb, fb = be.table_find(state.b_tc, b_lo, b_hi, b_log2b)
+    fp = vp & (cp.sum(dim=-1) > 0)
+    return cp, cs, cb, fp, fs & vs, fb & vb
 
 
 def _cascade_parts_k(state: DnaState, pm_ctx, s_q, b_q, vp, vs, vb,
@@ -493,12 +520,13 @@ def _window_parts(cfg, state, kcodes, lengths, be=tables.LOCAL,
     s_lo, s_hi = sr(s_lo, 1), sr(s_hi, 1)
     b_lo, b_hi = kmers.pack_windows(kcodes, cfg.bmer_len - 1)
     b_lo, b_hi = sr(b_lo, 1), sr(b_hi, 1)
-    rs = kmers.pack_windows_rc(kcodes, cfg.smer_len - 1)
-    rb = kmers.pack_windows_rc(kcodes, cfg.bmer_len - 1)
-    s_q = _canon_query(s_lo, s_hi, sr(rs[0], 1), sr(rs[1], 1), cfg.smer_len,
-                       cfg.smer_log2_buckets)
-    b_q = _canon_query(b_lo, b_hi, sr(rb[0], 1), sr(rb[1], 1), cfg.bmer_len,
-                       cfg.bmer_log2_buckets)
+    if cfg.canon:
+        rs = kmers.pack_windows_rc(kcodes, cfg.smer_len - 1)
+        rb = kmers.pack_windows_rc(kcodes, cfg.bmer_len - 1)
+        s_q = _canon_query(s_lo, s_hi, sr(rs[0], 1), sr(rs[1], 1),
+                           cfg.smer_len, cfg.smer_log2_buckets)
+        b_q = _canon_query(b_lo, b_hi, sr(rb[0], 1), sr(rb[1], 1),
+                           cfg.bmer_len, cfg.bmer_log2_buckets)
 
     vp = pos >= cfg.siv_len - 1
     if cfg.pmer_gate > 0:
@@ -506,18 +534,29 @@ def _window_parts(cfg, state, kcodes, lengths, be=tables.LOCAL,
     vs = pos >= cfg.smer_len - 1
     vb = pos >= cfg.bmer_len - 1
     if not with_siv:
-        cs, fs = be.ktable_find(state.s_tc, s_q[0], s_q[1],
-                                cfg.smer_log2_buckets)
-        cb, fb = be.ktable_find(state.b_tc, b_q[0], b_q[1],
-                                cfg.bmer_log2_buckets)
+        if cfg.canon:
+            cs, fs = be.ktable_find(state.s_tc, s_q[0], s_q[1],
+                                    cfg.smer_log2_buckets)
+            cb, fb = be.ktable_find(state.b_tc, b_q[0], b_q[1],
+                                    cfg.bmer_log2_buckets)
+        else:
+            cs, fs = be.table_find(state.s_tc, s_lo, s_hi,
+                                   cfg.smer_log2_buckets)
+            cb, fb = be.table_find(state.b_tc, b_lo, b_hi,
+                                   cfg.bmer_log2_buckets)
         fp = torch.zeros_like(vp & active)
         return (torch.zeros_like(cs), cs, cb, fp, fs & vs, fb & vb), active
 
     pm = sr(kmers.pack_windows(kcodes, cfg.siv_len - 1)[0], 1)
     pm = pm & (4 ** (cfg.siv_len - 1) - 1)
-    cp, cs, cb, fp, fs, fb = _cascade_parts_k(
-        state, pm, s_q, b_q, vp, vs, vb, be, cfg.smer_log2_buckets,
-        cfg.bmer_log2_buckets)
+    if cfg.canon:
+        cp, cs, cb, fp, fs, fb = _cascade_parts_k(
+            state, pm, s_q, b_q, vp, vs, vb, be, cfg.smer_log2_buckets,
+            cfg.bmer_log2_buckets)
+    else:
+        cp, cs, cb, fp, fs, fb = _cascade_parts(
+            state, pm, s_lo, s_hi, b_lo, b_hi, vp, vs, vb, be,
+            cfg.smer_log2_buckets, cfg.bmer_log2_buckets)
     if cfg.prefix_ramp:
         cp = cp.clone()
         fp = fp.expand(R, L).clone()
@@ -618,6 +657,56 @@ def _pos_buckets(cfg, pos, lens):
     return _pos_bucket(pos, lens)
 
 
+def _code_active(pos, lens, lcp, anchor_mask):
+    """[R, L] coded positions: in length, past the shared prefix (sorted
+    order), outside an anchored row's preset span (paired-end)."""
+    code_active = pos < lens
+    if lcp is not None:
+        code_active = code_active & (pos >= lcp[:, None])
+    if anchor_mask is not None:
+        code_active = code_active & ~anchor_mask
+    return code_active
+
+
+def dna_modeling(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
+                 be=tables.LOCAL, lcp=None, anchor_mask=None):
+    """Batch-frozen modeling (dna_row_global = 0, no local tables): the
+    cascade over the whole batch against the batch-start tables, then
+    (ctx, coded symbol, freq, cum) at every position; kcodes are the
+    repaired ones (dna_effective_kcodes). lcp, anchor_mask: as in
+    dna_process_batch_rg. Returns (ctx_all, sym_enc, f, c, code_active),
+    all [R, L]."""
+    R, L = codes.shape
+    pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
+    lens = lengths[:, None]
+    code_active = _code_active(pos, lens, lcp, anchor_mask)
+    pb = _pos_buckets(cfg, pos, lens)
+    counts, level, _ = _window_lookup(cfg, state, kcodes, lengths, be)
+    ctx_all, sym_enc = _ctx_sym_from_counts(
+        cfg, counts, level, codes, code_active, pb,
+        _letters_plane(cfg, codes, pos, pb), pos)
+    f, c = models.cdf_encode_lookup(
+        _dna_cdf(cfg, state.model, ctx_all, cfg.scale_bits), sym_enc)
+    f = torch.where(code_active, f, 1 << cfg.scale_bits)
+    c = torch.where(code_active, c, 0)
+    return ctx_all, sym_enc, f, c, code_active
+
+
+def dna_process_batch(cfg: DnaConfig, state: DnaState, codes, kcodes,
+                      lengths, be=tables.LOCAL, lcp=None, anchor_mask=None):
+    """One batch's DNA modeling, by the header's update mode: row-global
+    (dna_process_batch_rg), or repair and modeling against the
+    batch-frozen tables (dna_effective_kcodes, dna_modeling), which leave
+    the tables as they are. Returns (eff, ctx_all, sym_enc, f, c,
+    code_active, s_tc, b_tc)."""
+    if cfg.row_global:
+        return dna_process_batch_rg(cfg, state, codes, kcodes, lengths, be,
+                                    lcp, anchor_mask)
+    eff = dna_effective_kcodes(cfg, state, codes, kcodes, lengths, be)
+    return (eff,) + dna_modeling(cfg, state, codes, eff, lengths, be, lcp,
+                                 anchor_mask) + (state.s_tc, state.b_tc)
+
+
 def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
                          lengths, be=tables.LOCAL, lcp=None,
                          anchor_mask=None):
@@ -637,11 +726,7 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
     dev = codes.device
     pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     lens = lengths[:, None]
-    code_active = pos < lens
-    if lcp is not None:
-        code_active = code_active & (pos >= lcp[:, None])
-    if anchor_mask is not None:
-        code_active = code_active & ~anchor_mask
+    code_active = _code_active(pos, lens, lcp, anchor_mask)
     pb = _pos_buckets(cfg, pos, lens)
     let_ctx = _letters_plane(cfg, codes, pos, pb)
 
@@ -742,12 +827,28 @@ def sb_canon_events(cfg: DnaConfig, kcodes, active, k: int, log2b: int):
 
 
 def _apply_sb_updates(cfg: DnaConfig, be, s_tc, b_tc, kcodes, active):
-    """Apply one block's canonical s/b insert events (one event per k-mer
-    occurrence covers both strands). kcodes/active: [rows, L]."""
+    """Apply one block's s/b insert events. kcodes/active: [rows, L].
+    Canonical tables take one event a k-mer occurrence (it covers both
+    strands); context-keyed tables take a forward event (the context
+    before a base -> the base) and a reverse-complement one (the rc of the
+    k-mer ending at the base -> the complement of its first base)."""
 
     def upd(tc, k, log2b):
-        bkt, tag, vk = sb_canon_events(cfg, kcodes, active, k, log2b)
-        return be.ktable_update(tc, bkt, tag, vk, log2_base=log2b)
+        if cfg.canon:
+            bkt, tag, vk = sb_canon_events(cfg, kcodes, active, k, log2b)
+            return be.ktable_update(tc, bkt, tag, vk, log2_base=log2b)
+        c0 = k - 1
+        ctx_lo, ctx_hi = (kmers.shift_right(t, 1)[:, c0:]
+                          for t in kmers.pack_windows(kcodes, k - 1))
+        rc_lo, rc_hi = (t[:, c0:]
+                        for t in kmers.pack_windows_rc(kcodes, k - 1))
+        rc_base = (3 - kmers.shift_right(kcodes, k - 1))[:, c0:]
+        vk = active[:, c0:].reshape(-1)
+        return be.table_update(
+            tc, torch.cat([ctx_lo.reshape(-1), rc_lo.reshape(-1)]),
+            torch.cat([ctx_hi.reshape(-1), rc_hi.reshape(-1)]),
+            torch.cat([kcodes[:, c0:].reshape(-1), rc_base.reshape(-1)]),
+            torch.cat([vk, vk]), log2_base=log2b, rounds=cfg.claim_rounds)
 
     return (upd(s_tc, cfg.smer_len, cfg.smer_log2_buckets),
             upd(b_tc, cfg.bmer_len, cfg.bmer_log2_buckets))
@@ -768,9 +869,10 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
 
     skip_sb: the s/b tables already evolved inside the row loop (the
     encoder's dna_process_batch_rg, the decoder's rows), so they pass
-    through — every single-device caller. Without it (the mesh decode's
-    batch collect) the s/b insert events of the batch's row blocks
-    (common.to_row_blocks) are replayed in order on the given tables: the
+    through — every single-device caller of row-global tables. Without it
+    batch-frozen tables take the whole batch's s/b events at once, and
+    row-global ones (the mesh decode's batch collect) the events of the
+    batch's row blocks (common.to_row_blocks), replayed in order: the
     event sequence a single device's row loop applies."""
     R, L = codes.shape
     pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
@@ -800,7 +902,9 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
         torch.cat([v_siv, v_siv]))
 
     s_tc, b_tc = state.s_tc, state.b_tc
-    if not skip_sb:
+    if not skip_sb and not cfg.row_global:
+        s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, kcodes, active)
+    elif not skip_sb:
         for kc_r, act_r in zip(common.to_row_blocks(kcodes, cfg.n_lanes),
                                common.to_row_blocks(active, cfg.n_lanes)):
             s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, kc_r, act_r)
@@ -824,22 +928,33 @@ def dna_collect_updates(cfg: DnaConfig, state: DnaState, codes, kcodes,
                           pe=pe_state)
 
 
+def dna_apply_batch(cfg: DnaConfig, state: DnaState, codes, kcodes,
+                    lengths, be=tables.LOCAL, lcp=None) -> DnaState:
+    """Recompute a (decoded) batch's contexts and evolve the state — the
+    encoder's own pass, so both sides converge."""
+    check_supported(cfg)
+    eff, ctx_all, sym_enc, _, _, code_active, s_tc, b_tc = \
+        dna_process_batch(cfg, state, codes, kcodes, lengths, be, lcp)
+    return dna_collect_updates(
+        cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
+        ctx_all, sym_enc, code_active, be, skip_sb=cfg.row_global)
+
+
 def dna_encode_batch(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
                      lcp=None):
     """One batch coded from fresh lanes (the reference's single-step
-    encode; its row-global branch, the one check_supported admits): the
-    row loop carries the s/b tables, the rest of the state evolves from
-    the batch. Returns (words, n_words, decoder initial states, new
-    state)."""
+    encode): the row loop carries row-global s/b tables, and the rest of
+    the state (batch-frozen tables too) evolves from the batch. Returns
+    (words, n_words, decoder initial states, new state)."""
     check_supported(cfg)
     eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc = \
-        dna_process_batch_rg(cfg, state, codes, kcodes, lengths, lcp=lcp)
+        dna_process_batch(cfg, state, codes, kcodes, lengths, lcp=lcp)
     words, n_words, states = rans.rans_encode(
         common.lane_grid(f, cfg.n_lanes), common.lane_grid(c, cfg.n_lanes),
         cfg.scale_bits)
     new_state = dna_collect_updates(
         cfg, state._replace(s_tc=s_tc, b_tc=b_tc), codes, eff, lengths,
-        ctx_all, sym_enc, code_active, skip_sb=True)
+        ctx_all, sym_enc, code_active, skip_sb=cfg.row_global)
     return words, n_words, states, new_state
 
 
@@ -902,7 +1017,8 @@ K2_ARGS = ("siv", "s_tc", "b_tc", "model", "lengths", "words", "x_in",
            "x_out", "ptr_out", "regs_out", "n_words", "N", "L", "siv_len",
            "smer_len", "bmer_len", "prefix_len", "scale_bits", "s_log2_rows",
            "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b",
-           "events")
+           "events", "family", "row_update", "ctx_v", "rough", "let_pb2",
+           "prefix_ramp", "pmer_gate", "repair_iters")
 
 
 def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
@@ -910,9 +1026,12 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
                          be=tables.LOCAL):
     """K2's plain torch version, on any device: one read row of the decode,
     the reference's whole `outer` step — its `inner` step for each of the
-    row's static steps (_decode_segments), then the row's s/b insert events
-    (_apply_sb_updates). state: the DnaState the row reads, its s/b tables
-    fresh with every earlier row's events; length: [N] int64; words: [W]
+    row's static steps (_decode_segments), then, where the tables are
+    row-global, the row's s/b insert events (_apply_sb_updates). state: the
+    DnaState the row reads, its row-global s/b tables fresh with every
+    earlier row's events (batch-frozen ones: the batch's); the window
+    registers of the reverse complements roll whatever the family, though
+    only canonical tables read them; length: [N] int64; words: [W]
     integer tensor of u16 values; x: [N] int64 lane states; ptr: 0-d int64
     words consumed so far; regs: int64 [K2_NREGS, N] carried registers;
     lcp (sorted order): [N] int64 prefix lengths, 0 <= lcp <= length, and
@@ -920,7 +1039,8 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
     below lcp takes no word and copies its base from src, and is left out
     of the rank history; None for original order.
     Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr, regs, s_tc,
-    b_tc), the tables new tensors (the state's are left as they were)."""
+    b_tc), row-global tables new tensors (the state's are left as they
+    were), batch-frozen ones the state's."""
     N = length.shape[0]
     dev = x.device
     sb = cfg.scale_bits
@@ -945,13 +1065,19 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         vs = active & (i >= s_w)
         vb = active & (i >= b_w)
         s_lo, s_hi = slo & s_mlo, shi & s_mhi
-        s_q = _canon_query(s_lo, s_hi, rslo, rshi, cfg.smer_len,
-                           cfg.smer_log2_buckets)
-        b_q = _canon_query(blo & b_mlo, bhi & b_mhi, rblo, rbhi,
-                           cfg.bmer_len, cfg.bmer_log2_buckets)
-        parts = _cascade_parts_k(state, pkey & pm_mask, s_q, b_q, vp, vs, vb,
-                                 be, cfg.smer_log2_buckets,
-                                 cfg.bmer_log2_buckets)
+        if cfg.canon:
+            s_q = _canon_query(s_lo, s_hi, rslo, rshi, cfg.smer_len,
+                               cfg.smer_log2_buckets)
+            b_q = _canon_query(blo & b_mlo, bhi & b_mhi, rblo, rbhi,
+                               cfg.bmer_len, cfg.bmer_log2_buckets)
+            parts = _cascade_parts_k(state, pkey & pm_mask, s_q, b_q, vp, vs,
+                                     vb, be, cfg.smer_log2_buckets,
+                                     cfg.bmer_log2_buckets)
+        else:
+            parts = _cascade_parts(state, pkey & pm_mask, s_lo, s_hi,
+                                   blo & b_mlo, bhi & b_mhi, vp, vs, vb, be,
+                                   cfg.smer_log2_buckets,
+                                   cfg.bmer_log2_buckets)
         if ramp_q is not None:
             # partial-prefix SIV evidence: pkey's low 2q bits are this row's
             # decoded prefix (repair never rewrites them)
@@ -1016,9 +1142,11 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         prevc = _level_class(cfg, level, use_code)
         ys.append((base, kc, ctx_all, sym))
     planes = tuple(torch.stack(y, dim=1) for y in zip(*ys))     # [N, L]
-    pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
-    s_tc, b_tc = _apply_sb_updates(cfg, be, state.s_tc, state.b_tc, planes[1],
-                                   pos < length[:, None])
+    s_tc, b_tc = state.s_tc, state.b_tc
+    if cfg.row_global:
+        pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
+        s_tc, b_tc = _apply_sb_updates(cfg, be, s_tc, b_tc, planes[1],
+                                       pos < length[:, None])
     return planes, x, ptr, torch.stack(
         [pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi]), s_tc, b_tc
 
@@ -1034,10 +1162,12 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
         raise ValueError(f"K2: {N} lanes, one cluster takes "
                          f"1..{K2_MAX_LANES}")
     s_rows, b_rows = state.s_tc.shape[0], state.b_tc.shape[0]
-    n_model = _n_model_ctx(cfg) + _n_coarse_ctx(cfg)
+    width = table_family(cfg)[2]
+    n_model = _n_model_ctx(cfg) + (_n_coarse_ctx(cfg) if cfg.mix_w > 0
+                                   else 0)
     want = (("siv", state.siv, torch.int64, (4 ** (cfg.siv_len - 1),)),
-            ("s_tc", state.s_tc, torch.int64, (s_rows, tables.KBUCKET)),
-            ("b_tc", state.b_tc, torch.int64, (b_rows, tables.KBUCKET)),
+            ("s_tc", state.s_tc, torch.int64, (s_rows, width)),
+            ("b_tc", state.b_tc, torch.int64, (b_rows, width)),
             ("model", state.model, torch.int32, (n_model, A_SYM)),
             ("length", length, torch.int64, (N,)),
             ("words", words, torch.int32, None),
@@ -1066,7 +1196,7 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
             raise ValueError(f"K2: the {name} table has {rows} rows, not "
                              f"2^{log2_base} grown at most 4 times")
     if state.s_tc.data_ptr() % 16 or state.b_tc.data_ptr() % 16:
-        raise ValueError("K2: the K2 tables' rows must be 16-byte aligned")
+        raise ValueError("K2: the s/b tables' rows must be 16-byte aligned")
     s_at, b_at = state.s_tc.data_ptr(), state.b_tc.data_ptr()
     if (s_at < b_at + state.b_tc.nbytes and b_at < s_at + state.s_tc.nbytes):
         raise ValueError("K2: the s and b tables overlap (K2 updates both "
@@ -1077,8 +1207,11 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
     if (words.numel() < 1 or L < 1 or N * L >= 1 << 31
             or not 1 <= cfg.scale_bits <= 16 or not 3 <= cfg.siv_len <= 17
             or not 3 <= cfg.smer_len <= 33 or not 3 <= cfg.bmer_len <= 33
-            or cfg.mix_w > 1 << 18 or cfg.mix_b < 1
-            or cfg.mix_w * cfg.mix_b >= 1 << 31):
+            or not 0 <= cfg.mix_w <= 1 << 18 or cfg.mix_b < 1
+            or cfg.mix_w * cfg.mix_b >= 1 << 31 or cfg.pmer_gate < 0
+            or not 0 <= cfg.repair_iters < 1 << 20 or cfg.ctx_v < 1
+            or (cfg.rough and not (cfg.canon and cfg.row_global
+                                   and cfg.ctx_v >= 2))):
         raise ValueError(f"K2: {words.numel()} words, L = {L}, or a "
                          f"geometry outside the kernel's: {cfg}")
 
@@ -1113,7 +1246,12 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
         "s_log2_base": cfg.smer_log2_buckets,
         "b_log2_rows": state.b_tc.shape[0].bit_length() - 1,
         "b_log2_base": cfg.bmer_log2_buckets,
-        "mix_w": cfg.mix_w, "mix_b": cfg.mix_b, "events": events}
+        "mix_w": cfg.mix_w, "mix_b": cfg.mix_b, "events": events,
+        "family": FAMILIES.index(table_family(cfg)[0]),
+        "row_update": int(cfg.row_global), "ctx_v": cfg.ctx_v,
+        "rough": int(cfg.rough > 0), "let_pb2": int(cfg.let_pb2 > 0),
+        "prefix_ramp": int(cfg.prefix_ramp), "pmer_gate": cfg.pmer_gate,
+        "repair_iters": cfg.repair_iters}
     args = (ctypes.c_int64 * len(K2_ARGS))(*(
         v.data_ptr() if isinstance(v, torch.Tensor) else v or 0
         for v in (vals[k] for k in K2_ARGS)))
@@ -1214,10 +1352,11 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
                      init_states, L: int, be=tables.LOCAL,
                      apply_update: bool = True, lcp=None,
                      lcp_stride: int = 1, pe_words=None, pe_states=None):
-    """Decode a batch — the reference's dna_decode_batch for the
-    row-global canonical tables (no local tables), single-end or
-    paired-end, in original or sorted order. lengths: [R] int64 (R a
-    multiple of n_lanes); words: [W] integer tensor of u16 values;
+    """Decode a batch — the reference's dna_decode_batch without local
+    tables, for row-global or batch-frozen s/b tables of any family,
+    single-end or paired-end, in original or sorted order. lengths: [R]
+    int64 (R a multiple of n_lanes); words: [W] integer tensor of u16
+    values;
     init_states: [N] int64 (the encoder's final states); lcp (sorted
     order): [R] shared-prefix lengths, whose positions each row copies
     from the read lcp_stride rows back in its lane (1: single-end; 2:
@@ -1226,17 +1365,17 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
 
     A loop over the read rows: each row is one dna_decode_row (K2 on a CUDA
     device) against the carried s/b tables, the row's s/b insert events
-    included, and in sorted order the base plane lcp_stride rows back as
-    its prefix source (a zero plane for a lane's first rows, whose lcp is
-    0); dna_collect_updates (model and SIV, and the pair table and pe
-    model) runs once after the batch. With the anchors on, the loop walks
-    the anchored 3-row recoding (read1, rowA, rowB a pair; pe.
-    expand_pe_rows): after each read1 row _pe_row_end decodes the pair's
+    included, and in sorted order the base plane lcp_stride rows back as its
+    prefix source (a zero plane for a lane's first rows, whose lcp is 0);
+    dna_collect_updates (model and SIV, batch-frozen s/b tables, and the
+    pair table and pe model) runs once after the batch. With the anchors on,
+    the loop walks the anchored 3-row recoding (read1, rowA, rowB a pair;
+    pe.expand_pe_rows): after each read1 row _pe_row_end decodes the pair's
     pe symbols and arms its anchor, and rowA and rowB, of the lengths the
-    anchor gives, take their first B positions from the anchor through
-    the row's prefix copy. In sorted order a read1 row's source is the
-    previous read1, 3 rows back.
-    On a CUDA device the state's s/b tables are updated in place: the
+    anchor gives, take their first B positions from the anchor through the
+    row's prefix copy. In sorted order a read1 row's source is the previous
+    read1, 3 rows back.
+    On a CUDA device row-global s/b tables are updated in place: the
     returned state holds the same tensors, and the given one no longer
     holds the batch's starting tables.
 
@@ -1339,7 +1478,7 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
         if apply_update:
             new_state = dna_collect_updates(cfg, st, codes, eff, lengths,
                                             ctx_all, sym, code_active, be,
-                                            skip_sb=True)
+                                            skip_sb=cfg.row_global)
         return codes, new_state, x, ptr, (eff, ctx_all, sym, code_active)
 
     def lane_major(planes):              # [n_rows or pairs, N, ...] -> [...]
@@ -1359,7 +1498,7 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
         new_state = dna_collect_updates(
             cfg, st, codes, eff, lengths3, ctx_all, sym, code_active, be,
             pe_syms=pe_syms, pe_act=pe_act, codes_true=codes_true,
-            lengths_true=lengths, skip_sb=True)
+            lengths_true=lengths, skip_sb=cfg.row_global)
     return codes_true, new_state, x, ptr, (
         eff, ctx_all, sym, code_active, pe_x, pe_syms, pe_act, codes,
         lengths3)

@@ -7,9 +7,10 @@ line for line. The device half codes a fixed-layout symbol grid per read
 ([flag | F delta syms | 4F magnitude bytes | 2 length bytes | M raw
 bytes], unused slots masked rANS no-ops) under static contexts: modeling
 is one vectorized pass, and decode is a scan of one step a symbol slot
-(r_pl * w_all steps a batch), torch ops on any device. Only codec v2 (the
-per-context ALPHA masks and the n_valid padding rule) is ported; the
-legacy v1 is refused before any work (pipeline.unported_modes).
+(r_pl * w_all steps a batch), torch ops on any device. Both codec
+versions: v2 (the per-context ALPHA masks and the n_valid padding rule)
+and the legacy v1 (ALPHA on all 256 symbols of every context, and padding
+reads coded like real ones).
 """
 from __future__ import annotations
 
@@ -557,22 +558,32 @@ def _slot_ctx(cfg: IdConfig) -> list:
             + [CTX_BYTE0 + min(c, COL_BUCKETS - 1) for c in range(M)])
 
 
+def host_n_valid(cfg: IdConfig, take: int):
+    """The n_valid of a batch of `take` real reads for the host planes and
+    chains (encode_ids_host, decode_ids_host): codec v1 tokenizes the
+    padding reads like real ones (None)."""
+    return take if cfg.codec_v >= 2 else None
+
+
 def _ctx_cdfs(cfg: IdConfig, model: torch.Tensor) -> torch.Tensor:
-    """[N_CTX, 257] int64: every context's masked cdf row of the frozen
-    model (codec v2's model_cdf_masked). Every slot of every read reads one
-    of these rows, so the per-slot cdf is a row lookup."""
+    """[N_CTX, 257] int64: every context's cdf row of the frozen model
+    (codec v2: model_cdf_masked; v1: model_cdf). Every slot of every read
+    reads one of these rows, so the per-slot cdf is a row lookup."""
     dev = model.device
+    ctx = torch.arange(N_CTX, device=dev)
+    if cfg.codec_v < 2:
+        return models.model_cdf(model, ctx, cfg.scale_bits)
     return models.model_cdf_masked(
-        model, torch.from_numpy(_alpha_lut_np()).to(dev),
-        torch.arange(N_CTX, device=dev), cfg.scale_bits)
+        model, torch.from_numpy(_alpha_lut_np()).to(dev), ctx,
+        cfg.scale_bits)
 
 
 def id_modeling(cfg: IdConfig, model: torch.Tensor, flag, dsym, dmag, emat,
                 elens, n_valid=None):
     """Build the per-read symbol grid and its (static) contexts/activity.
-    n_valid: rows >= n_valid are padding and code nothing. Returns (ctx
-    [R, W], syms [R, W], f, c, active), each int64 but active (bool): the
-    reference's id_modeling under codec v2."""
+    n_valid (codec v2; v1 ignores it): rows >= n_valid are padding and code
+    nothing. Returns (ctx [R, W], syms [R, W], f, c, active), each int64
+    but active (bool): the reference's id_modeling."""
     R = flag.shape[0]
     F, M = cfg.n_fields, cfg.max_id_len
     dev = model.device
@@ -599,7 +610,7 @@ def id_modeling(cfg: IdConfig, model: torch.Tensor, flag, dsym, dmag, emat,
         keep.expand(R, F), mag_act & keep,
         esc[:, None], esc[:, None], esc[:, None] & (col < elens[:, None])],
         dim=1)
-    if n_valid is not None:
+    if n_valid is not None and cfg.codec_v >= 2:
         active = active & (torch.arange(R, device=dev) < n_valid)[:, None]
 
     cdfs = _ctx_cdfs(cfg, model)
@@ -631,8 +642,8 @@ def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
     """Decode the symbol grid of R reads. Returns (flag [R] u8, dsym [R, F]
     u8, dmag [R, F, 4] u8, emat [R, M] u8, elens [R] int64, new_model,
     final_states [N] int64, words consumed 0-d int64) — the reference's
-    id_decode_batch under codec v2. Host detokenization (decode_ids_host)
-    turns the planes back into id bytes.
+    id_decode_batch (n_valid as in id_modeling). Host detokenization
+    (decode_ids_host) turns the planes back into id bytes.
 
     The scan takes one step a symbol slot: slot i of every lane's read row
     at once. A slot's context is the same for every lane, so its cdf is one
@@ -651,7 +662,7 @@ def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
     cdfs = _ctx_cdfs(cfg, model)
     nb_lut = torch.from_numpy(_NB_LUT).to(dev)
     lane = torch.arange(N, device=dev)
-    valid = (None if n_valid is None else
+    valid = (None if n_valid is None or cfg.codec_v < 2 else
              [lane * r_pl + rd < n_valid for rd in range(r_pl)])
 
     x = init_states

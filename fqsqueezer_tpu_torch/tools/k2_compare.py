@@ -3,7 +3,7 @@ the row's s/b table update, one launch) on one card, against its plain
 torch version.
 
     python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--sorted | --pe]
-        [--other other.cu ...]
+        [--family k2|ktable|table] [--other other.cu ...]
 
 The input is the main path's real batch: the bench corpus's first 20,000
 reads (chip_smoke.py's) compressed on the card at the bench primary row
@@ -11,26 +11,32 @@ reads (chip_smoke.py's) compressed on the card at the bench primary row
 a batch, each read's shared prefix copied by K2; with --pe the first
 10,000 pairs of the bench's PE corpus at its PE row, -p -om o -qm n -im
 n: 1024 lanes, 6 expanded rows a batch, read1, rowA and rowB a pair, the
-anchored rows' first B bases copied from the anchor by K2), and the DNA
-decode inputs of the archive's second batch with the DNA state the first
-batch left (real_dna_batch). With --pe the row-end PE step
-(dna._pe_row_end, torch ops between K2's launches) is timed too. dna_decode_batch decodes it with
-every read row run by K2 and by the plain row step on the same inputs and
-held equal, both updated tables included (check_rows). Then one batch's
-rows are timed with CUDA events, each call allocating its outputs as the
-wrapper does, and the tables restored to the row-start ones before each
+anchored rows' first B bases copied from the anchor by K2; with --family
+ktable under the H6 header of params.HEADER_GENERATIONS — row-global
+ktable_* cells, ctx v2, the rough rescue — and with --family table under
+H0 — the first writer's batch-frozen table_* cells, ctx v1, no mix, no
+ramp, three repairs — each at -s -om o -qm o -im o -gs 5, 2048 lanes, 2
+read rows a batch), and the DNA decode inputs of the archive's second
+batch with the DNA state the first batch left (real_dna_batch). With
+--pe the row-end PE step (dna._pe_row_end, torch ops between K2's
+launches) is timed too. dna_decode_batch decodes it with every read row
+run by K2 and by the plain row step on the same inputs and held equal,
+both updated tables included (check_rows). Then one batch's rows are
+timed with CUDA events, each call allocating its outputs as the wrapper
+does, and the tables restored to the row-start ones before each
 repetition, outside its timed region (replay_ms), in turns: every run,
-then every run again in reverse order. The runs: K2; two copies of its
-source cut at run time (CUTS) — without the row update's atomics, and the
-scan alone (no decisions either) — whose differences from K2 are the
-update's time; and each `--other`, another source with K2's C entry
-point and struct Args (a candidate redesign, or an earlier revision of
-the file). Every run is held equal to the plain row step first: the planes,
-x, ptr and registers, and the tables (updated by K2 and `--other`, left
-as they were by the cut copies). Then the chain floor (K2 on the first 32
-lanes only: one warp walking the same dependent loads), the plain row
-step and the bound. Prints the card's name and power limit first. Needs a
-CUDA card and nvcc.
+then every run again in reverse order. The runs: K2; where the tables
+are row-global, two copies of its source cut at run time (CUTS) —
+without the row update's atomics, and the scan alone (no decisions
+either) — whose differences from K2 are the update's time; and each
+`--other`, another source with K2's C entry point and struct Args (a
+candidate redesign, or an earlier revision of the file). Every run is
+held equal to the plain row step first: the planes, x, ptr and
+registers, and the tables (updated by K2 and `--other`, left as they
+were by the cut copies). Then the chain floor (K2 on the first 32 lanes
+only: one warp walking the same dependent loads), the plain row step and
+the bound. Prints the card's name and power limit first. Needs a CUDA
+card and nvcc.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import torch
 from .. import cli, pipeline
 from ..archive import ArchiveReader
 from ..ops import _build, kmers, tables
-from ..params import Params
+from ..params import Params, header_generation
 from ..streams import dna, meta
 from ..utils.corpus import write_fastq_corpus, write_pe_corpus
 
@@ -54,6 +60,13 @@ from ..utils.corpus import write_fastq_corpus, write_pe_corpus
 BENCH_ROW = ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
 SORTED_ROW = ("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5", "-v", "0")
 PE_ROW = ("-p", "-om", "o", "-qm", "n", "-im", "n", "-gs", "5", "-v", "0")
+# the older writers' rows of --family: (header generation, flags)
+FAMILY_ROWS = {
+    "ktable": ("H6", ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                      "-v", "0")),
+    "table": ("H0", ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                     "-v", "0")),
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate
 K2_OPS_PER_POS = 700       # an active lane-step: two queries (hash, tag,
@@ -271,13 +284,15 @@ def replay_ms(args, launch=None, reps=20):
 # Copies of K2's source with parts of the row's table update cut out,
 # built at run time to time that update apart: (old, new) text pairs, each
 # found once in csrc/dna_decode.cu.
-_NO_ATOMICS = (("    apply_events(ev_s, s_cells, s_w, end, N);\n"
-                "    apply_events(ev_b, b_cells, b_w, end, N);\n", ""),)
+_NO_ATOMICS = (("      apply_events<kFam>(ev_s, a.s_tc, s_w, end, N);\n"
+                "      apply_events<kFam>(ev_b, a.b_tc, b_w, end, N);\n",
+                ""),)
 CUTS = {
     "K2 without the update's atomics": _NO_ATOMICS,
     "K2, the scan alone": _NO_ATOMICS + (
-        ("      ev_s[static_cast<size_t>(i) * N] =\n", "      (void)\n"),
-        ("      ev_b[static_cast<size_t>(i) * N] =\n", "      (void)\n")),
+        ("        ev_s[static_cast<size_t>(i) * N] =\n", "        (void)\n"),
+        ("        ev_b[static_cast<size_t>(i) * N] =\n",
+         "        (void)\n")),
 }
 
 
@@ -314,12 +329,23 @@ def _rows_of(tc, q, log2_base):
                              log2_base)
 
 
+def _query_rows(cfg, tc, win, k, log2_base):
+    """Bucket rows in table tc of the width-k queries of windows win (the
+    (lo, hi, rc lo, rc hi) halves): canonical, or context-keyed."""
+    if cfg.canon:
+        return _rows_of(tc, dna._canon_query(*win, k, log2_base), log2_base)
+    return tables.bucket_of(win[0], win[1], tc.shape[0].bit_length() - 1,
+                            log2_base)
+
+
 def k2_bound_ms(rows):
     """(ms, 'bytes' | 'operations'): the least time the card could take for
     these rows' K2 launches, each row's reads and writes as its data needs
-    them. Bytes a launch: the distinct table rows (32 B) that its finds and
-    its rough probes read, the distinct SIV words (8 B) that its finds and
-    its prefix ramp read, the distinct model rows (fine and coarse, 20 B),
+    them. Bytes a launch: the distinct table rows (32 B for K2 cells, 48 B
+    for ktable cells, 128 B for table cells) that its finds and its rough
+    probes read, the distinct SIV words (8 B) that its finds and its
+    prefix ramp read, the distinct model rows (fine, and coarse with the
+    mix, 20 B),
     the words it consumes (4 B), lengths, states, registers and the pointer
     in and out, the four int64 [N, L] planes out, the table cells its
     update changes (8 B), and in sorted order the LCPs and the prefix
@@ -339,37 +365,47 @@ def k2_bound_ms(rows):
                                       *kmers.pack_windows_rc(kc, s_w)))
         b_win = tuple(sr(t) for t in (*kmers.pack_windows(kc, b_w),
                                       *kmers.pack_windows_rc(kc, b_w)))
-        s_q = dna._canon_query(*s_win, cfg.smer_len, cfg.smer_log2_buckets)
-        b_q = dna._canon_query(*b_win, cfg.bmer_len, cfg.bmer_log2_buckets)
-        s_rows = [_rows_of(st.s_tc, s_q, cfg.smer_log2_buckets)[
+        s_rows = [_query_rows(cfg, st.s_tc, s_win, cfg.smer_len,
+                              cfg.smer_log2_buckets)[
             active & (pos >= min(s_w, b_w))]]
-        b_rows = _rows_of(st.b_tc, b_q, cfg.bmer_log2_buckets)[
-            active & (pos >= b_w)]
-        # the rough probes: three s rows at each miss within s_w of its run
-        miss = active & (pos >= s_w) & ~fs & ~fb
-        age = dna._miss_age(miss, pos.expand_as(miss))
-        ok = miss & (age <= s_w - 1)
-        r_q = dna._rough_queries(cfg, *s_win, torch.clamp(age, 0, s_w - 1))
-        s_rows.append(_rows_of(st.s_tc, r_q, cfg.smer_log2_buckets)[
-            ok[None].expand(3, -1, -1)])
-        # the SIV: a word at each full window, and the ramp's ranges
+        b_rows = _query_rows(cfg, st.b_tc, b_win, cfg.bmer_len,
+                             cfg.bmer_log2_buckets)[active & (pos >= b_w)]
+        if cfg.rough:
+            # the rough probes: three s rows at each miss within s_w of its
+            # run
+            miss = active & (pos >= s_w) & ~fs & ~fb
+            age = dna._miss_age(miss, pos.expand_as(miss))
+            ok = miss & (age <= s_w - 1)
+            r_q = dna._rough_queries(cfg, *s_win,
+                                     torch.clamp(age, 0, s_w - 1))
+            s_rows.append(_rows_of(st.s_tc, r_q, cfg.smer_log2_buckets)[
+                ok[None].expand(3, -1, -1)])
+        # the SIV: a word at each full window (below the pmer gate), and
+        # the ramp's ranges
         pm = sr(kmers.pack_windows(kc, cfg.siv_len - 1)[0])
-        siv = [pm[active & (pos >= cfg.siv_len - 1)]]
-        for q in dna._ramp_cols(cfg):
+        vp = active & (pos >= cfg.siv_len - 1)
+        if cfg.pmer_gate > 0:
+            vp = vp & (pos < cfg.pmer_gate)
+        siv = [pm[vp]]
+        for q in dna._ramp_cols(cfg) if cfg.prefix_ramp else ():
             if q < L:
                 w4 = 4 ** torch.arange(q - 1, -1, -1, device=kc.device)
                 pfx = (kc[:, :q] * w4[None, :]).sum(dim=1)
                 siv.append(dna._ramp_word_idx(cfg, pfx, q)[
                     active[:, q]].reshape(-1))
         fine = ctx.reshape(-1)
-        model_rows = torch.cat([fine, dna._n_model_ctx(cfg)
-                                + dna._coarse_ctx(cfg, fine)])
+        model_rows = (torch.cat([fine, dna._n_model_ctx(cfg)
+                                 + dna._coarse_ctx(cfg, fine)])
+                      if cfg.mix_w > 0 else fine)
         changed = int((s_new != st.s_tc).sum() + (b_new != st.b_tc).sum())
-        n_events = int((active & (pos >= s_w)).sum()
-                       + (active & (pos >= b_w)).sum())
+        n_events = (int((active & (pos >= s_w)).sum()
+                        + (active & (pos >= b_w)).sum())
+                    if cfg.row_global else 0)
+        row_bytes = 8 * dna.table_family(cfg)[2]
         n_ops += (int(active.sum()) * K2_OPS_PER_POS
                   + n_events * K2_OPS_PER_EVENT)
-        nbytes += (32 * (_distinct(torch.cat(s_rows)) + _distinct(b_rows))
+        nbytes += (row_bytes * (_distinct(torch.cat(s_rows))
+                                + _distinct(b_rows))
                    + 8 * _distinct(torch.cat(siv))
                    + 20 * _distinct(model_rows)
                    + 4 * int(ptr_end - ptr) + 8 * N
@@ -391,6 +427,10 @@ def main() -> int:
     ap.add_argument("--pe", action="store_true",
                     help="the bench's PE row (-p -om o -qm n -im n) instead "
                     "of the primary row")
+    ap.add_argument("--family", choices=("k2", "ktable", "table"),
+                    default="k2",
+                    help="the s/b table family: K2 cells (the bench rows), "
+                    "or an older writer's header (FAMILY_ROWS)")
     ap.add_argument("--other", action="append", default=[],
                     help="another CUDA source of K2 (its C entry point and "
                     "struct Args) to time beside it (repeatable)")
@@ -411,15 +451,19 @@ def main() -> int:
         else:
             write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
             row = SORTED_ROW if args.sorted else BENCH_ROW
-            pipeline.compress_file(cli.parse_args(["e", *row, src]), src,
-                                   arc)
+            p = cli.parse_args(["e", *row, src])
+            if args.family != "k2":
+                gen, row = FAMILY_ROWS[args.family]
+                p = header_generation(cli.parse_args(["e", *row, src]), gen)
+            pipeline.compress_file(p, src, arc)
         batch = real_dna_batch(arc)
     rows = check_rows(*batch)
     L = batch[5]
     steps = len(rows) * L
     row_args = [a for a, _ in rows]
     runs = [("K2", None, True)]
-    for k, (name, cuts) in enumerate(CUTS.items()):
+    cut_runs = CUTS if batch[0].row_global else {}
+    for k, (name, cuts) in enumerate(cut_runs.items()):
         runs.append((name, variant(cut_source(f"k2_cut{k}", cuts),
                                    f"k2_cut{k}"), False))
     for k, src in enumerate(args.other):
@@ -441,7 +485,7 @@ def main() -> int:
         print(f"{name}: {t[0]:.4f} ms, {t[1]:.4f} ms a batch "
               f"({t[0] / steps * 1e3:.2f} us a step)")
     mean = {name: sum(t) / len(t) for name, t in times.items()}
-    for name in CUTS:
+    for name in cut_runs:
         d_ms = mean["K2"] - mean[name]
         print(f"K2 minus {name}: {d_ms:.4f} ms a batch, "
               f"{d_ms / len(rows):.4f} ms a row")
@@ -449,7 +493,9 @@ def main() -> int:
     floor_ms = replay_ms(chain)
     plain_ms = replay_ms(row_args, dna.dna_decode_row_plain, 2)
     bound, by = k2_bound_ms(rows)
-    name = "sorted" if args.sorted else "PE" if args.pe else "main"
+    name = ("sorted" if args.sorted else "PE" if args.pe
+            else "main" if args.family == "k2"
+            else f"{FAMILY_ROWS[args.family][0]} ({args.family} cells)")
     print(f"the {name} path's batch "
           f"({len(rows)} rows, {steps} steps): chain "
           f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "

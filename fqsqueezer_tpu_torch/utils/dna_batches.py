@@ -22,7 +22,7 @@ import torch
 
 from .. import pipeline
 from ..ops import rans, tables
-from ..params import Params
+from ..params import Params, header_generation
 from ..streams import common, dna, meta, pe
 from .corpus import make_genome, sample_reads
 
@@ -38,6 +38,19 @@ def bench_dna_config(n_lanes: int | None = None) -> dna.DnaConfig:
     p = Params()
     p.genome_size = 5
     p.adjust_kmer_sizes()
+    cfg = pipeline.make_configs(p)[0]
+    if n_lanes is not None:
+        cfg = dataclasses.replace(cfg, n_lanes=n_lanes)
+    return cfg
+
+
+def legacy_dna_config(gen: str, n_lanes: int | None = None) -> dna.DnaConfig:
+    """The DnaConfig of an older writer's header at the bench row's -gs 5
+    (params.HEADER_GENERATIONS: "H0", "H5" or "H6"), at another lane
+    count when given."""
+    p = Params()
+    p.genome_size = 5
+    header_generation(p, gen)
     cfg = pipeline.make_configs(p)[0]
     if n_lanes is not None:
         cfg = dataclasses.replace(cfg, n_lanes=n_lanes)
@@ -99,15 +112,16 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     and with sorted_reads its LCPs ([R] int64, meta.compute_lcp) last: the
     batch's reads share prefixes (_share_prefixes) and are encoded with
     them, as in sorted order.
-    grow: the s and b tables are doubled once (tables.k2_grow) before the
+    grow: the s and b tables are doubled once (tables.sb_grow) before the
     batch, so every find takes a growth bit. short: the word stream is cut
     to half the words the batch needs, so the decode reads past its end
     (those reads clamp to the last word). adversarial: tables of
     2^ADVERSARIAL_LOG2_BUCKETS rows, so that most buckets are full, made
-    harder before the batch (_adversarial): counts at 255, keys in two
-    cells, new keys racing for one empty cell; the batch's rows repeat
-    k-mers. cfg: the geometry, when it is not the bench row's with
-    2^LOG2_BUCKETS-row tables; its n_lanes must be n_lanes."""
+    harder before the batch (_adversarial, K2 tables only): counts at
+    255, keys in two cells, new keys racing for one empty cell; the
+    batch's rows repeat k-mers. cfg: the geometry and header knobs, when
+    they are not the bench row's with 2^LOG2_BUCKETS-row tables; its
+    n_lanes must be n_lanes."""
     if cfg is None:
         log2b = ADVERSARIAL_LOG2_BUCKETS if adversarial else LOG2_BUCKETS
         cfg = dataclasses.replace(bench_dna_config(n_lanes),
@@ -120,8 +134,8 @@ def dna_decode_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
     genome, state, encode = _warm(cfg, rng, seed, R, L, device)
     if grow:
         state = state._replace(
-            s_tc=tables.k2_grow(state.s_tc, cfg.smer_log2_buckets),
-            b_tc=tables.k2_grow(state.b_tc, cfg.bmer_log2_buckets))
+            s_tc=tables.sb_grow(state.s_tc, cfg.smer_log2_buckets),
+            b_tc=tables.sb_grow(state.b_tc, cfg.bmer_log2_buckets))
     if adversarial:
         state = state._replace(s_tc=_adversarial(state.s_tc, rng),
                                b_tc=_adversarial(state.b_tc, rng))
@@ -149,7 +163,7 @@ def _warm(cfg, rng, seed, R, L, device):
         c = torch.from_numpy(codes).to(device)
         n = torch.from_numpy(lengths).to(device)
         kc = torch.where(c >= 4, 0, c)
-        eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch_rg(
+        eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch(
             cfg, state, c, kc, n, lcp=lcp, anchor_mask=anchor_mask)
         return (c, n, eff, ctx, sym, act, s_tc, b_tc), (f, cum)
 
@@ -159,7 +173,7 @@ def _warm(cfg, rng, seed, R, L, device):
             *_reads(rng, genome, R, L, seed + 1 + k), state=state)
         state = dna.dna_collect_updates(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), c, eff, n, ctx, sym,
-            act, skip_sb=True)
+            act, skip_sb=cfg.row_global)
     return genome, state, encode
 
 

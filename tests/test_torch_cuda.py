@@ -423,7 +423,14 @@ def test_k2_refuses_instead_of_falling_back():
     with pytest.raises(ValueError):          # another table backend
         dna.dna_decode_row(*good, be=tables.LocalBackend())
     with pytest.raises(NotImplementedError):  # a header K2 does not take
-        dna.dna_decode_row(*bad(0, dataclasses.replace(cfg, ctx_v=1)))
+        dna.dna_decode_row(*bad(0, dataclasses.replace(cfg,
+                                                       sorted_ctx=True)))
+    with pytest.raises(ValueError):     # tables of another family's width
+        dna.dna_decode_row(*bad(1, st._replace(
+            s_tc=torch.zeros((rows, tables.KW), dtype=torch.int64,
+                             device="cuda"),
+            b_tc=torch.zeros((rows, tables.KW), dtype=torch.int64,
+                             device="cuda"))))
     lcp = torch.zeros(8, dtype=torch.int64, device="cuda")
     src = torch.zeros((8, 24), dtype=torch.int64, device="cuda")
     dna.dna_decode_row(*good, lcp=lcp, src=src)

@@ -11,10 +11,12 @@ test_torch_streams.py with SIV cap 12, so the prefix ramp and the rough
 rescue are on: 8 lanes, 16 reads (two read rows), ragged lengths with
 0, 1 and the full width among them. Tolerance 0: the codec is
 integer-only. Everything of the port runs on the CPU (the plain versions
-of its kernels). Then the header knobs the port refuses, and the DNA decode
-kernel's (K2's) step predicates against the static segmentation.
+of its kernels). Then each header knob of the older writers on one batch,
+and the DNA decode kernel's (K2's) step predicates against the static
+segmentation.
 """
 import dataclasses
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +35,7 @@ from fqsqueezer_tpu_torch import params as tparams
 from fqsqueezer_tpu_torch import pipeline
 from fqsqueezer_tpu_torch.ops import kmers, rans, tables
 from fqsqueezer_tpu_torch.state import state_from_numpy, state_to_numpy
-from fqsqueezer_tpu_torch.streams import dna, meta, quality
+from fqsqueezer_tpu_torch.streams import common, dna, meta, quality
 from fqsqueezer_tpu_torch.utils.dna_batches import bench_dna_config
 
 SB = 14
@@ -322,22 +324,119 @@ def test_decode_scans_refuse_what_is_not_ported():
             torch.zeros(8), None, None, 8)
 
 
-@pytest.mark.parametrize("knob,value,named", [
-    ("ctx_v", 1, "dna_ctx_v=1"), ("rough", 0, "dna_rough=0"),
-    ("let_pb2", 0, "dna_let_pb2=0"), ("mix_w", 0, "dna_mix_w=0"),
-    ("prefix_ramp", False, "dna_prefix_ramp=0"),
-    ("pmer_gate", 20, "dna_pmer_gate=20"),
-    ("repair_iters", 3, "dna_repair_iters=3")])
+def _jax_state(state):
+    """A port DnaState (SIV, tables, model) as the reference's arrays."""
+    return jdna.DnaState(*(jnp.asarray(t.numpy().astype(
+        np.int32 if t.dtype == torch.int32 else np.uint32))
+        for t in state[:4]))
+
+
+_KNOBS = [("ctx_v", 1, "dna_ctx_v=1"), ("rough", 0, "dna_rough=0"),
+          ("let_pb2", 0, "dna_let_pb2=0"), ("mix_w", 0, "dna_mix_w=0"),
+          ("prefix_ramp", False, "dna_prefix_ramp=0"),
+          ("pmer_gate", 20, "dna_pmer_gate=20"),
+          ("repair_iters", 3, "dna_repair_iters=3")]
+# sha256 of the reference's modeling outputs of each knob's batch
+# (_knob_digest; test_header_knob_digests_match_the_reference recomputes
+# them): the reference's eager modeling takes 10-15 s a knob on one core
+KNOB_SHA256 = {
+    "dna_ctx_v=1":
+        "0be9d7271d6e74c2cb4ea8b8cc3f243b81dae647e51caa0e6a641441e94f31fe",
+    "dna_rough=0":
+        "fde88676aa1d05d38f4c025dd13b90c1df84af1479acc0aa39f2b15732760747",
+    "dna_let_pb2=0":
+        "e30be9d1e200e53a26b49dcad76c605f96e4fdee3af30f0367bf92c3925d3ed5",
+    "dna_mix_w=0":
+        "93d83e4acf4ed747a7d63ecda3644de7937b342acb9a436a2a315b2fae9a136b",
+    "dna_prefix_ramp=0":
+        "e55ba6ac5aed2440eaef85f5f869c5ab74db2329b158a6998fd18d6680641864",
+    "dna_pmer_gate=20":
+        "6247dc4c8d3fc4ed3de8f6ee15124ea65435c61b528c34076efa598ce194c2cf",
+    "dna_repair_iters=3":
+        "b35e4cec22841220d154d41ff622ec9b09413c65f4249b104146a010cbe2b5ef",
+}
+
+
+def _knob_batch(knob, value, named):
+    """(cfg, the warmed state, codes, lengths) of a knob's batch: 16 reads
+    of 40 over 8 lanes, SIV 8 with ramp columns 5-6, 2^9-bucket tables
+    warmed by two batches; the bench header with the knob set, against
+    batch-frozen tables (the batch-frozen pass compiles no scan in the
+    reference) except for the rough knob, the row-global pass's."""
+    from fqsqueezer_tpu_torch.utils import dna_batches
+
+    base = dataclasses.replace(
+        bench_dna_config(8), siv_len=8, prefix_len=5, smer_log2_buckets=9,
+        bmer_log2_buckets=9)
+    if knob != "rough":
+        base = dataclasses.replace(base, row_global=False, rough=0,
+                                   local_log2_cells=0)
+    cfg = dataclasses.replace(base, **{knob: value})
+    if knob == "ctx_v":
+        cfg = dataclasses.replace(cfg, rough=0)
+    rng = np.random.default_rng(len(named))
+    genome, state, _ = dna_batches._warm(cfg, rng, 3, 16, 40, "cpu")
+    codes, lengths = dna_batches._reads(rng, genome, 16, 40, 7)
+    return cfg, state, torch.from_numpy(codes), torch.from_numpy(lengths)
+
+
+def _knob_digest(outs):
+    h = hashlib.sha256()
+    for a in outs:
+        h.update(np.ascontiguousarray(np.asarray(a).astype(np.int64)))
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("knob,value,named", _KNOBS)
 def test_check_supported_refuses_untested_header_knobs(knob, value, named):
-    """Each header knob whose branch no test holds against the reference is
-    refused with one line naming it; the bench header itself passes."""
-    cfg = bench_dna_config()
+    """Each header knob that the older writers set (once refused, now
+    ported) holds its branch against the reference on one batch
+    (_knob_batch): check_supported takes it; the batch's modeling —
+    repair, the cascade, the contexts, the cdf (f, c), the tables the
+    row-global pass carried — equals the reference's (dna_modeling against
+    batch-frozen tables; for the rough knob dna_process_batch_rg), by the
+    sha256 of its outputs (KNOB_SHA256); and the port's decode of its own
+    encode of the batch (the plain scan, K2's plain version) returns the
+    batch, its repaired kcodes, and its contexts and symbols at every
+    coded position."""
+    cfg, state, c, n = _knob_batch(knob, value, named)
     dna.check_supported(cfg)
-    with pytest.raises(NotImplementedError) as e:
-        dna.check_supported(dataclasses.replace(cfg, **{knob: value}))
-    msg = str(e.value)
-    assert msg.startswith("not ported to fqsqueezer_tpu_torch: ")
-    assert "\n" not in msg and named in msg and msg.count("dna_") == 1
+    got = dna.dna_process_batch(cfg, state, c, torch.where(c >= 4, 0, c), n)
+    assert _knob_digest(got) == KNOB_SHA256[named]
+    words, _, init = rans.rans_encode(
+        common.lane_grid(got[3], 8).to(torch.int32),
+        common.lane_grid(got[4], 8).to(torch.int32), cfg.scale_bits)
+    dec, _, _, _, extras = dna.dna_decode_batch(cfg, state, n, words, init,
+                                                40)
+    assert torch.equal(dec, c) and torch.equal(extras[0], got[0])
+    for g, w in zip(extras[1:3], got[1:3]):
+        assert torch.equal(torch.where(got[5], g, 0), torch.where(got[5], w,
+                                                                  0))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("knob,value,named", _KNOBS)
+def test_header_knob_digests_match_the_reference(knob, value, named):
+    """KNOB_SHA256 is the reference's: its modeling of each knob's batch
+    on the same state (the repair too, for the repair knob)."""
+    cfg, state, c, n = _knob_batch(knob, value, named)
+    jcfg = jdna.DnaConfig(**dataclasses.asdict(cfg))
+    jc = jnp.asarray(c.numpy().astype(np.int32))
+    jn = jnp.asarray(n.numpy().astype(np.int32))
+    jk = jnp.where(jc >= 4, 0, jc)
+    jstate = _jax_state(state)
+    if knob == "rough":
+        want = jdna.dna_process_batch_rg(jcfg, jstate, jc, jk, jn)
+    else:
+        jeff = jdna.dna_effective_kcodes(jcfg, jstate, jc, jk, jn)
+        want = (jeff,) + tuple(jdna.dna_modeling(jcfg, jstate, jc, jeff, jn)
+                               ) + (jstate.s_tc, jstate.b_tc)
+    got = dna.dna_process_batch(cfg, state, c, torch.where(c >= 4, 0, c), n)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).astype(
+            np.int64))
+    print(named, _knob_digest(want))
+    assert _knob_digest(want) == KNOB_SHA256[named]
 
 
 @pytest.mark.parametrize("prefix_len,siv_len,smer_len", [

@@ -242,20 +242,55 @@ def test_id_decode_batch(id_batch):
 
 
 def test_id_codec_v1_is_refused():
-    """The legacy id codec is refused in one place, unported_modes, which
-    compress_file and decompress_file both ask before any work."""
+    """The legacy id codec (the first writer's, id_codec_v 1), once
+    refused, against the reference: unported_modes passes it; on the
+    device batch of the other tests, with its padding rows tokenized like
+    real ones (host_n_valid), the reference's encode (ALPHA over all 256
+    symbols of every context, the padding coded) decodes through the
+    port's id_decode_batch to the reference decoder's planes, model,
+    states and words consumed, the padding included, and those detokenize
+    to the batch's ids."""
     p = Params()
     p.dna_mode = DnaMode.SE_ORIGINAL
     p.id_mode = IdMode.LOSSLESS
     p.id_codec_v = 1
-    assert pipeline.unported_modes(p) == [
-        "id codec v1 (legacy id_codec_v header value)"]
+    assert pipeline.unported_modes(p) == []
     p.id_codec_v = 2
     assert pipeline.unported_modes(p) == []
-    p.id_codec_v = 1
-    with pytest.raises(ValueError, match="id codec v1"):
-        pipeline.compress_file(p, "absent.fastq", "absent.fqst",
-                               device="cpu")
+    _, _, idl, _, model = _batch()
+    jcfg = jids.IdConfig(max_id_len=28, n_fields=2, n_lanes=N, codec_v=1)
+    tcfg = tids.IdConfig(max_id_len=28, n_fields=2, n_lanes=N, codec_v=1)
+    assert tids.host_n_valid(tcfg, N_VALID) is None
+    planes = tids.encode_ids_host(idl, tids.read_lanes(R, N), 2, 28, [None],
+                                  n_valid=tids.host_n_valid(tcfg, N_VALID))
+    _same_planes(planes, jids.encode_ids_host(
+        idl, jids.read_lanes(R, N), 2, 28, [None], n_valid=None))
+    jm = jnp.asarray(model)
+    words, n_words, states, enc_model = jids.id_encode_batch(
+        jcfg, jm, *(jnp.asarray(a) for a in planes),
+        n_valid=jnp.int32(N_VALID))
+    n = int(n_words)
+    w = np.zeros(R * jcfg.w_all + 4 * N, np.int64)
+    w[:n] = np.asarray(words)[:n]
+    st = np.asarray(states).astype(np.int64)
+    jdec = jax.device_get(jids.id_decode_batch(
+        jcfg, jm, R, jnp.asarray(w, jnp.uint32), jnp.asarray(st, jnp.uint32),
+        n_valid=jnp.int32(N_VALID)))
+    tdec = tids.id_decode_batch(tcfg, torch.from_numpy(model), R,
+                                torch.from_numpy(w), torch.from_numpy(st),
+                                n_valid=N_VALID)
+    for name, g, want in zip(("flag", "dsym", "dmag", "emat", "elens",
+                              "model", "states", "ptr"), tdec, jdec):
+        np.testing.assert_array_equal(g.numpy().astype(np.int64),
+                                      np.asarray(want).astype(np.int64),
+                                      err_msg=name)
+    np.testing.assert_array_equal(tdec[5].numpy(), np.asarray(enc_model))
+    assert int(tdec[7]) == n
+    for g, want in zip(tdec[:5], planes):
+        np.testing.assert_array_equal(g.numpy().astype(np.int64),
+                                      want.astype(np.int64))
+    assert tids.decode_ids_host(*(a.numpy() for a in tdec[:5]),
+                                tids.read_lanes(R, N), [None]) == idl
 
 
 def test_id_state_crosses_both_ways(id_batch):

@@ -165,23 +165,31 @@ def test_cli_writes_and_decodes_a_mesh_archive(tmp_path, monkeypatch):
         got.quals, np.where(in_len, rev[fwd[ref.quals]], 0))
 
 
-@pytest.mark.parametrize("case", ["route_sb", "tp3"])
+_MESH_SB = "a mesh with s/b tables other than row-global K2 cells"
+
+
+@pytest.mark.parametrize("case", ["route_sb", "tp3", "H0", "H5", "H6"])
 def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
                                                        monkeypatch, case):
     """mesh_route_sb > 0 (the owner-routed s/b exchange, which no entry
-    point sets) and a tp that does not divide the s/b tables' rows and
-    the SIV's words exit 1 with one line, before any input is read; the
-    writer itself raises the same ValueError."""
+    point sets), a tp that does not divide the s/b tables' rows and
+    the SIV's words, and an older writer's header knobs (HEADER_GENERATIONS:
+    s/b tables other than K2 cells; H0's id codec v1 too) exit 1 with one
+    line, before any input is read; the writer itself raises the same
+    ValueError."""
     parse = _tiny_geometry(cli.parse_args)
     tp = "3" if case == "tp3" else "1"
+    im = "o" if case.startswith("H") else "n"
 
     def parse_args(argv):
         p = parse(argv)
         p.mesh_route_sb = int(case == "route_sb")
+        if case.startswith("H"):
+            tparams.header_generation(p, case)
         return p
 
     monkeypatch.setattr(cli, "parse_args", parse_args)
-    argv = ["e", "-s", "-om", "o", "-qm", "8", "-im", "n", "-dp", "2", "-tp",
+    argv = ["e", "-s", "-om", "o", "-qm", "8", "-im", im, "-dp", "2", "-tp",
             tp, "--device", "cpu", "-out", str(tmp_path / "o.fqst"),
             str(tmp_path / "absent.fastq")]
     with pytest.raises(SystemExit) as e:
@@ -189,12 +197,16 @@ def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
     msg = e.value.code
     assert isinstance(msg, str) and "\n" not in msg and msg.startswith(
         "error: ")
-    key = "mesh_route_sb > 0" if case == "route_sb" else "-tp 3"
-    p = parse_args(["e", "-s", "-om", "o", "-qm", "8", "-im", "n", "x"])
+    keys = {"route_sb": ["mesh_route_sb > 0"], "tp3": ["-tp 3"],
+            "H0": [_MESH_SB, "a mesh with id codec v1"]}.get(case, [_MESH_SB])
+    p = parse_args(["e", "-s", "-om", "o", "-qm", "8", "-im", im, "x"])
     with pytest.raises(ValueError) as v:
         mesh_pipeline.compress_file_mesh(p, "absent.fastq", "absent.fqst",
                                          dp=2, tp=int(tp), device="cpu")
-    assert key in msg and key in str(v.value) and "\n" not in str(v.value)
+    for key in keys:
+        assert key in msg and key in str(v.value)
+    assert ("id codec" in msg) == (case == "H0")
+    assert "\n" not in str(v.value)
     assert not os.path.exists(tmp_path / "o.fqst")
 
 

@@ -287,8 +287,12 @@ def _header_blob(arc):
         rd.close()
 
 
+_MESH_SB = "a mesh with s/b tables other than row-global K2 cells"
+
 # `what` None: a mode this package decodes; "routed": a mesh header, which
-# the CLI's d routes to parallel.mesh_pipeline (the cases keep their ids)
+# the CLI's d routes to parallel.mesh_pipeline (the cases keep their ids);
+# a tuple: a mesh header of an older writer, which the mesh decode refuses
+# with one line naming each entry
 _D_CASES = [
     ({"quality_mode": jparams.QualityMode.LOSSLESS}, None),
     ({"dna_mode": jparams.DnaMode.SE_SORTED}, None),
@@ -296,7 +300,11 @@ _D_CASES = [
     ({"id_mode": jparams.IdMode.INSTRUMENT}, None),
     ({"mesh_dp": 2}, "routed"),
     ({"dna_row_global": 0}, "row-global"),
-    ({"id_mode": jparams.IdMode.LOSSLESS, "id_codec_v": 1}, "id codec v1"),
+    ({"id_mode": jparams.IdMode.LOSSLESS, "id_codec_v": 1}, None),
+    ({**tparams.HEADER_GENERATIONS["H0"], "mesh_dp": 2,
+      "id_mode": jparams.IdMode.LOSSLESS}, (_MESH_SB, "a mesh with id codec v1")),
+    ({**tparams.HEADER_GENERATIONS["H5"], "mesh_dp": 2,
+      "id_mode": jparams.IdMode.LOSSLESS}, (_MESH_SB,)),
 ]
 
 
@@ -304,16 +312,36 @@ _D_CASES = [
     "fields,what", _D_CASES,
     ids=["fields0-quality mode", "fields1-sorted", "fields2-paired-end",
          "fields3-id mode", "fields4-mesh", "fields5-row-global",
-         "fields6-id codec v1"])
+         "fields6-id codec v1", "fields7-mesh H0", "fields8-mesh H5"])
 def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
-    """Each header the port lacks is refused with one line; the quality and
-    id modes it has decode instead (an archive with no group: an empty
-    FASTQ), and so does a mesh header through the CLI, which routes it to
-    the mesh decode, while pipeline.decompress_file raises the reference's
-    error for it."""
+    """Each header the port lacks is refused with one line (in-batch local
+    tables: dna_row_global 0 with the default local_log2_cells); the
+    quality and id modes it has (id codec v1 too) decode instead (an
+    archive with no group: an empty FASTQ), and so does a mesh header
+    through the CLI, which routes it to the mesh decode, while
+    pipeline.decompress_file raises the reference's error for it. A mesh
+    header of an older writer (H0, H5) is refused by the mesh decode,
+    through the CLI and mesh_pipeline.decompress_file_mesh alike."""
     arc = _header_only_archive(tmp_path / "a.fqst", **fields)
     if what is None:
         _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
+        return
+    if isinstance(what, tuple):
+        from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+
+        out = str(tmp_path / "o.fq")
+        with pytest.raises(SystemExit) as e:
+            cli.main(["d", "--device", "cpu", "-out", out, arc])
+        msg = e.value.code
+        assert isinstance(msg, str) and "\n" not in msg
+        assert msg.startswith("error: ") and all(w in msg for w in what)
+        assert msg.endswith("not yet ported to fqsqueezer_tpu_torch")
+        assert (_MESH_SB in msg) + ("id codec" in msg) == len(what)
+        assert not os.path.exists(out)
+        with pytest.raises(ValueError) as f:
+            mesh_pipeline.decompress_file_mesh(tparams.Params(), arc, out,
+                                               device="cpu")
+        assert msg == f"error: {f.value}"
         return
     if what == "routed":
         out = str(tmp_path / "o.fq")
@@ -345,7 +373,8 @@ def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
 def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     """No visible card and no --device (in a fresh process, which shows
     the exit code and that no traceback is printed); a file that is not
-    an archive; an archive of a mode the port lacks (id codec v1); a
+    an archive; an archive of a mode the port lacks (sorted-mode position
+    contexts, dna_sorted_ctx); a
     missing file. Each is exit 1 with one line, and writes no output
     file. And a mesh archive (the reference's dp=2 writer, a committed
     fixture) whose first group's payload crc is broken: exit 1 with one
@@ -361,11 +390,11 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     assert "no CUDA device" in lines[0]
     bad = tmp_path / "bad.fqst"
     bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
-    v1_arc = _header_only_archive(tmp_path / "v1.fqst",
-                                  id_mode=jparams.IdMode.LOSSLESS,
-                                  id_codec_v=1)
+    ctx_arc = _header_only_archive(tmp_path / "ctx.fqst",
+                                   dna_mode=jparams.DnaMode.SE_SORTED,
+                                   dna_sorted_ctx=1)
     for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
-                       (v1_arc, "id codec v1"),
+                       (ctx_arc, "dna_sorted_ctx"),
                        (str(tmp_path / "none.fqst"), "none.fqst")):
         with pytest.raises(SystemExit) as e:
             cli.main(["d", "--device", "cpu", "-out", out, path])
