@@ -114,19 +114,25 @@ Phases, one line each; any failure raises and the script exits non-zero:
                card: exactly their CPU outputs, one K1 launch each.
  13. legacy  — the JAX package's older writers (params.HEADER_GENERATIONS:
                H0, the first writer's batch-frozen table_* tables, ctx v1,
-               no mix or ramp, three repairs, id codec v1; H5 and H6, the
-               row-global ktable_* tables with u16 counters, H6 with ctx
-               v2 and the rough rescue): LEGACY's archives — the 20k
-               corpus at -s -om o -qm o -im o -gs 5 under H0, H5 and H6,
-               at -s -om s -qm o -im n under H0, and 10k pairs at -p -om
-               o -qm o -im o under H6 — written through
-               pipeline.compress_file / compress_pe on the card, each
-               sha256 held to the JAX writer's, and decoded through the
-               CLI's d to the input (BYTE-EXACT) or the JAX decoder's
-               sha256; then LEGACY_FULL's, the 100k corpus under H0 and
-               H6 at -s -om o -qm o -im o -gs 5 (2048 lanes), timed both
-               ways, BYTE-EXACT. K1 at least once a group flush, K2 once a
-               read row, K3 once a batch.
+               no mix or ramp, three repairs, id codec v1; H1-H4, the same
+               with in-batch local statistics: local_* tables of 2^22
+               cells, under H1 DNA and quality model deltas, H2 without
+               them and with the mix and ramp, H3 with 2-pass inserts, H4
+               over canonical ktable_* tables with klocal_* ones; H5 and
+               H6, the row-global ktable_* tables with u16 counters, H6
+               with ctx v2 and the rough rescue): LEGACY's archives — the
+               20k corpus at -s -om o -qm o -im o -gs 5 under H0-H6 but
+               H5's, at -s -om s -qm o -im n under H0 and -s -om s -qm 8
+               -im n under H1, and 10k pairs at -p -om o -qm o -im o under
+               H6 and H4 — written through pipeline.compress_file /
+               compress_pe on the card, each sha256 held to the JAX
+               writer's, and decoded through the CLI's d to the input
+               (BYTE-EXACT) or the JAX decoder's sha256; then
+               LEGACY_FULL's, the 100k corpus under H0, H6, H1 and H4 at
+               -s -om o -qm o -im o -gs 5 (2048 lanes), timed both ways,
+               BYTE-EXACT, with the local state's peak memory and zeroing
+               time. K1 at least once a group flush, K2 once a read row,
+               K3 once a batch.
  14. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
@@ -139,7 +145,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
                8 symbols that of the sorted archive (1024 lanes, 4 read
                rows, timed beside its chain floor). Then on
                that batch K3 and the plain scan timed, the chain floor (K3
-               on 32 lanes) and the bound.
+               on 32 lanes) and the bound. K3 with in-batch deltas
+               likewise at 8 and 96 symbols: random batches, then the
+               real batch of [legacy]'s H1 archive of the count (-qm o
+               original order, -qm 8 sorted order); at 2 and 4 symbols
+               random batches only.
  15. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
@@ -169,16 +179,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
                32 lanes) and the bound; on the PE batch also the row-end
                PE step (torch ops between K2's launches).
  16. k2_legacy — K2's instantiations for the older headers
-               (K2_LEGACY: table cells batch-frozen; ktable cells with the
-               row update under H5 and H6 and batch-frozen; K2 cells
-               batch-frozen, and with the row update under the older
-               writers' knobs) against the plain row step, exact, tables
-               included: encoded random batches (K2_LEGACY_SHAPES: N 8,
-               256 and 2048, grown tables, short word streams) and a
-               sorted one each, then the real second batches of LEGACY's
-               archives; K2, its chain floor, the plain row step and the
-               bound timed on the H0 (original and sorted order), H5 and
-               H6 batches.
+               (K2_LEGACY: table cells batch-frozen, alone and with the
+               local_* tables and with the DNA deltas too; ktable cells
+               with the row update under H5 and H6 and batch-frozen, with
+               the klocal_* tables and with the deltas too; K2 cells
+               batch-frozen, with the klocal_* tables, and with the row
+               update under the older writers' knobs) against the plain
+               row step, exact, tables included: encoded random batches
+               (K2_LEGACY_SHAPES: N 8, 256 and 2048, grown tables, short
+               word streams) and a sorted one each, then the real second
+               batches of LEGACY's archives; K2, its chain floor, the
+               plain row step and the bound timed on the batches of
+               LEGACY_TIMED.
  17. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
@@ -188,9 +200,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
                reads/s, wall time, peak CUDA memory and the launches.
 Then the run's wall time; the last two lines are the kernels' JSON record
 (K1, K2 at the main path's, sorted order's and the PE row's shape, K2's
-table-cell instantiations at H0's original- and sorted-order batches and
-its ktable-cell one at H6's, and K3 for each symbol count) and the result
-line. K1's launches are those of
+table-cell instantiations at H0's original- and sorted-order batches, its
+ktable-cell one at H6's, its local-statistics ones at H1's (original and
+sorted order), H2's and H4's, and K3 for each symbol count and with
+deltas) and the result line. K1's launches are those of
 the three timed compresses (the main path's, the sorted row's and the PE
 row's) and of [mesh_write]'s four mesh compresses, K3's for 8 symbols
 those of the two timed SE decodes.
@@ -437,7 +450,34 @@ LEGACY = (
     ("H6", 10_000, ("-p", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5"),
      "22d26f425c6053d2a22a5fb2546084e374f3f1682e077b25033d182fe85eb0e3",
      None),
+    ("H1", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "85f2719bc0e6f904956f922a024fa309188ed1513c896d038ce78d7b078f9359",
+     None),
+    ("H1", DIGEST_READS, ("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs",
+                          "5"),
+     "2afeee1f471905001ae1a1ef9cbd8ffb066c41875d283370f9c59aa45dfdfad0",
+     "6e2c51b2dbc600760a3454249ec6c317c2bf7ccbc7cfe4ad6f0da2ddc8bda21e"),
+    ("H2", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "24b044fa8a03d82f37ca15fbd9bcc84c17ab855bf19aa0c9cfcb428b60eb68dd",
+     None),
+    ("H3", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "081b9ad163fbb3d234e1f1d70686da1e731b5b9f0476489a3097e8de9983cab8",
+     None),
+    ("H4", DIGEST_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                          "5"),
+     "513aa4dc7b2d94cadab6386f86741910b93f26344b3b4d686c9a84e239386a11",
+     None),
+    ("H4", 10_000, ("-p", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5"),
+     "6facdf57f825aa64612285f808eaa3e114f0bcf1ad5ddd17e43610cf6c896eeb",
+     None),
 )
+# the LEGACY rows whose real batch [k2_legacy] times, by the name of K2's
+# instantiation on it (H3's takes H2's, the PE rows' their SE ones')
+LEGACY_TIMED = {0: "H0", 1: "H0 sorted", 2: "H5", 3: "H6", 5: "H1",
+                6: "H1 sorted", 7: "H2", 9: "H4"}
 # the full-width round trips (generation, reads, flags, archive sha256):
 # compress and decode timed, the decode BYTE-EXACT
 LEGACY_FULL = (
@@ -447,6 +487,12 @@ LEGACY_FULL = (
     ("H6", FULL_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
                         "5"),
      "ba26cf43a41cfb5ccb15afefc124095e05b1ae73be6f76425e040060d01e7c2a"),
+    ("H1", FULL_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                        "5"),
+     "deed7dda51920629a7b55d56fcb791853539dd56948c5a8d905e0bbc1f273ed1"),
+    ("H4", FULL_READS, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs",
+                        "5"),
+     "9ba3640d85ba8b2f1ceff3c24781b10d53c3b5750181fae3a6f56aad41690312"),
 )
 # the K2 instantiations the older headers add, checked against the plain
 # row step on encoded random batches: (name, generation (None: today's
@@ -459,7 +505,17 @@ K2_LEGACY = (("table cells, batch-frozen (H0)", "H0", False, {}),
              ("K2 cells, batch-frozen", None, True, {}),
              ("K2 cells, row update, the older knobs", None, False,
               {"ctx_v": 1, "rough": 0, "let_pb2": 0, "mix_w": 0,
-               "prefix_ramp": False, "pmer_gate": 20, "repair_iters": 3}))
+               "prefix_ramp": False, "pmer_gate": 20, "repair_iters": 3}),
+             ("table cells, local_* tables (H2)", "H2", False,
+              {"local_log2_cells": 16}),
+             ("table cells, local_* tables and DNA deltas (H1)", "H1",
+              False, {"local_log2_cells": 16}),
+             ("ktable cells, klocal_* tables (H4)", "H4", False,
+              {"local_log2_cells": 16}),
+             ("ktable cells, klocal_* tables and DNA deltas", "H4", False,
+              {"local_log2_cells": 16, "local_model_inc": 8}),
+             ("K2 cells, klocal_* tables and DNA deltas", None, True,
+              {"local_log2_cells": 16, "local_model_inc": 8}))
 K2_LEGACY_SHAPES = ((8, 2, 104, False, False), (256, 2, 40, True, True),
                     (2048, 2, 104, False, False))
 K2_LEGACY_SORTED = (256, 2, 104)
@@ -1474,11 +1530,46 @@ def _legacy_paths(gen, n, flags):
     return files, os.path.join(WORK, f"{tag}.fqst"), outs
 
 
+def _legacy_name(gen, flags):
+    """A LEGACY row's name: the generation, its order and PE."""
+    return (gen + (" sorted" if flags[flags.index("-om") + 1] == "s" else "")
+            + (" pe" if "-p" in flags else ""))
+
+
+def _local_state_zeroing(p):
+    """(ms, bytes) of one batch's zeroed in-batch local state on the card
+    (the s and b local tables, the DNA and quality deltas where the header
+    keeps them), as compress and decode allocate it once a batch; None
+    without local statistics."""
+    import torch
+
+    from fqsqueezer_tpu_torch import pipeline
+    from fqsqueezer_tpu_torch.streams import dna, quality
+
+    dcfg, qcfg = pipeline.make_configs(p)[:2]
+    if not dna._with_local(dcfg):
+        return None
+
+    def make():
+        loc = dna._local_state_create(dcfg, "cuda")
+        if qcfg.with_local:
+            loc += (quality.local_state_create(qcfg, "cuda"),)
+        return loc
+
+    make()
+    ms = _ms(make, 5)
+    return ms, sum(t.nbytes for t in make())
+
+
 def _legacy_round_trip(gen, n, flags, want):
     """Compress one legacy row through pipeline.compress_file (or
     compress_pe) on the card, hold the archive to the JAX writer's sha256,
     decode it through the CLI's d; returns (compress s, decode s, K1
-    launches, group flushes, K2 launches, read rows, decoded FASTQs)."""
+    launches, group flushes, K2 launches, read rows, decoded FASTQs, peak
+    CUDA memory of the compress and of the decode in GiB); the launches
+    are a (K2, K3) pair."""
+    import torch
+
     from fqsqueezer_tpu_torch import cli, pipeline
     from fqsqueezer_tpu_torch.ops import rans
     from fqsqueezer_tpu_torch.tools.bench_gpu import timed
@@ -1487,7 +1578,9 @@ def _legacy_round_trip(gen, n, flags, want):
     p = _legacy_params(gen, flags, files)
     write = pipeline.compress_pe if "-p" in flags else pipeline.compress_file
     _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     _, dt = timed(lambda: write(p, *files, arc))
+    peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
     k1 = rans.K1_LAUNCHES
     groups = _n_groups(arc, p.n_lanes)
     sha = _sha256(arc)
@@ -1498,12 +1591,15 @@ def _legacy_round_trip(gen, n, flags, want):
     _reset_launches()
     out_args = ["-out", outs[0]] + (["-out2", outs[1]] if len(outs) > 1
                                     else [])
+    torch.cuda.reset_peak_memory_stats()
     rc, ddt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
+    peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
     if rc != 0:
         raise RuntimeError(f"legacy {gen}: the CLI's d returned {rc}")
     k3, k2 = _check_decode_launches(arc, p.quality_mode.value != "none",
                                     f"legacy {gen} `{' '.join(flags)}`")
-    return dt, ddt, k1, groups, k2, _batches_and_rows(arc)[1], outs
+    return (dt, ddt, k1, groups, (k2, k3), _batches_and_rows(arc)[1], outs,
+            peak_e, peak_d)
 
 
 def _same_bytes(got, want, what):
@@ -1520,12 +1616,15 @@ def phase_legacy():
     decoded through the CLI's d (no --device: the card) to the input
     (BYTE-EXACT) or the JAX decoder's FASTQ, K2 launched once a read row
     (an expanded row with the PE anchors), K1 at least once a group
-    flush. The 100k rows are timed both ways. Returns the K2 launches of
-    the 100k H0 and H6 decodes and of the sorted H0 one."""
-    launches = {}
+    flush. The 100k rows are timed both ways, with their peak CUDA memory
+    and, for the headers with local statistics, the time and size of one
+    batch's zeroed local state. Returns the K2 and the K3 launches of each
+    row's decode by its name (_legacy_name; a 100k row's under its
+    generation's)."""
+    launches, k3_launches = {}, {}
     for gen, n, flags, want, want_dec in LEGACY:
-        dt, ddt, k1, groups, k2, rows, outs = _legacy_round_trip(
-            gen, n, flags, want)
+        dt, ddt, k1, groups, (k2, k3), rows, outs, _, _ = \
+            _legacy_round_trip(gen, n, flags, want)
         files = _legacy_paths(gen, n, flags)[0]
         if want_dec is None:
             _same_bytes(outs, files, f"legacy {gen} `{' '.join(flags)}`")
@@ -1536,25 +1635,32 @@ def phase_legacy():
                                f"decoder's {want_dec}")
         else:
             how = "sha256 == the JAX decoder's"
-        if flags[flags.index("-om") + 1] == "s":
-            launches["H0 sorted"] = k2
+        launches[_legacy_name(gen, flags)] = k2
+        k3_launches[_legacy_name(gen, flags)] = k3
         print(f"[legacy] {gen} {n} {'pairs' if '-p' in flags else 'reads'} "
               f"`{' '.join(flags)}`: archive sha256 == the JAX writer's, "
               f"decode {how}; e {dt:.2f} s (K1 {k1} in {groups} flushes), "
               f"d {ddt:.2f} s (K2 {k2} for {rows} rows)")
     for gen, n, flags, want in LEGACY_FULL:
         files = _legacy_paths(gen, n, flags)[0]
-        dt, ddt, k1, groups, k2, rows, outs = _legacy_round_trip(
-            gen, n, flags, want)
+        dt, ddt, k1, groups, (k2, k3), rows, outs, peak_e, peak_d = \
+            _legacy_round_trip(gen, n, flags, want)
         _same_bytes(outs, files, f"legacy {gen} {n}")
         launches[gen] = k2
+        k3_launches[gen] = k3
+        p = _legacy_params(gen, flags, files)
+        zero = _local_state_zeroing(p)
+        local = ("" if zero is None else
+                 f"; one batch's local state {zero[1] / 2 ** 20:.1f} MiB, "
+                 f"zeroed in {zero[0]:.4f} ms")
         print(f"[legacy] {gen} {n} reads `{' '.join(flags)}` "
-              f"({_legacy_params(gen, flags, files).n_lanes} lanes): "
+              f"({p.n_lanes} lanes): "
               f"archive sha256 == the JAX writer's, decode BYTE-EXACT; "
               f"compress {n / dt:.1f} reads/s ({dt:.3f} s, K1 {k1} in "
-              f"{groups} flushes), decode {n / ddt:.1f} reads/s "
-              f"({ddt:.3f} s, K2 {k2} for {rows} read rows)")
-    return launches
+              f"{groups} flushes, peak {peak_e:.3f} GiB), decode "
+              f"{n / ddt:.1f} reads/s ({ddt:.3f} s, K2 {k2} for {rows} read "
+              f"rows, peak {peak_d:.3f} GiB){local}")
+    return launches, k3_launches
 
 
 def _k3_check(cfg, model, lengths, words, init, L, what):
@@ -1602,9 +1708,10 @@ def _k3_bound_ms(cfg, model, lengths, syms, words_used, L):
             "bytes" if by_bytes >= by_ops else "operations")
 
 
-def _k3_one(n_sym, mode, arc_name):
-    """K3 for one symbol count: exact on random batches and on a real
-    archive's batch; then its numbers on that batch."""
+def _k3_one(n_sym, mode, arc_name, deltas=False):
+    """K3 for one symbol count (with in-batch deltas: its delta
+    instantiation): exact on random batches and on a real archive's batch
+    (arc_name: under WORK, or a path); then its numbers on that batch."""
     import torch
 
     from fqsqueezer_tpu_torch.streams import quality
@@ -1613,17 +1720,19 @@ def _k3_one(n_sym, mode, arc_name):
                                                        real_quality_batch)
     from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
 
-    shapes = K3_MODE_SHAPES + (K3_SHAPES if n_sym == 8 else ())
+    shapes = K3_MODE_SHAPES + (K3_SHAPES if n_sym == 8 and not deltas
+                               else ())
     for N, r_pl, L in shapes:
-        cfg = quality.QualConfig(mode=mode, n_lanes=N)
+        cfg = quality.QualConfig(mode=mode, n_lanes=N, with_local=deltas)
         arrs = quality_batch(N * 7 + L + r_pl + n_sym, N, r_pl, L,
                              cfg.n_ctx, cfg.n_sym, N * r_pl * L // 2)
         _k3_check(cfg, *(torch.from_numpy(a).cuda() for a in arrs), L,
                   f"{n_sym} symbols, N={N} r_pl={r_pl} L={L}")
     cfg, model, lengths, words, init, L = real_quality_batch(
         os.path.join(WORK, arc_name))
-    if cfg.n_sym != n_sym:
-        raise RuntimeError(f"{arc_name} holds {cfg.n_sym}-symbol qualities")
+    if cfg.n_sym != n_sym or cfg.with_local != deltas:
+        raise RuntimeError(f"{arc_name} holds {cfg.n_sym}-symbol qualities "
+                           f"(deltas: {cfg.with_local})")
     syms, _, ptr = _k3_check(cfg, model, lengths, words, init, L,
                              f"the {mode} archive's batch")
     args = (cfg, model, lengths, words, init, L)
@@ -1634,8 +1743,9 @@ def _k3_one(n_sym, mode, arc_name):
     bound_ms, bound_by = _k3_bound_ms(cfg, model, lengths, syms, int(ptr),
                                       L)
     R = lengths.shape[0]
-    print(f"[k3] {n_sym} symbols ({mode}): exact on {len(shapes)} random "
-          f"shapes and the real batch ({arc_name}: N={cfg.n_lanes}, "
+    print(f"[k3] {n_sym} symbols ({mode}{', in-batch deltas' * deltas}): "
+          f"exact on {len(shapes)} random shapes and the real batch "
+          f"({os.path.basename(arc_name)}: N={cfg.n_lanes}, "
           f"r_pl={R // cfg.n_lanes}, L={L}, {int(ptr)} words): K3 "
           f"{ms:.4f} ms ({ms / (R // cfg.n_lanes * L) * 1e3:.2f} us a "
           f"step), chain floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, "
@@ -1670,12 +1780,39 @@ def _k3_sorted():
 
 def phase_k3():
     """K3 == its plain version, exact, for every symbol count, on random
-    shapes and on real batches (sorted order's too); returns the numbers
-    of the kernels line, by symbol count."""
+    shapes and on real batches (sorted order's too), and its delta
+    instantiations (8 and 96 symbols) on random batches and [legacy]'s H1
+    archives; returns the numbers of the kernels line, by symbol count (a
+    delta instantiation's as "8 deltas", "96 deltas")."""
     out = {n_sym: _k3_one(n_sym, mode, arc) for n_sym, mode, arc in
            K3_MODES}
     _k3_sorted()
+    for k, (n_sym, mode) in ((5, (96, "lossless")), (6, (8, "illumina_8"))):
+        gen, n, flags, _, _ = LEGACY[k]
+        out[f"{n_sym} deltas"] = _k3_one(
+            n_sym, mode, _legacy_paths(gen, n, flags)[1], deltas=True)
+    _k3_deltas_random()
     return out
+
+
+def _k3_deltas_random():
+    """K3's delta instantiations at 2 and 4 symbols (no [legacy] archive
+    holds them) == the plain scan on random batches."""
+    import torch
+
+    from fqsqueezer_tpu_torch.streams import quality
+    from fqsqueezer_tpu_torch.utils.rans_grids import quality_batch
+
+    for n_sym, mode in ((2, "binary"), (4, "illumina_4")):
+        for N, r_pl, L in K3_MODE_SHAPES:
+            cfg = quality.QualConfig(mode=mode, n_lanes=N, with_local=True)
+            arrs = quality_batch(N * 5 + L + r_pl + n_sym, N, r_pl, L,
+                                 cfg.n_ctx, cfg.n_sym, N * r_pl * L // 2)
+            _k3_check(cfg, *(torch.from_numpy(a).cuda() for a in arrs), L,
+                      f"{n_sym} symbols with deltas, N={N} r_pl={r_pl} "
+                      f"L={L}")
+    print(f"[k3] 2 and 4 symbols with in-batch deltas: exact on "
+          f"{len(K3_MODE_SHAPES)} random shapes each")
 
 
 def phase_k2():
@@ -1720,7 +1857,7 @@ def phase_k2():
         args = [a for a, _ in rows]
         ms = k2c.replay_ms(args, reps=20)
         floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
-        plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a)
+        plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a[:10])
                                 for a in args], 2)
         bound_ms, bound_by = k2c.k2_bound_ms(rows)
         cfg, L, lcp = batch[0], batch[5], batch[6]
@@ -1762,7 +1899,8 @@ def _k2_timed(key, batch, rows):
     args = [a for a, _ in rows]
     ms = k2c.replay_ms(args, reps=20)
     floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
-    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a) for a in args], 2)
+    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a[:10], loc=a[10])
+                            for a in args], 2)
     bound_ms, bound_by = k2c.k2_bound_ms(rows)
     cfg, L = batch[0], batch[5]
     steps = len(rows) * L
@@ -1813,8 +1951,8 @@ def phase_k2_legacy():
         rows = k2c.check_rows(*batch, what=f"the legacy {gen} "
                                            f"`{' '.join(flags)}` batch")
         n_checks += 1
-        if k < 4:
-            key = f"{gen} sorted" if k == 1 else gen
+        if k in LEGACY_TIMED:
+            key = LEGACY_TIMED[k]
             out[key] = _k2_timed(f"the legacy {key} batch", batch, rows)
     print(f"[k2] the older headers' instantiations exact on {n_checks} "
           f"batches ({len(K2_LEGACY)} kinds x random, sorted; the "
@@ -1954,7 +2092,7 @@ def main() -> int:
     phase_resume()
     phase_mesh()
     mesh_k1 = phase_mesh_write()
-    legacy_k2 = phase_legacy()
+    legacy_k2, legacy_k3 = phase_legacy()
     k3 = phase_k3()
     k2 = phase_k2()
     k2.update(phase_k2_legacy())
@@ -1999,12 +2137,29 @@ def main() -> int:
         "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
         "launches": legacy_k2["H6"], **k2["H6"]}] + [{
+        "name": f"dna_decode_row (K2, {what}: the {key.split()[0]} header)",
+        "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": legacy_k2[key], **k2[key]} for key, what in (
+            ("H1", "table cells, local_* tables and DNA deltas"),
+            ("H1 sorted", "table cells, local_* tables and DNA deltas, "
+                          "sorted order"),
+            ("H2", "table cells, local_* tables"),
+            ("H4", "ktable cells, batch-frozen, klocal_* tables"))] + [{
         "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode})",
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",
         "replaces": "fqsqueezer_tpu/streams/quality.py:171",
         "launches": k3_launches[n_sym], **k3[n_sym]}
-        for n_sym, mode, _ in K3_MODES]}))
+        for n_sym, mode, _ in K3_MODES] + [{
+        "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode}, in-batch "
+                f"deltas: the H1 header)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/quality.py:171",
+        "launches": legacy_k3[key], **k3[f"{n_sym} deltas"]}
+        for n_sym, mode, key in ((96, "lossless", "H1"),
+                                 (8, "illumina_8", "H1 sorted"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,10 +11,14 @@
 // table cells, 16-word rows of 8 tags and 8 u8x4 count words; each u32 word
 // held in an int64), whether the row updates the tables (kRowUpdate:
 // row-global headers; batch-frozen ones update them once a batch, outside
-// the kernel), sorted order's prefix copy (kLcp), and whether the header's
-// knobs are the JAX writer's of today (kToday: compile-time constants);
-// otherwise the knobs, uniform over a launch, come in Args. For lane n at
-// position i of the row:
+// the kernel), sorted order's prefix copy (kLcp), whether the header's
+// knobs are the JAX writer's of today (kToday: compile-time constants;
+// otherwise the knobs, uniform over a launch, come in Args), and the
+// in-batch local statistics of the headers without row-global updates
+// (kLoc: none; local_* tables of context-keyed cells, 5-word rows; the
+// same with the DNA model's deltas; klocal_* tables keyed by the canonical
+// middle, 9-word rows of 16 u16 counters; the same with the deltas). For
+// lane n at position i of the row:
 //   finds    SIV word of pkey (at i < pmer_gate when the gate is set); the
 //            s and b queries — canonical (canon strand, hash bucket and
 //            tag, 4 end-letter slots) or, in context-keyed tables, the
@@ -24,6 +28,13 @@
 //   ramp     with the prefix ramp, at prefix_len <= i < siv_len-1 the SIV
 //            ranges of the decoded prefix replace the SIV counts (SWAR
 //            byte folds)
+//   local    (kLoc) one local cell for the s query and one for the b
+//            query, tag-checked: the forward window's (context-keyed) or
+//            the canonical middle's (klocal: the 4 candidates' end-letter
+//            slots); their counts add to the s and b finds' and a nonzero
+//            one makes the level found (dna._merge_local). The local
+//            state is the batch's, as the rows before this one left it:
+//            read only here, updated between launches (local_row_update)
 //   combine  the cascade (b, mixed, s, SIV); with the rough rescue, at i >=
 //            s_w: srun counts s/b misses, 3 single-base substitutions of
 //            the s window at the suspect offset, one s find each
@@ -31,9 +42,11 @@
 //            previous level class (ctx v2), in the layout of the header
 //            (rough: 23 bits, v2: 22, v1: 20); or the letters context,
 //            its position bucket coarse (pb >> 2) under let_pb2
-//   cdf      with the two-level mix, fine row ctx and coarse row mixed:
-//            w_eff = w*b/(tf+b), cells f + g*w_eff/(tg+A) + 1; without it
-//            cells f + 1; boundaries (cum << SB) / total
+//   cdf      with the model's deltas (kLoc), the fine row's cells take
+//            min(lm[ctx], local_cap) first; with the two-level mix, fine
+//            row ctx and coarse row mixed: w_eff = w*b/(tf+b), cells f +
+//            g*w_eff/(tg+A) + 1; without it cells f + 1; boundaries (cum
+//            << SB) / total
 //   decode   the masked max/min lookup, x = f*(x >> SB) + slot - c, and the
 //            lanes that renormalize take consecutive words of ONE stream in
 //            lane order: an exclusive scan over all N lanes at every step
@@ -45,10 +58,10 @@
 //            rolls) runs as at a coded position, and the rank history
 //            counts coded positions only. A template parameter (kLcp)
 //            keeps the prefix code out of original order's kernel.
-//   repair   on the cascade's counts from before the rough rescue, at most
-//            repair_iters times a row; then the rolls of pkey, the s/b
-//            windows, their reverse complements, the letters and rank
-//            histories
+//   repair   on the table finds' counts (before the rough rescue and the
+//            local counts), at most repair_iters times a row; then the
+//            rolls of pkey, the s/b windows, their reverse complements,
+//            the letters and rank histories
 //   out      base, eff (kc), ctx and sym of position i, int64 [N, L]
 //   events   (kRowUpdate) at i >= k - 1 (k = smer_len, then bmer_len) and
 //            i < length: the row's canonical s-mer and b-mer insert event,
@@ -113,7 +126,8 @@
 // and window registers are u32 values (the registers masked to their
 // windows); model rows are model_update's, smoothed totals at most 2^13, so
 // with w*b < 2^31 and w <= 2^18 every product and boundary of the cdf fits
-// 32 bits; the s and b tables do not overlap (they are updated in place).
+// 32 bits (the deltas' cap, models.local_cap, keeps a row's total at most
+// 2^SB); the s and b tables do not overlap (they are updated in place).
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cstring>
@@ -149,6 +163,15 @@ template <int kFam>
 __host__ __device__ constexpr int row_words() {
   return kFam == kFamK2 ? 4 : kFam == kFamKtable ? 6 : 16;
 }
+// the in-batch local statistics (dna.K2_LOCAL), their cells' width in
+// words, and the stored tag's mask (tables.LOCAL_TAG_MASK)
+constexpr int kLocNone = 0, kLocTable = 1, kLocTableDeltas = 2,
+              kLocK = 3, kLocKDeltas = 4;
+template <int kLoc>
+__host__ __device__ constexpr int local_words() {
+  return kLoc >= kLocK ? 9 : 5;
+}
+constexpr uint32_t kLocalTagMask = (1u << 27) - 1u;
 
 // The launch's arguments, in the order of K2_ARGS in streams/dna.py.
 struct Args {
@@ -182,6 +205,14 @@ struct Args {
   // repairs a row
   int64_t family, row_update, ctx_v, rough, let_pb2, prefix_ramp, pmer_gate,
       repair_iters;
+  // the in-batch local statistics (headers without row-global updates):
+  // the s and b local tables [2^local_log2_cells, 5 or 9] u32 words, the
+  // DNA model's deltas [n_model_ctx, 5] (null without them), which of
+  // dna.K2_LOCAL (kLoc), and the deltas' cap (models.local_cap)
+  const int64_t* ls;
+  const int64_t* lb;
+  const int32_t* lm;
+  int64_t local, local_log2_cells, local_cap;
 };
 constexpr int kNArgs = sizeof(Args) / sizeof(int64_t);
 static_assert(sizeof(void*) == sizeof(int64_t), "64-bit pointers");
@@ -341,6 +372,71 @@ __device__ __forceinline__ Query rough_query(uint64_t Sm, uint64_t RS,
   const uint64_t Rj = (RS & ~(3ull << d2)) |
                       static_cast<uint64_t>(3u - ju) << d2;
   return canon_query<kFam>(Sj, Rj, smer, lb, lr);
+}
+
+// The local cell of a query (tables.local_keys): the forward window c's
+// (lo, hi) halves, or with canonical (klocal) tables the middle of the
+// canonical strand (c, r as in canon_query), hashed to a cell and a 27-bit
+// tag with bit 26 set; s and c0 give the end-letter slots of klocal.
+struct LocalKey {
+  uint32_t cell, tag, s, c0;
+};
+
+template <int kLoc>
+__device__ __forceinline__ LocalKey local_key(uint64_t c, uint64_t r, int k,
+                                              int log2_cells) {
+  LocalKey q = {};
+  uint64_t key = c;
+  if constexpr (kLoc >= kLocK) {
+    const uint64_t m = bases_mask(k - 2);
+    const uint64_t w = c & m;
+    const uint64_t rw = (r >> 2) & m;
+    q.s = rw < w ? 1u : 0u;
+    key = q.s ? rw : w;
+    q.c0 = static_cast<uint32_t>(c >> (2 * (k - 2))) & 3u;
+  }
+  const uint32_t lo = static_cast<uint32_t>(key);
+  const uint32_t hi = static_cast<uint32_t>(key >> 32);
+  q.cell = hash_bucket(lo, hi, log2_cells);
+  q.tag = (hash_tag(lo, hi) & kLocalTagMask) | 1u << 26;
+  return q;
+}
+
+// A local cell's words (read only during the launch).
+template <int kLoc>
+__device__ __forceinline__ void load_local(const int64_t* t, uint32_t cell,
+                                           uint32_t* w) {
+  constexpr int kLW = local_words<kLoc>();
+  const int64_t* p = t + static_cast<size_t>(cell) * kLW;
+#pragma unroll
+  for (int k = 0; k < kLW; ++k) w[k] = static_cast<uint32_t>(__ldg(p + k));
+}
+
+// tables.local_query / klocal_query on a loaded cell: the 4 candidates'
+// counts, zeros on a tag miss; returns whether any count is nonzero.
+template <int kLoc>
+__device__ __forceinline__ bool local_count(const uint32_t* w,
+                                            const LocalKey& q,
+                                            uint32_t cnt[4]) {
+  const bool hit = (w[0] & kLocalTagMask) == q.tag;
+  uint32_t any = 0;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    uint32_t c;
+    if constexpr (kLoc >= kLocK) {
+      const uint32_t slot =
+          q.s ? 4u * (3u - b) + (3u - q.c0) : 4u * q.c0 + b;
+      uint32_t word = w[1];
+#pragma unroll
+      for (uint32_t j = 1; j < 8; ++j) word = (slot >> 1) == j ? w[1 + j] : word;
+      c = (word >> (16 * (slot & 1u))) & 0xFFFFu;
+    } else {
+      c = w[1 + b];
+    }
+    cnt[b] = hit ? c : 0u;
+    any |= cnt[b];
+  }
+  return any != 0;
 }
 
 // The tag word of candidate b (a register select, not an indexed array).
@@ -511,10 +607,16 @@ __device__ __forceinline__ void apply_events(const uint64_t* ev, int64_t* tc,
 // constants instead of Args values: with them loaded from Args the main
 // path's kernel took 127 registers against 119 and 8.5% longer a batch
 // (NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
-template <int kFam, bool kRowUpdate, bool kLcp, bool kToday>
+template <int kFam, bool kRowUpdate, bool kLcp, bool kToday, int kLoc = 0>
 __global__ void __launch_bounds__(kThreads)
     dna_decode_row_kernel(const Args a) {
   constexpr int kW = row_words<kFam>();
+  constexpr bool kLocal = kLoc != kLocNone;
+  constexpr bool kDeltas = kLoc == kLocTableDeltas || kLoc == kLocKDeltas;
+  static_assert(!kLocal || (!kRowUpdate && !kToday &&
+                            (kLoc >= kLocK) == (kFam != kFamTable)),
+                "local statistics go with batch-frozen tables, klocal "
+                "with canonical ones");
   __shared__ fqtz::ScanSmem scan_sm;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -554,6 +656,8 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t n_model_ctx = (1u << ctx_bits) + (1u << kLetBits);
   const uint32_t coarse_code = rough ? 1u << 10 : 1u << 9;  // N_COARSE_CODE*
   const uint32_t slot_mask = (1u << sb) - 1u;
+  const int loc_cells = static_cast<int>(a.local_log2_cells);
+  const uint32_t loc_cap = static_cast<uint32_t>(a.local_cap);
 
   // carried registers
   uint32_t x = kRansL;
@@ -622,6 +726,20 @@ __global__ void __launch_bounds__(kThreads)
         qb = make_query<kFam>(Bm, RB, bmer, b_lb, b_lr);
         load_cells<kFam>(a.b_tc, qb.row, bcell);
       }
+      // the local cells of the s and b queries
+      constexpr int kLW = kLocal ? local_words<kLoc>() : 1;
+      uint32_t lsw[kLW], lbw[kLW];
+      LocalKey lsq = {}, lbq = {};
+      if constexpr (kLocal) {
+        if (vs) {
+          lsq = local_key<kLoc>(Sm, RS, smer, loc_cells);
+          load_local<kLoc>(a.ls, lsq.cell, lsw);
+        }
+        if (vb) {
+          lbq = local_key<kLoc>(Bm, RB, bmer, loc_cells);
+          load_local<kLoc>(a.lb, lbq.cell, lbw);
+        }
+      }
       // the rough probes' rows (canonical tables), on the guess that the
       // step misses: a miss probes at age srun (the run before it), if
       // that is below s_w
@@ -682,6 +800,27 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < 4; ++c) counts[c] = counts_g[c];
       level = level_g;
+      if constexpr (kLocal) {   // the local counts merged (dna._merge_local)
+        uint32_t csl[4] = {0, 0, 0, 0}, cbl[4] = {0, 0, 0, 0};
+        const bool fsl = vs && local_count<kLoc>(lsw, lsq, csl);
+        const bool fbl = vb && local_count<kLoc>(lbw, lbq, cbl);
+        const bool fs2 = fs || fsl, fb2 = fb || fbl;
+        uint32_t cs2[4], cb2[4];
+        int nzb = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          cs2[c] = cs[c] + csl[c];
+          cb2[c] = cb[c] + cbl[c];
+          nzb += cb2[c] > 0 ? 1 : 0;
+        }
+        const bool mixed = fb2 && nzb > 1;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          counts[c] = fb2 ? cb2[c] + (mixed ? cs2[c] : 0u)
+                          : fs2 ? cs2[c] : fp ? cp[c] : 0u;
+        level = fb2 ? (mixed ? kMixed : kBmer)
+                    : fs2 ? kSmer : fp ? kPmer : kNone;
+      }
       if (kFam != kFamTable && rough && i >= s_w) {   // rough rescue
         // (canonical tables only: the rough rescue needs row-global
         // canonical tables, and table rows are never probed)
@@ -750,6 +889,12 @@ __global__ void __launch_bounds__(kThreads)
       // --- cdf: the fine row, mixed with its coarse parent ---
       uint32_t f5[kA], g5[kA] = {0, 0, 0, 0, 0};
       load_row(a.model, ctx_all, f5);
+      if constexpr (kDeltas) {   // the fine row's in-batch deltas, clamped
+        uint32_t d5[kA];
+        load_row(a.lm, ctx_all, d5);
+#pragma unroll
+        for (int k = 0; k < kA; ++k) f5[k] += d5[k] < loc_cap ? d5[k] : loc_cap;
+      }
       uint32_t w_eff = 0, gden = 1;
       if (mix) {
         const uint32_t cctx =
@@ -898,12 +1043,31 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The kernel of one instantiation: (family, row update, lcp, today's
-// knobs). A context-keyed table never takes the row update
-// (dna.check_supported), and only K2 cells with the row update take
-// today's knobs, so the other combinations are not instantiated.
+// knobs, local statistics). A context-keyed table never takes the row
+// update (dna.check_supported), only K2 cells with the row update take
+// today's knobs, and local statistics go with batch-frozen tables
+// (local_* with context-keyed ones, klocal_* with canonical ones), so the
+// other combinations are not instantiated.
 using KernelFn = void (*)(Args);
+template <int kFam, bool kLcp>
+KernelFn local_kernel(int loc) {
+  if constexpr (kFam == kFamTable) {
+    return loc == kLocTable
+               ? &dna_decode_row_kernel<kFam, false, kLcp, false, kLocTable>
+               : &dna_decode_row_kernel<kFam, false, kLcp, false,
+                                        kLocTableDeltas>;
+  } else {
+    return loc == kLocK
+               ? &dna_decode_row_kernel<kFam, false, kLcp, false, kLocK>
+               : &dna_decode_row_kernel<kFam, false, kLcp, false,
+                                        kLocKDeltas>;
+  }
+}
+
 template <int kFam>
-KernelFn kernel_of(bool row_update, bool lcp, bool today) {
+KernelFn kernel_of(bool row_update, bool lcp, bool today, int loc) {
+  if (loc != kLocNone)
+    return lcp ? local_kernel<kFam, true>(loc) : local_kernel<kFam, false>(loc);
   if constexpr (kFam == kFamTable) {
     return lcp ? &dna_decode_row_kernel<kFam, false, true, false>
                : &dna_decode_row_kernel<kFam, false, false, false>;
@@ -954,6 +1118,15 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
       a.pmer_gate < 0 || a.repair_iters < 0 || a.repair_iters >= (1 << 20) ||
       (a.rough != 0 && (a.family == kFamTable || a.row_update == 0 ||
                         a.ctx_v < 2)) ||
+      a.local < kLocNone || a.local > kLocKDeltas ||
+      (a.local != kLocNone &&
+       (a.row_update != 0 || a.rough != 0 || a.ls == nullptr ||
+        a.lb == nullptr || a.local_log2_cells < 1 ||
+        a.local_log2_cells > 30 || a.local_cap < 1 ||
+        a.local_cap > (1 << 16) ||
+        (a.local >= kLocK) != (a.family != kFamTable) ||
+        ((a.local == kLocTableDeltas || a.local == kLocKDeltas) &&
+         a.lm == nullptr))) ||
       (s_at < b_at + (row_bytes << a.b_log2_rows) &&
        b_at < s_at + (row_bytes << a.s_log2_rows)))   // the tables overlap
     return static_cast<int>(cudaErrorInvalidValue);
@@ -962,10 +1135,12 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
   const bool today = a.rough != 0 && a.ctx_v >= 2 && a.let_pb2 != 0 &&
                      a.prefix_ramp != 0 && a.mix_w > 0 && a.pmer_gate == 0 &&
                      a.repair_iters == 1;
+  const int loc = static_cast<int>(a.local);
   const KernelFn kernel =
-      a.family == kFamK2       ? kernel_of<kFamK2>(upd, lcp, today)
-      : a.family == kFamKtable ? kernel_of<kFamKtable>(upd, lcp, today)
-                               : kernel_of<kFamTable>(false, lcp, today);
+      a.family == kFamK2 ? kernel_of<kFamK2>(upd, lcp, today, loc)
+      : a.family == kFamKtable
+          ? kernel_of<kFamKtable>(upd, lcp, today, loc)
+          : kernel_of<kFamTable>(false, lcp, today, loc);
   return static_cast<int>(fqtz::launch_one_cluster(
       kernel, n_blocks, kThreads, static_cast<cudaStream_t>(stream), a));
 }

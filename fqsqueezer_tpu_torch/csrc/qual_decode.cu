@@ -15,7 +15,14 @@
 //
 // Every quality mode runs it: the model row has n_sym = 2 (binary), 4
 // (Illumina-4), 8 (Illumina-8) or 96 (lossless) cells, one instantiation
-// of the kernel each.
+// of the kernel each. With in-batch deltas (QualConfig.with_local, the
+// first local-statistics writer's header; kDeltas, one more instantiation
+// for each count) the cdf's cells are model + min(lm, cap) + 1, lm the
+// batch's delta plane [n_ctx, n_sym] (int32, zeroed by the caller), frozen
+// during a read row: at the row's end every lane adds inc at each (ctx,
+// sym) of its row with atomicAdd, then the cluster syncs before the next
+// row reads the plane (through L2: ld.global.cg). The adds commute, so
+// the plane is exact whatever their order; the launch stays one a batch.
 //
 // What bounds it on an H100: neither bytes nor operations over the card.
 // The bytes it must move (the model rows it reads, the words it consumes,
@@ -87,14 +94,33 @@ __device__ __forceinline__ uint32_t div_by(uint32_t num, uint32_t total,
   return q;
 }
 
-// A row's cells, smoothed (+1 each: ALPHA), in one or two wide loads.
-template <int kSym>
+// A 16-byte piece of the delta plane, each cell clamped to cap (read
+// through L2: the plane takes the row-end atomics of this launch).
+__device__ __forceinline__ uint4 delta_piece(const int32_t* __restrict__ lm,
+                                             size_t at, uint32_t cap) {
+  const int4 d = __ldcg(reinterpret_cast<const int4*>(lm) + at);
+  return make_uint4(min(static_cast<uint32_t>(d.x), cap),
+                    min(static_cast<uint32_t>(d.y), cap),
+                    min(static_cast<uint32_t>(d.z), cap),
+                    min(static_cast<uint32_t>(d.w), cap));
+}
+
+// A row's cells, smoothed (+1 each: ALPHA), in one or two wide loads;
+// with kDeltas plus the row's clamped deltas.
+template <int kSym, bool kDeltas>
 __device__ __forceinline__ void load_row(const int32_t* __restrict__ model,
-                                         uint32_t ctx, uint32_t (&v)[kSym]) {
+                                         const int32_t* __restrict__ lm,
+                                         uint32_t cap, uint32_t ctx,
+                                         uint32_t (&v)[kSym]) {
   static_assert(kSym == 2 || kSym == 4 || kSym == 8, "a short row");
   if constexpr (kSym == 2) {
     const int2 a = __ldg(reinterpret_cast<const int2*>(model) + ctx);
     v[0] = a.x; v[1] = a.y;
+    if constexpr (kDeltas) {
+      const int2 d = __ldcg(reinterpret_cast<const int2*>(lm) + ctx);
+      v[0] += min(static_cast<uint32_t>(d.x), cap);
+      v[1] += min(static_cast<uint32_t>(d.y), cap);
+    }
   } else {
     const int4* row = reinterpret_cast<const int4*>(model) + (kSym / 4) * ctx;
 #pragma unroll
@@ -102,6 +128,12 @@ __device__ __forceinline__ void load_row(const int32_t* __restrict__ model,
       const int4 a = __ldg(row + p);
       v[4 * p] = a.x; v[4 * p + 1] = a.y; v[4 * p + 2] = a.z;
       v[4 * p + 3] = a.w;
+      if constexpr (kDeltas) {
+        const uint4 d =
+            delta_piece(lm, static_cast<size_t>(kSym / 4) * ctx + p, cap);
+        v[4 * p] += d.x; v[4 * p + 1] += d.y; v[4 * p + 2] += d.z;
+        v[4 * p + 3] += d.w;
+      }
     }
   }
 #pragma unroll
@@ -123,17 +155,17 @@ __device__ __forceinline__ void look(uint32_t cell, uint32_t lim, int sb,
 
 // One lane's symbol lookup and state update before renormalization.
 // Returns the symbol (0 when masked); x becomes the pre-renorm state.
-template <int kSym>
+template <int kSym, bool kDeltas>
 __device__ __forceinline__ uint32_t lane_step(
-    const int32_t* __restrict__ model, uint32_t ctx, bool active,
-    uint32_t& x, int sb) {
+    const int32_t* __restrict__ model, const int32_t* __restrict__ lm,
+    uint32_t cap, uint32_t ctx, bool active, uint32_t& x, int sb) {
   const uint32_t slot = x & ((1u << sb) - 1u);
   uint32_t f = 1u << sb, c = 0, sym = 0;
   if (active) {
     uint32_t total = 0, run = 0, lo = 0, hi;
     if constexpr (kSym <= 8) {
       uint32_t v[kSym];
-      load_row<kSym>(model, ctx, v);
+      load_row<kSym, kDeltas>(model, lm, cap, ctx, v);
 #pragma unroll
       for (int k = 0; k < kSym; ++k) total += v[k];
       const uint32_t lim = (slot + 1u) * total;
@@ -143,22 +175,67 @@ __device__ __forceinline__ uint32_t lane_step(
     } else {
       static_assert(kSym % 4 == 0, "a long row is walked in 16-byte pieces");
       const int4* row = reinterpret_cast<const int4*>(model) + (kSym / 4) * ctx;
+      const size_t at = static_cast<size_t>(kSym / 4) * ctx;
+      // one 16-byte piece of the row, smoothed (and with its deltas)
+      const auto piece = [&](int p) {
+        const int4 a = __ldg(row + p);
+        uint4 c = make_uint4(static_cast<uint32_t>(a.x) + 1u,
+                             static_cast<uint32_t>(a.y) + 1u,
+                             static_cast<uint32_t>(a.z) + 1u,
+                             static_cast<uint32_t>(a.w) + 1u);
+        if constexpr (kDeltas) {
+          const uint4 d = delta_piece(lm, at + p, cap);
+          c.x += d.x; c.y += d.y; c.z += d.z; c.w += d.w;
+        }
+        return c;
+      };
+      if constexpr (kDeltas) {
+        // the pieces' sums stay in registers: the lookup skips the pieces
+        // wholly below the slot without loading them again, and reloads
+        // only the piece that holds the symbol (a walk reloading every
+        // piece waited on one L2 read of the deltas a piece)
+        uint32_t ps[kSym / 4];
+#pragma unroll
+        for (int p = 0; p < kSym / 4; ++p) {
+          const uint4 c = piece(p);
+          ps[p] = c.x + c.y + c.z + c.w;
+          total += ps[p];
+        }
+        const uint32_t lim = (slot + 1u) * total;
+        hi = total;
+        // run << sb < lim at a piece's end: its every boundary is <= slot
+        // (the last piece's end, total << sb, never is)
+        int q = 0;
+#pragma unroll
+        for (int p = 0; p < kSym / 4; ++p) {
+          const bool below = q == p && ((run + ps[p]) << sb) < lim;
+          run += below ? ps[p] : 0u;
+          q += below ? 1 : 0;
+        }
+        sym = 4u * static_cast<uint32_t>(q);
+        lo = run;
+        const uint4 c = piece(q);
+        look(c.x, lim, sb, run, sym, lo, hi);
+        look(c.y, lim, sb, run, sym, lo, hi);
+        look(c.z, lim, sb, run, sym, lo, hi);
+        look(c.w, lim, sb, run, sym, lo, hi);
+      } else {
 #pragma unroll 4
-      for (int p = 0; p < kSym / 4; ++p) {
-        const int4 a = __ldg(row + p);
-        total += static_cast<uint32_t>(a.x) + static_cast<uint32_t>(a.y) +
-                 static_cast<uint32_t>(a.z) + static_cast<uint32_t>(a.w) + 4u;
-      }
-      const uint32_t lim = (slot + 1u) * total;
-      hi = total;
-      // the last boundary (run = total) is above every slot, so the walk
-      // ends at the piece where hi first moves
-      for (int p = 0; p < kSym / 4 && hi == total; ++p) {
-        const int4 a = __ldg(row + p);
-        look(static_cast<uint32_t>(a.x) + 1u, lim, sb, run, sym, lo, hi);
-        look(static_cast<uint32_t>(a.y) + 1u, lim, sb, run, sym, lo, hi);
-        look(static_cast<uint32_t>(a.z) + 1u, lim, sb, run, sym, lo, hi);
-        look(static_cast<uint32_t>(a.w) + 1u, lim, sb, run, sym, lo, hi);
+        for (int p = 0; p < kSym / 4; ++p) {
+          const uint4 c = piece(p);
+          total += c.x + c.y + c.z + c.w;
+        }
+        const uint32_t lim = (slot + 1u) * total;
+        hi = total;
+        // the last boundary (run = total) is above every slot, so the walk
+        // ends at the piece where hi first moves
+        for (int p = 0; p < kSym / 4 && hi == total; ++p) {
+          const uint4 c = piece(p);
+          look(c.x, lim, sb, run, sym, lo, hi);
+          look(c.y, lim, sb, run, sym, lo, hi);
+          look(c.z, lim, sb, run, sym, lo, hi);
+          look(c.w, lim, sb, run, sym, lo, hi);
+        }
       }
     }
     const uint32_t m = kFull / total;
@@ -169,7 +246,7 @@ __device__ __forceinline__ uint32_t lane_step(
   return active ? sym : 0u;
 }
 
-template <int kSym>
+template <int kSym, bool kDeltas>
 __global__ void __launch_bounds__(kThreads)
     qual_decode_kernel(const int32_t* __restrict__ model, int hist_bits,
                        int n_hist,
@@ -177,7 +254,8 @@ __global__ void __launch_bounds__(kThreads)
                        const int32_t* __restrict__ words, int n_words,
                        const int64_t* __restrict__ init, int N, int sb,
                        uint8_t* __restrict__ syms, int64_t* __restrict__ fin,
-                       int64_t* __restrict__ ptr_out) {
+                       int64_t* __restrict__ ptr_out, int32_t* lm,
+                       uint32_t cap, int inc) {
   __shared__ fqtz::ScanSmem scan_sm;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -200,8 +278,8 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t hist = hist_mask;
     uint8_t* out = syms + read * L;
     for (int i = 0; i < L; ++i) {
-      const uint32_t sym = lane_step<kSym>(
-          model, hist | pos_bucket(i) << pos_shift, i < len, x, sb);
+      const uint32_t sym = lane_step<kSym, kDeltas>(
+          model, lm, cap, hist | pos_bucket(i) << pos_shift, i < len, x, sb);
       const bool take = live && x < kRansL;
       // exclusive scan of the renormalizing lanes, in lane order
       const fqtz::TakeScan sc = fqtz::cluster_take_scan(
@@ -217,6 +295,20 @@ __global__ void __launch_bounds__(kThreads)
       }
       ptr += sc.total;
     }
+    if constexpr (kDeltas) {
+      // the row's (ctx, sym) events into the delta plane; the barrier
+      // puts every lane's adds before the next row's reads
+      if (live) {
+        uint32_t h = hist_mask;
+        for (int i = 0; i < len; ++i) {
+          const uint32_t sym = out[i];
+          const uint32_t ctx = h | pos_bucket(i) << pos_shift;
+          atomicAdd(lm + static_cast<size_t>(ctx) * kSym + sym, inc);
+          h = ((h << hist_bits) | sym) & hist_mask;
+        }
+      }
+      cluster.sync();
+    }
   }
   if (live) fin[lane] = static_cast<int64_t>(x);
   if (lane == 0) ptr_out[0] = ptr;
@@ -229,17 +321,23 @@ __global__ void __launch_bounds__(kThreads)
 // [n_ctx, A] (16-byte aligned; A = 2, 4, 8 or 96 cells a row), lengths
 // int32 [R] (read r = lane * r_pl + row), words int32 [n_words] (u16
 // values), init int64 [N] (u32 states); writes syms u8 [R, L], fin int64
-// [N] and ptr_out int64 [1] (words consumed). Returns the cudaError of the
-// launch (0 = launched).
+// [N] and ptr_out int64 [1] (words consumed). lm: null, or the batch's
+// in-batch delta plane int32 [n_ctx, A] (16-byte aligned, zeroed), updated
+// in place, with the deltas' cap (models.local_cap) and
+// their increment. Returns the cudaError of the launch (0 = launched).
 extern "C" int fqtz_qual_decode(const void* model, int A, int hist_bits,
                                 int n_hist, const void* lengths, int r_pl,
                                 int L, const void* words, int n_words,
                                 const void* init, int N, int sb, void* syms,
-                                void* fin, void* ptr_out, void* stream) {
+                                void* fin, void* ptr_out, void* lm, int cap,
+                                int inc, void* stream) {
   if (N < 1 || N > kMaxLanes || sb < 1 || sb > 16 || n_words < 1 ||
       r_pl < 0 || L < 0 || hist_bits < 1 || n_hist < 1 ||
       hist_bits * n_hist > 26 ||
-      (reinterpret_cast<uintptr_t>(model) & 15u) != 0)
+      (reinterpret_cast<uintptr_t>(model) & 15u) != 0 ||
+      (lm != nullptr && ((reinterpret_cast<uintptr_t>(lm) & 15u) != 0 ||
+                         cap < 1 || cap > (1 << 16) || inc < 0 ||
+                         inc > (1 << 16))))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_blocks = (N + kThreads - 1) / kThreads;
   const auto launch = [&](auto kernel) {
@@ -250,13 +348,23 @@ extern "C" int fqtz_qual_decode(const void* model, int A, int hist_bits,
         static_cast<const int32_t*>(words), n_words,
         static_cast<const int64_t*>(init), N, sb,
         static_cast<uint8_t*>(syms), static_cast<int64_t*>(fin),
-        static_cast<int64_t*>(ptr_out)));
+        static_cast<int64_t*>(ptr_out), static_cast<int32_t*>(lm),
+        static_cast<uint32_t>(cap), inc));
   };
+  if (lm != nullptr) {
+    switch (A) {
+      case 2: return launch(qual_decode_kernel<2, true>);
+      case 4: return launch(qual_decode_kernel<4, true>);
+      case 8: return launch(qual_decode_kernel<8, true>);
+      case 96: return launch(qual_decode_kernel<96, true>);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (A) {   // K3_SYM in streams/quality.py
-    case 2: return launch(qual_decode_kernel<2>);
-    case 4: return launch(qual_decode_kernel<4>);
-    case 8: return launch(qual_decode_kernel<8>);
-    case 96: return launch(qual_decode_kernel<96>);
+    case 2: return launch(qual_decode_kernel<2, false>);
+    case 4: return launch(qual_decode_kernel<4, false>);
+    case 8: return launch(qual_decode_kernel<8, false>);
+    case 96: return launch(qual_decode_kernel<96, false>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -77,9 +77,9 @@ _ARGTYPES = {
     # the arrays are host arrays, one entry a stream
     "fqtz_rans_encode_walk": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # (model, A, hist_bits, n_hist, lengths, r_pl, L, words, n_words, init,
-    # N, sb, syms, fin, ptr_out, stream)
+    # N, sb, syms, fin, ptr_out, lm, cap, inc, stream)
     "fqtz_qual_decode": [_P, _I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P,
-                         _P, _P, _P],
+                         _P, _P, _P, _I, _I, _P],
     # (args, n_args, stream): args a host int64 array in the order of
     # streams/dna.py's K2_ARGS (struct Args in csrc/dna_decode.cu)
     "fqtz_dna_decode_row": [_P, _I, _P],

@@ -55,11 +55,50 @@ def _mix_rows(f, g, w: int, b: int, A: int):
 
 
 def model_cdf_mix(freqs: torch.Tensor, ctx: torch.Tensor, cctx: torch.Tensor,
-                  scale_bits: int, w: int, b: int) -> torch.Tensor:
+                  scale_bits: int, w: int, b: int,
+                  local: torch.Tensor | None = None) -> torch.Tensor:
     """Two-level context mix over one array holding both families (fine
-    rows first, coarse rows behind them; cctx arrives pre-offset)."""
-    return _rows_to_cdf(_mix_rows(freqs[ctx], freqs[cctx], w, b,
-                                  freqs.shape[1]), scale_bits)
+    rows first, coarse rows behind them; cctx arrives pre-offset). local:
+    in-batch deltas of the fine rows, clamped to local_cap(..., extra=w)
+    and added to the fine row before the mix."""
+    f = freqs[ctx]
+    if local is not None:
+        cap = local_cap(freqs.shape[1], scale_bits, extra=w)
+        f = f + torch.clamp(local[ctx], max=cap)
+    return _rows_to_cdf(_mix_rows(f, freqs[cctx], w, b, freqs.shape[1]),
+                        scale_bits)
+
+
+def local_cap(n_sym: int, scale_bits: int, extra: int = 0) -> int:
+    """Per-symbol cap on in-batch local deltas: every smoothed row total
+    stays <= 2^scale_bits, so quantized frequencies stay >= 1 (global rows
+    are held below 2^RAW_CAP_BITS). extra: headroom kept for the mix's
+    coarse budget."""
+    return max(1, ((1 << scale_bits) - (1 << RAW_CAP_BITS) - 2 * n_sym
+                   - extra) // n_sym)
+
+
+def model_cdf_local(freqs: torch.Tensor, local: torch.Tensor,
+                    ctx: torch.Tensor, scale_bits: int) -> torch.Tensor:
+    """model_cdf with in-batch local deltas folded in, clamped at query
+    time to local_cap."""
+    cap = local_cap(freqs.shape[1], scale_bits)
+    return _rows_to_cdf(freqs[ctx] + torch.clamp(local[ctx], max=cap)
+                        + ALPHA, scale_bits)
+
+
+def local_model_update(local: torch.Tensor, ctx, sym, valid,
+                       inc: int = 8) -> torch.Tensor:
+    """Add inc at every valid (ctx, sym) of the in-batch deltas local, in
+    place (a batch owns its deltas); no rescale: they are clamped at query
+    time. Returns local."""
+    n_sym = local.shape[1]
+    valid = valid.reshape(-1)
+    idx = torch.where(valid, ctx.reshape(-1).to(torch.int64) * n_sym
+                      + sym.reshape(-1).to(torch.int64), 0)
+    local.view(-1).index_add_(
+        0, idx, torch.where(valid, inc, 0).to(local.dtype))
+    return local
 
 
 # ---------------------------------------------------------------------------

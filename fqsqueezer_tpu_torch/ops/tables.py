@@ -17,7 +17,9 @@ The s/b table families, by row width:
     find (dna_canon = 1, dna_sb_proto = 0);
   * k2_* (KBUCKET single-word cells, 4 words a row): tag24 | count8
     (dna_sb_proto = 1). ktable_* dispatches to k2_* on the row width.
-Not ported: the in-batch local tables (local_*, klocal_*).
+Beside them, the in-batch local tables of the headers without row-global
+updates (local_*, klocal_*): direct-addressed cells a batch fills from
+zero, read row by read row.
 """
 from __future__ import annotations
 
@@ -522,6 +524,109 @@ def sb_clamp(tc: torch.Tensor) -> torch.Tensor:
 def sb_fill_stats(tc: torch.Tensor):
     """(used cells, capacity)."""
     return table_fill_stats(tc) if _is_table(tc) else ktable_fill_stats(tc)
+
+
+# ---------------------------------------------------------------------------
+# LocalTable: in-batch direct-addressed (tag, counts) cells
+# ---------------------------------------------------------------------------
+# Statistics of the k-mers seen earlier in the batch (the reference's
+# ht_*_local), applied a read row at a time. A cell is one row of LOCAL_W
+# words: a stamped tag, then the 4 next-base counts. The first read ROW to
+# touch an empty cell owns it for the batch: the stored tag word is (31 -
+# min(row, 31)) << 27 | tag27, so one scatter-max is the claim, the
+# earliest row wins, and within a row the larger tag. Keys that find the
+# cell owned by another tag are dropped (lite = False), or add to it all
+# the same (lite = True: the 2-pass protocol; queries still check the
+# tag). A batch owns its local tables, so inserts update them in place.
+
+LOCAL_TAG_MASK = (1 << 27) - 1
+LOCAL_W = 5    # row: [stamped tag, count A, C, G, T]
+KLOCAL_W = 9   # row: [stamped mid-tag, 8 u16x2-packed count words]
+
+
+def local_create(log2_cells: int, device=None) -> torch.Tensor:
+    """[2^log2_cells, LOCAL_W] u32 words in int64, all 0."""
+    return torch.zeros((1 << log2_cells, LOCAL_W), dtype=torch.int64,
+                       device=device)
+
+
+def local_keys(lo, hi, log2_cells: int):
+    """(cell, tag27) of (lo, hi) keys; tag27 has bit 26 set, so a stored
+    word is never 0."""
+    tag = (kmers.hash_tag(lo, hi) & LOCAL_TAG_MASK) | (1 << 26)
+    return kmers.hash_bucket(lo, hi, log2_cells), tag
+
+
+def local_query(tc: torch.Tensor, cell, tag, valid) -> torch.Tensor:
+    """[..., 4] counts (zeros on a miss or where not valid)."""
+    row = tc[cell]
+    hit = ((row[..., 0] & LOCAL_TAG_MASK) == tag) & valid
+    return torch.where(hit[..., None], row[..., 1:], 0)
+
+
+def _local_claim(tc, cell, tag, valid, row, lite: bool):
+    """The stamped claim of every valid event, in place, and which events
+    then add to their cell: all valid ones (lite), or those whose tag owns
+    the cell."""
+    width = tc.shape[1]
+    stamped = ((31 - min(max(int(row), 0), 31)) << 27) | tag
+    tc.view(-1).scatter_reduce_(0, torch.where(valid, cell * width, 0),
+                                torch.where(valid, stamped, 0), "amax")
+    if lite:
+        return valid
+    return valid & ((tc[cell, 0] & LOCAL_TAG_MASK) == tag)
+
+
+def _local_add(tc, idx, inc, ok) -> torch.Tensor:
+    """Add inc to the flat words idx where ok, in place, each touched word
+    masked back to 32 bits as the reference's u32 add wraps."""
+    flat = tc.view(-1)
+    idx = torch.where(ok, idx, 0)
+    flat.index_add_(0, idx, torch.where(ok, inc, 0))
+    flat[idx] = flat[idx] & MASK32
+    return tc
+
+
+def local_insert(tc: torch.Tensor, cell, tag, base, valid, row: int = 0,
+                 lite: bool = False) -> torch.Tensor:
+    """Insert (context -> base) events, cell/tag/base/valid [n] flat, of
+    read row `row` (the claim's priority), into tc in place; returns it."""
+    ok = _local_claim(tc, cell, tag, valid, row, lite)
+    return _local_add(tc, cell * LOCAL_W + 1 + base, torch.ones_like(cell),
+                      ok)
+
+
+# KLocal: the canonical in-batch table (dna_canon = 1). A cell is keyed by
+# the canonical MIDDLE of the k-mer and holds 16 u16 counters, slot = 4 *
+# first + last of the canonical end letters: one row gather answers the 4
+# candidates of a query, one event covers an occurrence on both strands.
+# A counter past 65535 carries into its neighbour or out of the word, as
+# the reference's u32 add does.
+
+def klocal_create(log2_cells: int, device=None) -> torch.Tensor:
+    """[2^log2_cells, KLOCAL_W] u32 words in int64, all 0."""
+    return torch.zeros((1 << log2_cells, KLOCAL_W), dtype=torch.int64,
+                       device=device)
+
+
+def klocal_query(tc: torch.Tensor, cell, tag, slots4, valid) -> torch.Tensor:
+    """[..., 4] counts of the 4 next-base candidates (zeros on a miss);
+    slots4 [..., 4] their canonical end-letter slots."""
+    row = tc[cell]
+    hit = ((row[..., 0] & LOCAL_TAG_MASK) == tag) & valid
+    w = torch.gather(row[..., 1:], -1, slots4 >> 1)
+    c = (w >> ((slots4 & 1) << 4)) & 0xFFFF
+    return torch.where(hit[..., None], c, 0)
+
+
+def klocal_insert(tc: torch.Tensor, cell, tag, slot, valid, row: int = 0,
+                  lite: bool = False) -> torch.Tensor:
+    """Insert canonical k-mer events, cell/tag/slot/valid [n] flat: the
+    stamped claim of local_insert, then 1 << 16 * (slot & 1) into the
+    slot's word, in place; returns tc."""
+    ok = _local_claim(tc, cell, tag, valid, row, lite)
+    return _local_add(tc, cell * KLOCAL_W + 1 + (slot >> 1),
+                      1 << ((slot & 1) << 4), ok)
 
 
 # ---------------------------------------------------------------------------

@@ -239,15 +239,29 @@ class Params:
 # decodes and writes: the knob values each writer stored or, where its
 # header lacked a key, the value load_params gives it. H0, the first
 # writer: no knob key at all, so exactly _HDR_LEGACY (batch-frozen
-# context-keyed table_* tables, ctx v1, id codec v1). H5, the first
-# row-global writer: canonical tables with u16 counters (dna_sb_proto 0),
-# ctx v1, no rough rescue, fine letters' position buckets. H6: H5 with ctx
-# v2 and the rough rescue.
+# context-keyed table_* tables, ctx v1, id codec v1). H1-H4 keep in-batch
+# local statistics beside batch-frozen tables: H1 (its header has
+# local_log2_cells but not local_model_inc, which loads 8) local_* tables
+# of 2^22 cells and DNA and quality model deltas; H2 no deltas, id codec
+# v2, the two-level mix, the prefix ramp and SIV cap 14; H3 2-pass local
+# inserts, the fused table update and one repair; H4 canonical ktable_*
+# tables and klocal_* local tables. H5, the first row-global writer:
+# canonical tables with u16 counters (dna_sb_proto 0), ctx v1, no rough
+# rescue, fine letters' position buckets. H6: H5 with ctx v2 and the rough
+# rescue.
+_H1 = dict(Params._HDR_LEGACY, local_log2_cells=22)
+_H2 = dict(_H1, local_model_inc=0, id_codec_v=2, dna_mix_w=2048,
+           dna_mix_b=4096, dna_siv_cap=14, dna_prefix_ramp=1)
+_H3 = dict(_H2, dna_local_lite=1, dna_claim_rounds=0, dna_repair_iters=1)
 _H5 = {"dna_pe_pos_ctx": 0, "dna_ctx_v": 1, "dna_pe_mesh": 0,
        "dna_rough": 0, "dna_sb_proto": 0, "mesh_route_sb": 0,
        "dna_let_pb2": 0}
 HEADER_GENERATIONS = {
     "H0": dict(Params._HDR_LEGACY),
+    "H1": _H1,
+    "H2": _H2,
+    "H3": _H3,
+    "H4": dict(_H3, dna_canon=1),
     "H5": _H5,
     "H6": dict(_H5, dna_ctx_v=2, dna_rough=1),
 }

@@ -51,10 +51,18 @@ order's shared prefixes use (a row has either an anchor or a prefix,
 never both). The pair table and the pe model evolve once a batch, from
 the true interleaved reads (dna_collect_updates).
 
-Not ported yet (check_supported): the in-batch local tables and model
-deltas of headers without row-global updates, row-global updates of the
-context-keyed tables, sorted-mode position contexts (dna_sorted_ctx) and
-paired-end position contexts (dna_pe_pos_ctx).
+Headers without row-global updates keep in-batch local statistics beside
+their batch-frozen tables (cfg.local_log2_cells > 0): local_* tables (or
+klocal_* over canonical tables) of the k-mers of the batch's earlier read
+rows, merged into the cascade's s and b counts, and with
+cfg.local_model_inc > 0 deltas of the DNA model's fine rows, added to the
+cdf. They are frozen during a read row and take the row's events at its
+end (local_row_update), in the encoder's row loop and the decoder's alike;
+a batch starts them from zero.
+
+Not ported yet (check_supported): row-global updates of the context-keyed
+tables, sorted-mode position contexts (dna_sorted_ctx) and paired-end
+position contexts (dna_pe_pos_ctx).
 """
 from __future__ import annotations
 
@@ -162,13 +170,6 @@ def check_supported(cfg: DnaConfig) -> None:
     """Raise, one entry for each, for configurations whose code paths are
     not ported yet (ROADMAP.md lists them)."""
     missing = []
-    local = cfg.local_log2_cells > 0 and not cfg.row_global
-    if local:
-        missing.append("local_log2_cells>0 without row-global updates "
-                       "(dna_row_global=0: in-batch local s/b tables)")
-    if local and cfg.local_model_inc > 0:
-        missing.append("local_model_inc>0 with local tables (in-batch model "
-                       "deltas)")
     if cfg.row_global and not cfg.canon:
         missing.append("dna_canon=0 with dna_row_global=1 (row-global "
                        "updates of the context-keyed tables)")
@@ -577,15 +578,148 @@ def _window_lookup(cfg, state, kcodes, lengths, be=tables.LOCAL,
     return counts, level, active
 
 
-def _dna_cdf(cfg, model, ctx, sb):
+def _dna_cdf(cfg, model, lm, ctx, sb):
     """DNA model cdf from the raw model array (fine and letters rows, then
-    the coarse family): the fine row, optionally mixed with its coarse
-    parent (cfg.mix_w)."""
+    the coarse family): the fine row, with the in-batch deltas lm of the
+    fine rows where cfg.local_model_inc > 0 (lm None: none), optionally
+    mixed with its coarse parent (cfg.mix_w)."""
+    local = lm if cfg.local_model_inc > 0 else None
     if cfg.mix_w > 0:
         return models.model_cdf_mix(model, ctx,
                                     _n_model_ctx(cfg) + _coarse_ctx(cfg, ctx),
-                                    sb, cfg.mix_w, cfg.mix_b)
+                                    sb, cfg.mix_w, cfg.mix_b, local)
+    if local is not None:
+        return models.model_cdf_local(model, local, ctx, sb)
     return models.model_cdf(model, ctx, sb)
+
+
+# ---------------------------------------------------------------------------
+# in-batch local statistics, row-synced
+# ---------------------------------------------------------------------------
+# Within a batch the local k-mer tables and the model deltas take the
+# events of one read row (read rd of every lane) at a time: a position of
+# row rd sees the statistics of rows < rd. The encoder's row loop and the
+# decoder, which freezes them during a row and applies the row's events
+# at its end, run the same local_row_update.
+
+def _merge_local(parts, cs_l, cb_l):
+    """Fold in-batch local s/b counts into the cascade parts: counts add,
+    found-ness ORs."""
+    cp, cs, cb, fp, fs, fb = parts
+    if cs_l is None:
+        return parts
+    return (cp, cs + cs_l, cb + cb_l, fp, fs | (cs_l.sum(dim=-1) > 0),
+            fb | (cb_l.sum(dim=-1) > 0))
+
+
+def _row_query_keys(cfg, eff_row, len_row, k):
+    """(cell, tag, valid) of the width-(k-1) query context at each position
+    of a row block: the window ending one base left."""
+    pos = torch.arange(eff_row.shape[1], dtype=torch.int64,
+                       device=eff_row.device)[None, :]
+    lo, hi = (kmers.shift_right(t, 1)
+              for t in kmers.pack_windows(eff_row, k - 1))
+    cell, tag = tables.local_keys(lo, hi, cfg.local_log2_cells)
+    return cell, tag, (pos >= k - 1) & (pos < len_row[:, None])
+
+
+def _row_canon_query(cfg, eff_row, len_row, k):
+    """The canonical-local variant of _row_query_keys: (cell, tag, slots4,
+    valid) for tables.klocal_query."""
+    pos = torch.arange(eff_row.shape[1], dtype=torch.int64,
+                       device=eff_row.device)[None, :]
+    lo, hi, rlo, rhi = (kmers.shift_right(t, 1) for t in (
+        *kmers.pack_windows(eff_row, k - 1),
+        *kmers.pack_windows_rc(eff_row, k - 1)))
+    s, m_lo, m_hi = kmers.canon_strand(lo, hi, rlo, rhi, k)
+    cell, tag = tables.local_keys(m_lo, m_hi, cfg.local_log2_cells)
+    slots = _klocal_slots(s, kmers.top_base(lo, hi, k - 1))
+    return cell, tag, slots, (pos >= k - 1) & (pos < len_row[:, None])
+
+
+def _local_counts(cfg, ls, lb, eff_row, len_row):
+    """The local s and b counts [N, L, 4] of a row block's queries."""
+    if cfg.canon:
+        return (tables.klocal_query(
+                    ls, *_row_canon_query(cfg, eff_row, len_row,
+                                          cfg.smer_len)),
+                tables.klocal_query(
+                    lb, *_row_canon_query(cfg, eff_row, len_row,
+                                          cfg.bmer_len)))
+    return (tables.local_query(ls, *_row_query_keys(cfg, eff_row, len_row,
+                                                    cfg.smer_len)),
+            tables.local_query(lb, *_row_query_keys(cfg, eff_row, len_row,
+                                                    cfg.bmer_len)))
+
+
+def local_row_update(cfg, ls, lb, lm, eff_row, ctx_row, sym_row, act_row,
+                     len_row, row: int = 0):
+    """Apply one read row's events to the in-batch local state, the same
+    for encoder and decoder. k-mer events at every in-length position with
+    a full window: canonical tables one event an occurrence, context-keyed
+    ones the forward event (the window before i -> base i) and, with
+    cfg.local_rc, the reverse complement's (the rc of the k-mer ending at i
+    -> the complement of its first base). Model events (ctx, coded symbol)
+    at act_row, with cfg.local_model_inc > 0. row: the read row's index
+    (the claim's priority). Updates ls, lb and lm in place (a batch owns
+    its local state) and returns them."""
+    m = cfg.local_log2_cells
+    pos = torch.arange(eff_row.shape[1], dtype=torch.int64,
+                       device=eff_row.device)[None, :]
+    in_len = pos < len_row[:, None]
+
+    def upd(tbl, k):
+        c0 = k - 1     # the columns with a full window
+        sr = lambda t: kmers.shift_right(t, 1)[:, c0:]
+        lo, hi = (sr(t) for t in kmers.pack_windows(eff_row, k - 1))
+        rc = kmers.pack_windows_rc(eff_row, k - 1)
+        v = in_len[:, c0:].reshape(-1)
+        base = eff_row[:, c0:]
+        if cfg.canon:
+            s, m_lo, m_hi = kmers.canon_strand(lo, hi, sr(rc[0]), sr(rc[1]),
+                                               k)
+            cell, tag = tables.local_keys(m_lo, m_hi, m)
+            cb0 = kmers.top_base(lo, hi, k - 1)
+            slot = torch.where(s, 4 * (3 - base) + (3 - cb0), 4 * cb0 + base)
+            return tables.klocal_insert(tbl, cell.reshape(-1),
+                                        tag.reshape(-1), slot.reshape(-1), v,
+                                        row=row, lite=cfg.local_lite)
+        cell, tag = tables.local_keys(lo, hi, m)
+        ev = [(cell, tag, base, v)]
+        if cfg.local_rc:
+            # the rc of the k-mer ending at i: its window is the unshifted
+            # rc window, its next base the complement of base i-k+1
+            cr, tr = tables.local_keys(rc[0][:, c0:], rc[1][:, c0:], m)
+            br = (3 - kmers.shift_right(eff_row, k - 1))[:, c0:]
+            ev.append((cr, tr, br, v))
+        cells, tags, bases, vs = (torch.cat([e[j].reshape(-1) for e in ev])
+                                  for j in range(4))
+        return tables.local_insert(tbl, cells, tags, bases, vs, row=row,
+                                   lite=cfg.local_lite)
+
+    ls = upd(ls, cfg.smer_len)
+    lb = upd(lb, cfg.bmer_len)
+    if cfg.local_model_inc > 0:
+        lm = models.local_model_update(lm, ctx_row, sym_row, act_row,
+                                       inc=cfg.local_model_inc)
+    return ls, lb, lm
+
+
+def _local_state_create(cfg, device=None):
+    """A batch's local state (ls, lb, lm), zeroed: the s and b local
+    tables (klocal_* over canonical tables), and the fine rows' model
+    deltas ([1, 1] without them)."""
+    lm_shape = ((_n_model_ctx(cfg), A_SYM) if cfg.local_model_inc > 0
+                else (1, 1))
+    mk = tables.klocal_create if cfg.canon else tables.local_create
+    return (mk(cfg.local_log2_cells, device),
+            mk(cfg.local_log2_cells, device),
+            torch.zeros(lm_shape, dtype=torch.int32, device=device))
+
+
+def _with_local(cfg) -> bool:
+    """Whether cfg keeps in-batch local statistics."""
+    return cfg.local_log2_cells > 0 and not cfg.row_global
 
 
 def dna_effective_kcodes(cfg, state, codes, kcodes, lengths,
@@ -670,26 +804,58 @@ def _code_active(pos, lens, lcp, anchor_mask):
 
 def dna_modeling(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
                  be=tables.LOCAL, lcp=None, anchor_mask=None):
-    """Batch-frozen modeling (dna_row_global = 0, no local tables): the
-    cascade over the whole batch against the batch-start tables, then
-    (ctx, coded symbol, freq, cum) at every position; kcodes are the
-    repaired ones (dna_effective_kcodes). lcp, anchor_mask: as in
-    dna_process_batch_rg. Returns (ctx_all, sym_enc, f, c, code_active),
-    all [R, L]."""
+    """Batch-frozen modeling (dna_row_global = 0): the cascade over the
+    whole batch against the batch-start tables, then (ctx, coded symbol,
+    freq, cum) at every position; kcodes are the repaired ones
+    (dna_effective_kcodes). lcp, anchor_mask: as in dna_process_batch_rg.
+
+    With in-batch local statistics (cfg.local_log2_cells > 0) a loop over
+    the read rows: each row is modeled against the batch-frozen tables
+    plus the local tables and model deltas of the rows before it, then its
+    events apply (local_row_update) — the order the decoder replays.
+    Returns (ctx_all, sym_enc, f, c, code_active), all [R, L]."""
     R, L = codes.shape
-    pos = torch.arange(L, dtype=torch.int64, device=codes.device)[None, :]
+    dev = codes.device
+    pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     lens = lengths[:, None]
     code_active = _code_active(pos, lens, lcp, anchor_mask)
     pb = _pos_buckets(cfg, pos, lens)
-    counts, level, _ = _window_lookup(cfg, state, kcodes, lengths, be)
-    ctx_all, sym_enc = _ctx_sym_from_counts(
-        cfg, counts, level, codes, code_active, pb,
-        _letters_plane(cfg, codes, pos, pb), pos)
-    f, c = models.cdf_encode_lookup(
-        _dna_cdf(cfg, state.model, ctx_all, cfg.scale_bits), sym_enc)
-    f = torch.where(code_active, f, 1 << cfg.scale_bits)
-    c = torch.where(code_active, c, 0)
-    return ctx_all, sym_enc, f, c, code_active
+    let_ctx = _letters_plane(cfg, codes, pos, pb)
+    parts, _ = _window_parts(cfg, state, kcodes, lengths, be)
+    sb = cfg.scale_bits
+
+    def code(counts, level, codes_b, cact_b, pb_b, let_b, lm):
+        ctx_b, sym_b = _ctx_sym_from_counts(cfg, counts, level, codes_b,
+                                            cact_b, pb_b, let_b, pos)
+        f, c = models.cdf_encode_lookup(
+            _dna_cdf(cfg, state.model, lm, ctx_b, sb), sym_b)
+        return (ctx_b, sym_b, torch.where(cact_b, f, 1 << sb),
+                torch.where(cact_b, c, 0))
+
+    if cfg.local_log2_cells <= 0:
+        return code(*_cascade_combine(*parts), codes, code_active, pb,
+                    let_ctx, None) + (code_active,)
+
+    N = cfg.n_lanes
+    rb = lambda x: common.to_row_blocks(
+        x.expand((R, L) + tuple(x.shape[2:])), N)
+    len_rows = common.to_read_grid(lengths, N).T              # [rows, N]
+    blocks = (rb(codes), rb(kcodes), rb(code_active), rb(pb), rb(let_ctx))
+    parts_b = tuple(rb(p) for p in parts)
+    ls, lb, lm = _local_state_create(cfg, dev)
+    outs = []
+    for rd in range(len_rows.shape[0]):
+        codes_r, eff_r, cact_r, pb_r, let_r = (x[rd] for x in blocks)
+        len_r = len_rows[rd]
+        cs_l, cb_l = _local_counts(cfg, ls, lb, eff_r, len_r)
+        counts, level = _cascade_combine(*_merge_local(
+            tuple(p[rd] for p in parts_b), cs_l, cb_l))
+        out = code(counts, level, codes_r, cact_r, pb_r, let_r, lm)
+        ls, lb, lm = local_row_update(cfg, ls, lb, lm, eff_r, out[0], out[1],
+                                      cact_r, len_r, row=rd)
+        outs.append(out)
+    return tuple(common.from_row_blocks(torch.stack(o))
+                 for o in zip(*outs)) + (code_active,)
 
 
 def dna_process_batch(cfg: DnaConfig, state: DnaState, codes, kcodes,
@@ -762,7 +928,7 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
             counts, level = _combine_rough(counts, level, cr, fr)
         ctx_r, sym_r = _ctx_sym_from_counts(
             cfg, counts, level, codes_r, cact_r, pb_r, let_r, pos)
-        cdf = _dna_cdf(cfg, state.model, ctx_r, cfg.scale_bits)
+        cdf = _dna_cdf(cfg, state.model, None, ctx_r, cfg.scale_bits)
         f, c = models.cdf_encode_lookup(cdf, sym_r)
         f = torch.where(cact_r, f, 1 << cfg.scale_bits)
         c = torch.where(cact_r, c, 0)
@@ -1018,12 +1184,24 @@ K2_ARGS = ("siv", "s_tc", "b_tc", "model", "lengths", "words", "x_in",
            "smer_len", "bmer_len", "prefix_len", "scale_bits", "s_log2_rows",
            "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b",
            "events", "family", "row_update", "ctx_v", "rough", "let_pb2",
-           "prefix_ramp", "pmer_gate", "repair_iters")
+           "prefix_ramp", "pmer_gate", "repair_iters", "ls", "lb", "lm",
+           "local", "local_log2_cells", "local_cap")
+# the in-batch local statistics K2 reads, in the order of its kLoc template
+# parameter: none, local_* tables, local_* tables and the DNA model's
+# deltas, klocal_* tables, klocal_* tables and the deltas
+K2_LOCAL = ("none", "local", "local+deltas", "klocal", "klocal+deltas")
+
+
+def k2_local(cfg: DnaConfig) -> int:
+    """cfg's index in K2_LOCAL."""
+    if not _with_local(cfg):
+        return 0
+    return (3 if cfg.canon else 1) + int(cfg.local_model_inc > 0)
 
 
 def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
                          ptr, regs, L: int, lcp=None, src=None,
-                         be=tables.LOCAL):
+                         be=tables.LOCAL, loc=None):
     """K2's plain torch version, on any device: one read row of the decode,
     the reference's whole `outer` step — its `inner` step for each of the
     row's static steps (_decode_segments), then, where the tables are
@@ -1037,7 +1215,11 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
     lcp (sorted order): [N] int64 prefix lengths, 0 <= lcp <= length, and
     src: the previous read row's base plane, int64 [N, L] — a position
     below lcp takes no word and copies its base from src, and is left out
-    of the rank history; None for original order.
+    of the rank history; None for original order. loc: the batch's
+    in-batch local state (ls, lb, lm) as the earlier rows left it
+    (_local_state_create, local_row_update), read only: the local s and b
+    counts merge into the cascade's, and the deltas lm into the cdf; None
+    without local statistics.
     Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr, regs, s_tc,
     b_tc), row-global tables new tensors (the state's are left as they
     were), batch-frozen ones the state's."""
@@ -1049,6 +1231,8 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
     s_mlo, s_mhi = _key_mask(s_w)
     b_mlo, b_mhi = _key_mask(b_w)
     let_base = 1 << _ctx_bits(cfg)
+    m_loc = cfg.local_log2_cells
+    lm = None if loc is None else loc[2]
     pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi = regs.unbind(0)
     zeros = torch.zeros((N,), dtype=torch.int64, device=dev)
     lh = torch.full((N,), LH_RESET, dtype=torch.int64, device=dev)
@@ -1089,6 +1273,22 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
                      fs_, fb_)
         counts_g, level_g = _cascade_combine(*parts)
         counts, level = counts_g, level_g
+        if loc is not None:
+            if cfg.canon:
+                cs_l = tables.klocal_query(
+                    loc[0], *tables.local_keys(s_q[3], s_q[4], m_loc),
+                    _klocal_slots(s_q[2], s_q[5]), vs)
+                cb_l = tables.klocal_query(
+                    loc[1], *tables.local_keys(b_q[3], b_q[4], m_loc),
+                    _klocal_slots(b_q[2], b_q[5]), vb)
+            else:
+                cs_l = tables.local_query(
+                    loc[0], *tables.local_keys(s_lo, s_hi, m_loc), vs)
+                cb_l = tables.local_query(
+                    loc[1], *tables.local_keys(blo & b_mlo, bhi & b_mhi,
+                                               m_loc), vb)
+            counts, level = _cascade_combine(*_merge_local(parts, cs_l,
+                                                           cb_l))
         if cfg.rough and rough_on:
             # suspect-tracked 1-sub rescue; srun counts this lane's
             # consecutive s/b misses
@@ -1112,7 +1312,7 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         let_ctx = (lh & LH_MASK) | (_let_pb(cfg, pb) << 15)
         ctx_all = torch.where(use_code, code_ctx, let_base + let_ctx)
 
-        cdf = _dna_cdf(cfg, state.model, ctx_all, sb)
+        cdf = _dna_cdf(cfg, state.model, lm, ctx_all, sb)
         sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
         f = torch.where(coded, f, 1 << sb)
         c = torch.where(coded, c, 0)
@@ -1151,7 +1351,8 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
         [pkey, slo, shi, blo, bhi, rslo, rshi, rblo, rbhi]), s_tc, b_tc
 
 
-def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
+def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be,
+              loc=None):
     check_supported(cfg)
     if be is not tables.LOCAL:
         raise ValueError("K2 reads whole tables on one device (the local "
@@ -1180,6 +1381,17 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
     if lcp is not None:
         want += (("lcp", lcp, torch.int64, (N,)),
                  ("src", src, torch.int64, (N, L)))
+    if (loc is not None) != _with_local(cfg):
+        raise ValueError("K2: the in-batch local state goes with "
+                         "local_log2_cells > 0 without row-global updates")
+    if loc is not None:
+        cells = 1 << cfg.local_log2_cells
+        lw = tables.KLOCAL_W if cfg.canon else tables.LOCAL_W
+        lm_shape = ((_n_model_ctx(cfg), A_SYM) if cfg.local_model_inc > 0
+                    else (1, 1))
+        want += (("ls", loc[0], torch.int64, (cells, lw)),
+                 ("lb", loc[1], torch.int64, (cells, lw)),
+                 ("lm", loc[2], torch.int32, lm_shape))
     for name, t, dt, shape in want:
         if (t.dtype != dt or t.device != dev or not t.is_contiguous()
                 or (shape is None and t.dim() != 1)
@@ -1211,13 +1423,14 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be):
             or cfg.mix_w * cfg.mix_b >= 1 << 31 or cfg.pmer_gate < 0
             or not 0 <= cfg.repair_iters < 1 << 20 or cfg.ctx_v < 1
             or (cfg.rough and not (cfg.canon and cfg.row_global
-                                   and cfg.ctx_v >= 2))):
+                                   and cfg.ctx_v >= 2))
+            or (loc is not None and not 1 <= cfg.local_log2_cells <= 30)):
         raise ValueError(f"K2: {words.numel()} words, L = {L}, or a "
                          f"geometry outside the kernel's: {cfg}")
 
 
 def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
-               lcp=None, src=None):
+               lcp=None, src=None, loc=None):
     """Allocate one row's outputs and its event scratch and launch `entry`
     (a C function with K2's signature) on the current stream. No checks:
     _check_k2 first. Returns (planes, x, ptr, regs, s_tc, b_tc), the tables
@@ -1251,7 +1464,13 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
         "row_update": int(cfg.row_global), "ctx_v": cfg.ctx_v,
         "rough": int(cfg.rough > 0), "let_pb2": int(cfg.let_pb2 > 0),
         "prefix_ramp": int(cfg.prefix_ramp), "pmer_gate": cfg.pmer_gate,
-        "repair_iters": cfg.repair_iters}
+        "repair_iters": cfg.repair_iters,
+        "ls": None if loc is None else loc[0],
+        "lb": None if loc is None else loc[1],
+        "lm": None if loc is None else loc[2], "local": k2_local(cfg),
+        "local_log2_cells": cfg.local_log2_cells,
+        "local_cap": models.local_cap(A_SYM, cfg.scale_bits,
+                                      extra=max(cfg.mix_w, 0))}
     args = (ctypes.c_int64 * len(K2_ARGS))(*(
         v.data_ptr() if isinstance(v, torch.Tensor) else v or 0
         for v in (vals[k] for k in K2_ARGS)))
@@ -1265,34 +1484,37 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
 
 
 def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, lcp,
-                         src, be):
+                         src, be, loc=None):
     """One K2 launch for one read row, its table update included. Checks
     everything before it builds or launches."""
     global K2_LAUNCHES
-    _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be)
+    _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be, loc)
     from ..ops import _build
 
     out = _k2_launch(_build.kernels().fqtz_dna_decode_row, cfg, state,
-                     length, words, x, ptr, regs, L, lcp, src)
+                     length, words, x, ptr, regs, L, lcp, src, loc)
     K2_LAUNCHES += 1
     return out
 
 
 def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
-                   regs, L: int, lcp=None, src=None, be=tables.LOCAL):
+                   regs, L: int, lcp=None, src=None, be=tables.LOCAL,
+                   loc=None):
     """One read row of the decode, its s/b table update included: on CUDA
     tensors kernel K2 (a failed build or launch raises; nothing falls back
     to the plain version), which updates state.s_tc and state.b_tc IN
     PLACE and returns them; on CPU tensors dna_decode_row_plain, which
     returns new tables (see there for the arguments and the result). The
-    model's device decides. K2 takes words as a contiguous int32 tensor."""
+    model's device decides. K2 takes words as a contiguous int32 tensor.
+    The in-batch local state loc is read, never written (the caller
+    applies the row's events: local_row_update)."""
     kind = state.model.device.type
     if kind == "cuda":
         return _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs,
-                                    L, lcp, src, be)
+                                    L, lcp, src, be, loc)
     if kind == "cpu":
         return dna_decode_row_plain(cfg, state, length, words, x, ptr, regs,
-                                    L, lcp, src, be)
+                                    L, lcp, src, be, loc)
     raise ValueError(f"dna_decode_row: no scan for device "
                      f"{state.model.device}")
 
@@ -1352,9 +1574,10 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
                      init_states, L: int, be=tables.LOCAL,
                      apply_update: bool = True, lcp=None,
                      lcp_stride: int = 1, pe_words=None, pe_states=None):
-    """Decode a batch — the reference's dna_decode_batch without local
-    tables, for row-global or batch-frozen s/b tables of any family,
-    single-end or paired-end, in original or sorted order. lengths: [R]
+    """Decode a batch — the reference's dna_decode_batch, for row-global or
+    batch-frozen s/b tables of any family (the latter with or without
+    in-batch local statistics), single-end or paired-end, in original or
+    sorted order. lengths: [R]
     int64 (R a multiple of n_lanes); words: [W] integer tensor of u16
     values;
     init_states: [N] int64 (the encoder's final states); lcp (sorted
@@ -1368,7 +1591,12 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     included, and in sorted order the base plane lcp_stride rows back as its
     prefix source (a zero plane for a lane's first rows, whose lcp is 0);
     dna_collect_updates (model and SIV, batch-frozen s/b tables, and the
-    pair table and pe model) runs once after the batch. With the anchors on,
+    pair table and pe model) runs once after the batch. With in-batch local
+    statistics, each row reads the local state the rows before it left
+    (zeroed at the batch's start), and local_row_update applies the row's
+    events after it: its k-mers at every in-length position, its model
+    deltas at those at or past the row's lcp, the reference's act_r (an
+    anchored row's preset span included). With the anchors on,
     the loop walks the anchored 3-row recoding (read1, rowA, rowB a pair;
     pe.expand_pe_rows): after each read1 row _pe_row_end decodes the pair's
     pe symbols and arms its anchor, and rowA and rowB, of the lengths the
@@ -1435,6 +1663,7 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
         anc_lo = anc_hi = lenA = lenB = zeros
         anc_has = torch.zeros((N,), dtype=torch.bool, device=dev)
         row_lens, anc_lcps, pe_rows = [], [], []
+    loc = _local_state_create(cfg, dev) if _with_local(cfg) else None
     rows = []
     for rd in range(n_rows):
         k3 = rd % 3 if with_pe else 0
@@ -1453,7 +1682,13 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
             row_lcp, src = lcp_rows[rd], prev[0]
         planes, x, ptr, regs, s_tc, b_tc = dna_decode_row(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), length, words, x, ptr,
-            regs, L, row_lcp, src, be=be)
+            regs, L, row_lcp, src, be=be, loc=loc)
+        if loc is not None:
+            act_r = pos < length[:, None]
+            if lcp is not None:
+                act_r = act_r & (pos >= lcp_rows[rd][:, None])
+            loc = local_row_update(cfg, *loc, planes[1], planes[2],
+                                   planes[3], act_r, length, row=rd)
         if lcp is not None:
             prev = prev[1:] + [planes[0]]
         rows.append(planes)

@@ -2,14 +2,17 @@
 
 Port of fqsqueezer_tpu/streams/quality.py: per-mode quantization maps and a
 dense [n_ctx, n_sym] model indexed by a packed (history, position-bucket)
-context. In-batch local model deltas (QualConfig.with_local, off by default)
-are not ported.
+context. With in-batch local model deltas (QualConfig.with_local: the
+first local-statistics writer's header) a read row's probabilities add
+the deltas of the batch's earlier rows, clamped (models.model_cdf_local),
+and each row adds its own at its end.
 
 Decode is a scan over the positions of each read row, all lanes in step:
 each step builds the context from the lane's last n_hist symbols, looks the
 slot up in the frozen model's cdf row and advances the rANS state. On CUDA
-tensors the scan is kernel K3 (csrc/qual_decode.cu), one launch a batch; on
-CPU tensors it is qual_decode_scan_plain, the same scan as torch ops.
+tensors the scan is kernel K3 (csrc/qual_decode.cu), one launch a batch, the
+deltas' row-end updates included; on CPU tensors it is
+qual_decode_scan_plain, the same scan as torch ops.
 """
 from __future__ import annotations
 
@@ -116,18 +119,40 @@ def qual_ctx_plane(cfg: QualConfig, qsyms: torch.Tensor) -> torch.Tensor:
 
 def qual_modeling(cfg: QualConfig, model: torch.Tensor, qsyms: torch.Tensor,
                   lengths: torch.Tensor):
-    """qsyms: [R, L] quantized symbols. Returns (ctx, f, c, active)."""
-    if cfg.with_local:
-        raise NotImplementedError("in-batch quality deltas are not ported")
+    """qsyms: [R, L] quantized symbols. Returns (ctx, f, c, active).
+
+    With cfg.with_local, a loop over the read rows: row rd's cdf adds the
+    deltas of rows < rd, then its own (ctx, sym) events add local_inc —
+    the order the decoder replays."""
     R, L = qsyms.shape
     pos = torch.arange(L, dtype=torch.int64, device=qsyms.device)[None, :]
     active = pos < lengths[:, None]
     ctx = qual_ctx_plane(cfg, qsyms)
-    cdf = models.model_cdf(model, ctx, cfg.scale_bits)
-    f, c = models.cdf_encode_lookup(cdf, qsyms)
-    f = torch.where(active, f, 1 << cfg.scale_bits)
-    c = torch.where(active, c, 0)
+    sb = cfg.scale_bits
+
+    def code(cdf, sym, act):
+        f, c = models.cdf_encode_lookup(cdf, sym)
+        return torch.where(act, f, 1 << sb), torch.where(act, c, 0)
+
+    if not cfg.with_local:
+        return (ctx,) + code(models.model_cdf(model, ctx, sb), qsyms,
+                             active) + (active,)
+    rb = lambda x: common.to_row_blocks(x, cfg.n_lanes)
+    lm = local_state_create(cfg, qsyms.device)
+    fc = []
+    for ctx_r, sym_r, act_r in zip(rb(ctx), rb(qsyms), rb(active)):
+        fc.append(code(models.model_cdf_local(model, lm, ctx_r, sb), sym_r,
+                       act_r))
+        lm = models.local_model_update(lm, ctx_r, sym_r, act_r,
+                                       inc=cfg.local_inc)
+    f, c = (common.from_row_blocks(torch.stack(t)) for t in zip(*fc))
     return ctx, f, c, active
+
+
+def local_state_create(cfg: QualConfig, device=None) -> torch.Tensor:
+    """A batch's zeroed in-batch deltas, int32 [n_ctx, n_sym]."""
+    return torch.zeros((cfg.n_ctx, cfg.n_sym), dtype=torch.int32,
+                       device=device)
 
 
 def qual_encode_batch(cfg: QualConfig, model: torch.Tensor,
@@ -153,7 +178,7 @@ def qual_encode_batch(cfg: QualConfig, model: torch.Tensor,
 K3_LAUNCHES = 0
 K3_MAX_LANES = 2048   # one cluster holds every lane (kMaxLanes in the source)
 # symbols a model row K3 takes: binary, Illumina-4, Illumina-8, lossless (one
-# instantiation each in the source)
+# instantiation each in the source, and one more each with in-batch deltas)
 K3_SYM = (2, 4, 8, 96)
 
 
@@ -162,9 +187,11 @@ def qual_decode_scan_plain(cfg: QualConfig, model: torch.Tensor,
                            init_states: torch.Tensor, L: int,
                            with_ctx: bool = False):
     """K3's plain torch version, on any device: the reference's
-    qual_decode_batch scan without local deltas. Returns (syms [R, L]
-    uint8, final states [N] int64, words consumed 0-d int64), and with
-    with_ctx the [R, L] int64 contexts the scan read as well."""
+    qual_decode_batch scan. With cfg.with_local the cdf adds the batch's
+    in-batch deltas, clamped, frozen during a read row; each row's (ctx,
+    sym) events add local_inc at its end. Returns (syms [R, L] uint8,
+    final states [N] int64, words consumed 0-d int64), and with with_ctx
+    the [R, L] int64 contexts the scan read as well."""
     N = cfg.n_lanes
     r_pl = lengths.shape[0] // N
     len_grid = common.to_read_grid(lengths.to(torch.int64), N)   # [N, r_pl]
@@ -174,6 +201,7 @@ def qual_decode_scan_plain(cfg: QualConfig, model: torch.Tensor,
                for v in _pos_bucket(torch.arange(L)).tolist()]
     x = init_states
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
+    lm = local_state_create(cfg, dev) if cfg.with_local else None
     sym_rows, ctx_rows = [], []
     for rd in range(r_pl):
         length = len_grid[:, rd]
@@ -182,7 +210,8 @@ def qual_decode_scan_plain(cfg: QualConfig, model: torch.Tensor,
         for i in range(L):
             active = i < length
             ctx = hist | pos_ctx[i]
-            cdf = models.model_cdf(model, ctx, sb)
+            cdf = (models.model_cdf(model, ctx, sb) if lm is None
+                   else models.model_cdf_local(model, lm, ctx, sb))
             sym, f, c = rans.cdf_lookup(cdf, rans.rans_decode_slots(x, sb))
             f = torch.where(active, f, 1 << sb)
             c = torch.where(active, c, 0)
@@ -193,6 +222,11 @@ def qual_decode_scan_plain(cfg: QualConfig, model: torch.Tensor,
             ctxs.append(ctx)
         sym_rows.append(torch.stack(syms, dim=1))
         ctx_rows.append(torch.stack(ctxs, dim=1))
+        if lm is not None:
+            pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
+            lm = models.local_model_update(
+                lm, ctx_rows[-1], sym_rows[-1], pos < length[:, None],
+                inc=cfg.local_inc)
     qsyms = common.from_row_blocks(torch.stack(sym_rows)).to(torch.uint8)
     if with_ctx:
         return qsyms, x, ptr, common.from_row_blocks(torch.stack(ctx_rows))
@@ -227,8 +261,9 @@ def _check_k3(cfg, model, lengths, words, init_states, L):
     if R % N or words.numel() < 1 or L < 0 or R * max(L, 1) >= 1 << 31:
         raise ValueError(f"K3: {R} reads over {N} lanes, {words.numel()} "
                          f"words, L = {L}")
-    if not 1 <= cfg.scale_bits <= 16:
-        raise ValueError(f"K3: scale_bits {cfg.scale_bits} outside [1, 16]")
+    if not 1 <= cfg.scale_bits <= 16 or not 0 <= cfg.local_inc <= 1 << 16:
+        raise ValueError(f"K3: scale_bits {cfg.scale_bits} outside [1, 16] "
+                         f"or local_inc {cfg.local_inc} outside [0, 2^16]")
 
 
 def _qual_decode_scan_cuda(cfg, model, lengths, words, init_states, L):
@@ -244,12 +279,16 @@ def _qual_decode_scan_cuda(cfg, model, lengths, words, init_states, L):
     syms = torch.empty((R, L), dtype=torch.uint8, device=dev)
     fin = torch.empty((N,), dtype=torch.int64, device=dev)
     ptr = torch.empty((1,), dtype=torch.int64, device=dev)
+    # the batch's delta plane, zeroed here; K3 adds each row's events
+    lm = local_state_create(cfg, dev) if cfg.with_local else None
     with torch.cuda.device(dev):
         rc = _build.kernels().fqtz_qual_decode(
             model.data_ptr(), cfg.n_sym, cfg.hist_bits, cfg.n_hist,
             lengths.data_ptr(), R // N, L, words.data_ptr(), words.numel(),
             init_states.data_ptr(), N, cfg.scale_bits, syms.data_ptr(),
             fin.data_ptr(), ptr.data_ptr(),
+            None if lm is None else lm.data_ptr(),
+            models.local_cap(cfg.n_sym, cfg.scale_bits), cfg.local_inc,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc}")
@@ -264,9 +303,9 @@ def qual_decode_scan(cfg: QualConfig, model: torch.Tensor,
     failed build or launch raises; nothing falls back to the plain scan),
     on a CPU model the plain scan. model: int32 [n_ctx, n_sym]; lengths:
     int32 [R]; words: int32 [W] u16 values; init_states: int64 [N]. Returns
-    (syms [R, L] uint8, final states [N] int64, words consumed 0-d int64)."""
-    if cfg.with_local:
-        raise NotImplementedError("in-batch quality deltas are not ported")
+    (syms [R, L] uint8, final states [N] int64, words consumed 0-d int64).
+    With cfg.with_local the scan adds in-batch deltas (K3 in its delta
+    instantiation, or the plain scan's)."""
     kind = model.device.type
     if kind == "cuda":
         return _qual_decode_scan_cuda(cfg, model, lengths, words,

@@ -3,7 +3,8 @@ the row's s/b table update, one launch) on one card, against its plain
 torch version.
 
     python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--sorted | --pe]
-        [--family k2|ktable|table] [--other other.cu ...]
+        [--family k2|ktable|table|local|klocal] [--other other.cu ...]
+        [--other-args N]
 
 The input is the main path's real batch: the bench corpus's first 20,000
 reads (chip_smoke.py's) compressed on the card at the bench primary row
@@ -15,8 +16,10 @@ anchored rows' first B bases copied from the anchor by K2; with --family
 ktable under the H6 header of params.HEADER_GENERATIONS — row-global
 ktable_* cells, ctx v2, the rough rescue — and with --family table under
 H0 — the first writer's batch-frozen table_* cells, ctx v1, no mix, no
-ramp, three repairs — each at -s -om o -qm o -im o -gs 5, 2048 lanes, 2
-read rows a batch), and the DNA decode inputs of the archive's second
+ramp, three repairs —, with --family local under H1 — H0's tables with
+in-batch local_* tables and DNA deltas — and with --family klocal under
+H4 — batch-frozen ktable_* cells with klocal_* tables —, each at -s -om
+o -qm o -im o -gs 5, 2048 lanes, 2 read rows a batch), and the DNA decode inputs of the archive's second
 batch with the DNA state the first batch left (real_dna_batch). With
 --pe the row-end PE step (dna._pe_row_end, torch ops between K2's
 launches) is timed too. dna_decode_batch decodes it with every read row
@@ -66,6 +69,10 @@ FAMILY_ROWS = {
                       "-v", "0")),
     "table": ("H0", ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
                      "-v", "0")),
+    "local": ("H1", ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                     "-v", "0")),
+    "klocal": ("H4", ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                      "-v", "0")),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate
@@ -165,13 +172,13 @@ def _row_checker(rows, what):
     k2 = dna.dna_decode_row
 
     def both(cfg, state, length, words, x, ptr, regs, L, lcp=None, src=None,
-             be=tables.LOCAL):
-        args = (cfg, state, length, words, x, ptr, regs, L, lcp, src)
-        want = dna.dna_decode_row_plain(*args, be=be)
+             be=tables.LOCAL, loc=None):
+        args = (cfg, state, length, words, x, ptr, regs, L, lcp, src, loc)
+        want = dna.dna_decode_row_plain(*args[:10], be=be, loc=loc)
         work = state._replace(s_tc=state.s_tc.clone(),
                               b_tc=state.b_tc.clone())
         before = dna.K2_LAUNCHES
-        got = k2(cfg, work, *args[2:], be=be)
+        got = k2(cfg, work, *args[2:10], be=be, loc=loc)
         if dna.K2_LAUNCHES != before + 1:
             raise RuntimeError("dna_decode_row did not launch K2")
         if got[4] is not work.s_tc or got[5] is not work.b_tc:
@@ -185,6 +192,8 @@ def _row_checker(rows, what):
             raise RuntimeError(f"K2 disagrees with the plain row step on "
                                f"{what}, row {len(rows)}: {', '.join(bad)}, "
                                f"max abs err {err}")
+        if loc is not None:   # the batch updates its local state in place
+            args = args[:10] + (tuple(t.clone() for t in loc),)
         rows.append((args, want))
         return want
     return both
@@ -197,7 +206,9 @@ def check_rows(cfg, state, lengths, words, init, L, lcp=None, pe=None,
     LCP stride, from real_dna_batch) with every read row checked
     (_row_checker): K2 against the plain row step. The batch goes on with
     the plain results, and the caller's state keeps its tables. Returns,
-    a row, (its dna_decode_row arguments, the plain result)."""
+    a row, (its dna_decode_row arguments — cfg, state, length, words, x,
+    ptr, regs, L, lcp, src and the in-batch local state the row read, or
+    None —, the plain result)."""
     k2 = dna.dna_decode_row
     rows = []
     dna.dna_decode_row = _row_checker(rows, what)
@@ -234,10 +245,11 @@ def chain_rows(rows, lanes=CHAIN_LANES):
         return None if t is None else t[:lanes].contiguous()
 
     out = []
-    for (cfg, st, length, words, x, ptr, regs, L, lcp, src), _ in rows:
+    for (cfg, st, length, words, x, ptr, regs, L, lcp, src, loc), _ in rows:
         out.append((dataclasses.replace(cfg, n_lanes=lanes), st,
                     cut(length), words, cut(x), ptr,
-                    regs[:, :lanes].contiguous(), L, cut(lcp), cut(src)))
+                    regs[:, :lanes].contiguous(), L, cut(lcp), cut(src),
+                    loc))
     return out
 
 
@@ -249,9 +261,9 @@ def k2_launcher(entry=None):
     entry = entry or _build.kernels().fqtz_dna_decode_row
 
     def launch(cfg, state, length, words, x, ptr, regs, L, lcp=None,
-               src=None, be=tables.LOCAL):
+               src=None, loc=None, be=tables.LOCAL):
         return dna._k2_launch(entry, cfg, state, length, words, x, ptr, regs,
-                              L, lcp, src)
+                              L, lcp, src, loc)
     return launch
 
 
@@ -264,7 +276,7 @@ def replay_ms(args, launch=None, reps=20):
     not see its own events."""
     if launch is None:
         for a in args:
-            dna._check_k2(*a, tables.LOCAL)
+            dna._check_k2(*a[:10], tables.LOCAL, a[10])
         launch = k2_launcher()
     work = [(a, a[1].s_tc.clone(), a[1].b_tc.clone()) for a in args]
     marks = [(torch.cuda.Event(enable_timing=True),
@@ -313,10 +325,13 @@ def cut_source(tag, cuts):
     return path
 
 
-def variant(src, tag):
+def variant(src, tag, n_args=len(dna.K2_ARGS)):
     """A dna_decode_row that launches K2 built from `src` (no checks, no
-    launch count: k2_launcher)."""
-    return k2_launcher(_build.load_other(src, tag).fqtz_dna_decode_row)
+    launch count: k2_launcher). n_args: the length of that source's struct
+    Args, a prefix of K2_ARGS (an earlier revision's: 41 before the local
+    statistics' arguments)."""
+    entry = _build.load_other(src, tag).fqtz_dna_decode_row
+    return k2_launcher(lambda args, _, stream: entry(args, n_args, stream))
 
 
 def _distinct(t):
@@ -338,14 +353,24 @@ def _query_rows(cfg, tc, win, k, log2_base):
                             log2_base)
 
 
+def _local_cells(cfg, win, k):
+    """Local cells of the width-k queries of windows win: the forward
+    window's, or the canonical middle's (klocal)."""
+    if cfg.canon:
+        _, m_lo, m_hi = kmers.canon_strand(*win, k)
+        return tables.local_keys(m_lo, m_hi, cfg.local_log2_cells)[0]
+    return tables.local_keys(win[0], win[1], cfg.local_log2_cells)[0]
+
+
 def k2_bound_ms(rows):
     """(ms, 'bytes' | 'operations'): the least time the card could take for
     these rows' K2 launches, each row's reads and writes as its data needs
     them. Bytes a launch: the distinct table rows (32 B for K2 cells, 48 B
     for ktable cells, 128 B for table cells) that its finds and its rough
-    probes read, the distinct SIV words (8 B) that its finds and its
-    prefix ramp read, the distinct model rows (fine, and coarse with the
-    mix, 20 B),
+    probes read, the distinct local cells (40 B for local_*, 72 B for
+    klocal_*) of its s and b queries, the distinct SIV words (8 B) that its
+    finds and its prefix ramp read, the distinct model rows (fine, and
+    coarse with the mix, 20 B; the fine rows' deltas, 20 B),
     the words it consumes (4 B), lengths, states, registers and the pointer
     in and out, the four int64 [N, L] planes out, the table cells its
     update changes (8 B), and in sorted order the LCPs and the prefix
@@ -354,7 +379,7 @@ def k2_bound_ms(rows):
     32-bit rate."""
     nbytes = 0
     n_ops = 0
-    for (cfg, st, length, words, x, ptr, regs, L, lcp, src), want in rows:
+    for (cfg, st, length, words, x, ptr, regs, L, lcp, src, loc), want in rows:
         (_, kc, ctx, _), _, ptr_end, _, s_new, b_new = want
         N = length.shape[0]
         pos = torch.arange(L, device=kc.device)[None, :]
@@ -402,6 +427,14 @@ def k2_bound_ms(rows):
                         + (active & (pos >= b_w)).sum())
                     if cfg.row_global else 0)
         row_bytes = 8 * dna.table_family(cfg)[2]
+        if loc is not None:
+            # the local cells of the s and b queries (keyed as the finds)
+            lw = 8 * loc[0].shape[1]
+            nbytes += lw * sum(
+                _distinct(_local_cells(cfg, win, k)[active & (pos >= k - 1)])
+                for win, k in ((s_win, cfg.smer_len), (b_win, cfg.bmer_len)))
+            if cfg.local_model_inc > 0:
+                nbytes += 20 * _distinct(fine)
         n_ops += (int(active.sum()) * K2_OPS_PER_POS
                   + n_events * K2_OPS_PER_EVENT)
         nbytes += (row_bytes * (_distinct(torch.cat(s_rows))
@@ -427,13 +460,16 @@ def main() -> int:
     ap.add_argument("--pe", action="store_true",
                     help="the bench's PE row (-p -om o -qm n -im n) instead "
                     "of the primary row")
-    ap.add_argument("--family", choices=("k2", "ktable", "table"),
+    ap.add_argument("--family", choices=("k2", *FAMILY_ROWS),
                     default="k2",
                     help="the s/b table family: K2 cells (the bench rows), "
                     "or an older writer's header (FAMILY_ROWS)")
     ap.add_argument("--other", action="append", default=[],
                     help="another CUDA source of K2 (its C entry point and "
                     "struct Args) to time beside it (repeatable)")
+    ap.add_argument("--other-args", type=int, default=len(dna.K2_ARGS),
+                    help="the length of the --other sources' struct Args "
+                    "(41: a source from before the local statistics)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k2_compare: no CUDA device is visible")
@@ -467,7 +503,8 @@ def main() -> int:
         runs.append((name, variant(cut_source(f"k2_cut{k}", cuts),
                                    f"k2_cut{k}"), False))
     for k, src in enumerate(args.other):
-        runs.append((src, variant(src, f"k2_other{k}"), True))
+        runs.append((src, variant(src, f"k2_other{k}", args.other_args),
+                     True))
     for name, launch, updates in runs[1:]:      # every run is exact
         for a, want in rows:
             st = a[1]
@@ -491,7 +528,8 @@ def main() -> int:
               f"{d_ms / len(rows):.4f} ms a row")
     chain = chain_rows(rows)
     floor_ms = replay_ms(chain)
-    plain_ms = replay_ms(row_args, dna.dna_decode_row_plain, 2)
+    plain_ms = replay_ms(
+        row_args, lambda *a: dna.dna_decode_row_plain(*a[:10], loc=a[10]), 2)
     bound, by = k2_bound_ms(rows)
     name = ("sorted" if args.sorted else "PE" if args.pe
             else "main" if args.family == "k2"

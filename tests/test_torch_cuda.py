@@ -1,6 +1,7 @@
 """Kernels K1, K3 and K2 on a CUDA card: each launches, equals its plain
-torch version exactly (K2 with its row's table update), and refuses what
-it does not take instead of falling back. Imports
+torch version exactly (K2 with its row's table update and the in-batch
+local statistics, K3 with the in-batch deltas), and refuses what it does
+not take instead of falling back. Imports
 no JAX and nothing of the reference package, so it runs on a machine with a
 card and neither of them:
 
@@ -151,6 +152,32 @@ def test_k3_equals_plain_scan_other_modes(N, r_pl, L, n_words, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["binary", "illumina_4", "illumina_8",
+                                  "lossless"])
+@pytest.mark.parametrize("N,r_pl,L,n_words", [K3_CASES[k]
+                                              for k in (0, 2, 5, 7)])
+def test_k3_with_deltas_equals_plain_scan(N, r_pl, L, n_words, mode):
+    """K3's delta instantiation (QualConfig.with_local): the in-batch
+    deltas read beside the model, each row's events added with atomics at
+    its end; symbols, states and words consumed, exactly, in one launch."""
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.streams import quality
+
+    _card()
+    cfg, (model, lengths, words, init) = _k3_inputs(N + L + 3, N, r_pl, L,
+                                                    n_words, mode)
+    cfg = dataclasses.replace(cfg, with_local=True)
+    before = quality.K3_LAUNCHES
+    got = quality.qual_decode_scan(cfg, model, lengths, words, init, L)
+    assert quality.K3_LAUNCHES == before + 1
+    want = quality.qual_decode_scan_plain(cfg, model, lengths, words, init,
+                                          L)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
 def test_k3_refuses_instead_of_falling_back():
     from fqsqueezer_tpu_torch.streams import quality
 
@@ -206,6 +233,30 @@ def test_k2_equals_plain_row_scan(N, r_pl, L, grow, short):
     _card()
     batch = dna_decode_inputs(N + L, N, r_pl, L, "cuda", grow, short)
     assert len(check_rows(*batch, L)) == r_pl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sorted_reads", [False, True])
+@pytest.mark.parametrize("gen", ["H1", "H2", "H4"])
+def test_k2_with_local_statistics_equals_plain_row_scan(gen, sorted_reads):
+    """K2's local-statistics instantiations (H1: local_* cells and the DNA
+    deltas; H2: local_* cells; H4: klocal_* cells beside ktable ones), in
+    original and sorted order: every row against the plain row step on
+    the local state the rows before it left, exactly."""
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.tools.k2_compare import check_rows
+    from fqsqueezer_tpu_torch.utils.dna_batches import (dna_decode_inputs,
+                                                         legacy_dna_config)
+
+    _card()
+    cfg = dataclasses.replace(legacy_dna_config(gen, 256),
+                              smer_log2_buckets=12, bmer_log2_buckets=12,
+                              local_log2_cells=14)
+    out = dna_decode_inputs(int(gen[1]) + sorted_reads, 256, 3, 104, "cuda",
+                            sorted_reads=sorted_reads, cfg=cfg)
+    rows = check_rows(*out[:5], 104, *out[5:])
+    assert len(rows) == 3 and all(a[10] is not None for a, _ in rows)
 
 
 @pytest.mark.cuda

@@ -304,16 +304,22 @@ def test_qual_ctx_plane_equals_the_scans_contexts(decoded):
 
 
 def test_decode_scans_refuse_what_is_not_ported():
-    cfg = quality.QualConfig(with_local=True)
-    with pytest.raises(NotImplementedError):
-        quality.qual_decode_scan(cfg, torch.zeros((cfg.n_ctx, 8),
-                                                  dtype=torch.int32),
-                                 torch.zeros(8, dtype=torch.int32),
-                                 torch.zeros(4, dtype=torch.int32),
-                                 rans.rans_initial_states(8), 8)
-    with pytest.raises(NotImplementedError):
-        dna.dna_decode_batch(dna.DnaConfig(), None, torch.zeros(8), None,
-                             None, 8)
+    """What the decode scans lack raises NotImplementedError; the in-batch
+    deltas and local tables, once refused here, are ported: the quality
+    scan with deltas decodes (an empty batch), and the DNA header of
+    context-keyed tables with local tables passes check_supported, while
+    row-global updates of those tables stay refused."""
+    cfg = quality.QualConfig(with_local=True, n_lanes=8)
+    syms, _, ptr = quality.qual_decode_scan(
+        cfg, torch.zeros((cfg.n_ctx, 8), dtype=torch.int32),
+        torch.zeros(8, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
+        rans.rans_initial_states(8), 8)
+    assert tuple(syms.shape) == (8, 8) and int(ptr) == 0
+    dna.check_supported(dna.DnaConfig())
+    with pytest.raises(NotImplementedError, match="dna_canon=0"):
+        dna.dna_decode_batch(dataclasses.replace(dna.DnaConfig(),
+                                                 row_global=True), None,
+                             torch.zeros(8), None, None, 8)
     # no writer stores an LCP stride but 1 (single-end) and 2 (paired-end)
     with pytest.raises(NotImplementedError, match="stride 3"):
         dna.dna_decode_batch(bench_dna_config(8), None, torch.zeros(8),
@@ -335,7 +341,9 @@ _KNOBS = [("ctx_v", 1, "dna_ctx_v=1"), ("rough", 0, "dna_rough=0"),
           ("let_pb2", 0, "dna_let_pb2=0"), ("mix_w", 0, "dna_mix_w=0"),
           ("prefix_ramp", False, "dna_prefix_ramp=0"),
           ("pmer_gate", 20, "dna_pmer_gate=20"),
-          ("repair_iters", 3, "dna_repair_iters=3")]
+          ("repair_iters", 3, "dna_repair_iters=3"),
+          ("local_log2_cells", 9, "local_log2_cells=9"),
+          ("local_model_inc", 8, "local_model_inc=8")]
 # sha256 of the reference's modeling outputs of each knob's batch
 # (_knob_digest; test_header_knob_digests_match_the_reference recomputes
 # them): the reference's eager modeling takes 10-15 s a knob on one core
@@ -354,6 +362,10 @@ KNOB_SHA256 = {
         "6247dc4c8d3fc4ed3de8f6ee15124ea65435c61b528c34076efa598ce194c2cf",
     "dna_repair_iters=3":
         "b35e4cec22841220d154d41ff622ec9b09413c65f4249b104146a010cbe2b5ef",
+    "local_log2_cells=9":
+        "f7e27e1d2ddac2f955669a6bd6f9ba8c69eefb4dc1006dbe3f76e6901e639ae4",
+    "local_model_inc=8":
+        "3af73d5c5d91f0e46130e5ae1d45b9430bad4526276644a271afee9447277978",
 }
 
 
@@ -362,7 +374,11 @@ def _knob_batch(knob, value, named):
     of 40 over 8 lanes, SIV 8 with ramp columns 5-6, 2^9-bucket tables
     warmed by two batches; the bench header with the knob set, against
     batch-frozen tables (the batch-frozen pass compiles no scan in the
-    reference) except for the rough knob, the row-global pass's."""
+    reference) except for the rough knob, the row-global pass's. The
+    local knobs: 2^9-cell klocal_* tables beside the K2 cells (and with
+    local_model_inc the DNA model's deltas too), on fresh tables and
+    reads of a 160-base genome, so that the second read row finds the
+    first's k-mers in them."""
     from fqsqueezer_tpu_torch.utils import dna_batches
 
     base = dataclasses.replace(
@@ -372,10 +388,15 @@ def _knob_batch(knob, value, named):
         base = dataclasses.replace(base, row_global=False, rough=0,
                                    local_log2_cells=0)
     cfg = dataclasses.replace(base, **{knob: value})
+    if knob == "local_model_inc":
+        cfg = dataclasses.replace(cfg, local_log2_cells=9)
     if knob == "ctx_v":
         cfg = dataclasses.replace(cfg, rough=0)
     rng = np.random.default_rng(len(named))
     genome, state, _ = dna_batches._warm(cfg, rng, 3, 16, 40, "cpu")
+    if knob.startswith("local"):
+        genome = make_genome(160, len(named))
+        state = dna.dna_state_create(cfg)
     codes, lengths = dna_batches._reads(rng, genome, 16, 40, 7)
     return cfg, state, torch.from_numpy(codes), torch.from_numpy(lengths)
 

@@ -4,11 +4,12 @@ reference.
 An archive's header names the knobs its writer set, and a key the writer
 did not know loads its legacy value (params.Params._HDR_LEGACY), so every
 archive of an earlier writer still decodes. params.HEADER_GENERATIONS
-names the three the port takes besides today's: H0, the first writer
+names the ones the port takes besides today's: H0, the first writer
 (batch-frozen context-keyed table_* tables, ctx v1, no mix or ramp, three
-repairs, id codec v1), H5, the first row-global writer (canonical
-ktable_* tables with u16 counters, ctx v1) and H6 (H5 with ctx v2 and the
-rough rescue).
+repairs, id codec v1), H1-H4 (H0's tables with in-batch local
+statistics, tests/test_torch_local.py; H4 over canonical tables), H5,
+the first row-global writer (canonical ktable_* tables with u16
+counters, ctx v1) and H6 (H5 with ctx v2 and the rough rescue).
 
 The table families' functions are held to the reference's on the same
 inputs, every integer equal: duplicate events in one call, full buckets,
@@ -63,12 +64,24 @@ SPECS = {
     "h0_pe": ("H0", ("-p", "-om", "o", "-qm", "o", "-im", "o"), (32, 48, 9)),
     "h5_se": ("H5", ("-s", "-om", "o", "-qm", "o", "-im", "o"), (64, 48, 11)),
     "h6_se": ("H6", ("-s", "-om", "o", "-qm", "o", "-im", "o"), (24, 48, 13)),
+    # the in-batch local statistics' writers (tests/test_torch_local.py)
+    "h1_se": ("H1", ("-s", "-om", "o", "-qm", "o", "-im", "o"), (64, 48, 15)),
+    "h1_sorted": ("H1", ("-s", "-om", "s", "-qm", "8", "-im", "n"),
+                  (64, 48, 17)),
+    "h2_se": ("H2", ("-s", "-om", "o", "-qm", "o", "-im", "o"), (64, 48, 19)),
+    "h3_se": ("H3", ("-s", "-om", "o", "-qm", "o", "-im", "o"), (64, 48, 21)),
+    "h4_se": ("H4", ("-s", "-om", "o", "-qm", "o", "-im", "o"), (64, 48, 23)),
+    "h4_pe": ("H4", ("-p", "-om", "o", "-qm", "o", "-im", "o"), (32, 48, 25)),
 }
+# the local tables' cells of the H1-H4 fixtures (the header stores it)
+LOCAL_LOG2_CELLS = 10
 # the reference decoder's output, where the decode is not the input (the
 # sorted order without ids)
 DECODE_SHA256 = {
     "h0_sorted":
-        "f000a52e3236d5c17350464721ca299fab537468688d97bcef41938c3a7cb26f"}
+        "f000a52e3236d5c17350464721ca299fab537468688d97bcef41938c3a7cb26f",
+    "h1_sorted":
+        "4092e90d77f29db4ed390698c02962708d27175cd8e051e2dbda94d32699ed20"}
 
 
 def _i64(a):
@@ -257,7 +270,9 @@ def test_load_params_without_knob_keys_is_h0():
 
 
 @pytest.mark.parametrize("gen,family,width", [
-    ("H0", "table", 16), ("H5", "ktable", 6), ("H6", "ktable", 6)])
+    ("H0", "table", 16), ("H5", "ktable", 6), ("H6", "ktable", 6),
+    ("H1", "table", 16), ("H2", "table", 16), ("H3", "table", 16),
+    ("H4", "ktable", 6)])
 def test_header_generations_map_onto_their_table_family(gen, family, width):
     """Each generation's DnaConfig in both packages: the same config, its
     table family, check_supported passes, and the tables at -gs 5 (H0
@@ -271,10 +286,14 @@ def test_header_generations_map_onto_their_table_family(gen, family, width):
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     dna.check_supported(tcfg)
     assert dna.table_family(tcfg)[0::2] == (family, width)
-    log2b = 21 if gen == "H0" else 22
+    log2b = 21 if family == "table" else 22
     assert tcfg.smer_log2_buckets == tcfg.bmer_log2_buckets == log2b
     assert (tcfg.row_global, tcfg.ctx_v, tcfg.rough) == {
-        "H0": (False, 1, 0), "H5": (True, 1, 0), "H6": (True, 2, 1)}[gen]
+        "H0": (False, 1, 0), "H5": (True, 1, 0), "H6": (True, 2, 1)}.get(
+            gen, (False, 1, 0))
+    # H1-H4 keep in-batch local tables (2^22 cells) beside them
+    assert tcfg.local_log2_cells == (22 if gen in ("H1", "H2", "H3", "H4")
+                                     else 0)
 
 
 def _frozen_batch():
@@ -383,7 +402,8 @@ def legacy_params(mod, name, files):
     """The Params a fixture was written with, from the CLI of either
     package: `e FLAGS -gs 1` under the generation's knobs (re-tuned), on a
     tiny geometry: 8 lanes, 64-read batches, 2^10-bucket s/b tables (they
-    grow), SIV cap 7."""
+    grow), SIV cap 7, and local tables (H1-H4) of 2^LOCAL_LOG2_CELLS
+    cells."""
     gen, flags, _ = SPECS[name]
     parse = cli.parse_args if mod is tparams else jcli.parse_args
     p = parse(["e", *flags, "-gs", "1", *files])
@@ -394,6 +414,8 @@ def legacy_params(mod, name, files):
     p.max_batch_reads = 64
     p.smer_log2_buckets = p.bmer_log2_buckets = 10
     p.dna_siv_cap = 7
+    if gen in ("H1", "H2", "H3", "H4"):
+        p.local_log2_cells = LOCAL_LOG2_CELLS
     p.verbosity = 0
     return p
 
@@ -483,7 +505,7 @@ def _chip_smoke():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("row", range(7))
+@pytest.mark.parametrize("row", range(15))
 def test_chip_smoke_legacy_digests(tmp_path, row):
     """chip_smoke.py's [legacy] digests are the reference's: its writer's
     archive of the bench corpus under the row's generation and flags, and

@@ -299,12 +299,15 @@ _D_CASES = [
     ({"dna_mode": jparams.DnaMode.PE_ORIGINAL}, None),
     ({"id_mode": jparams.IdMode.INSTRUMENT}, None),
     ({"mesh_dp": 2}, "routed"),
-    ({"dna_row_global": 0}, "row-global"),
+    ({"dna_row_global": 0}, None),
     ({"id_mode": jparams.IdMode.LOSSLESS, "id_codec_v": 1}, None),
     ({**tparams.HEADER_GENERATIONS["H0"], "mesh_dp": 2,
       "id_mode": jparams.IdMode.LOSSLESS}, (_MESH_SB, "a mesh with id codec v1")),
     ({**tparams.HEADER_GENERATIONS["H5"], "mesh_dp": 2,
       "id_mode": jparams.IdMode.LOSSLESS}, (_MESH_SB,)),
+    ({**tparams.HEADER_GENERATIONS["H1"], "mesh_dp": 2,
+      "id_mode": jparams.IdMode.LOSSLESS},
+     (_MESH_SB, "a mesh with id codec v1")),
 ]
 
 
@@ -312,16 +315,18 @@ _D_CASES = [
     "fields,what", _D_CASES,
     ids=["fields0-quality mode", "fields1-sorted", "fields2-paired-end",
          "fields3-id mode", "fields4-mesh", "fields5-row-global",
-         "fields6-id codec v1", "fields7-mesh H0", "fields8-mesh H5"])
+         "fields6-id codec v1", "fields7-mesh H0", "fields8-mesh H5",
+         "fields9-mesh H1"])
 def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
-    """Each header the port lacks is refused with one line (in-batch local
-    tables: dna_row_global 0 with the default local_log2_cells); the
-    quality and id modes it has (id codec v1 too) decode instead (an
-    archive with no group: an empty FASTQ), and so does a mesh header
-    through the CLI, which routes it to the mesh decode, while
-    pipeline.decompress_file raises the reference's error for it. A mesh
-    header of an older writer (H0, H5) is refused by the mesh decode,
-    through the CLI and mesh_pipeline.decompress_file_mesh alike."""
+    """Each header the port lacks is refused with one line; the quality and
+    id modes it has (id codec v1 too) and the in-batch local tables
+    (dna_row_global 0 with the default local_log2_cells, once refused)
+    decode instead (an archive with no group: an empty FASTQ), and so does
+    a mesh header through the CLI, which routes it to the mesh decode,
+    while pipeline.decompress_file raises the reference's error for it. A
+    mesh header of an older writer (H0, H5, H1) is refused by the mesh
+    decode, through the CLI and mesh_pipeline.decompress_file_mesh
+    alike."""
     arc = _header_only_archive(tmp_path / "a.fqst", **fields)
     if what is None:
         _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
