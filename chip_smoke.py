@@ -92,9 +92,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
                reference's sequential decoder's, K2 launched once a read
                row of each dp shard (dp x the rows a shard walks, expanded
                rows with the anchors) and K3 once a shard and batch with a
-               quality stream. Prints the decode's wall time and reads/s
-               (the fixtures are small) and the copy of the K2 tables each
-               shard decodes against, timed alone.
+               quality stream. Prints the decode's wall time (one call,
+               its first call's costs included: the fixtures are small)
+               and the copy of the K2 tables each shard decodes against,
+               timed alone.
  12. mesh_write — mesh archives written on the card: (a) the two
                committed -gs 5 mesh fixtures (MESH_WRITE_FIXTURES, their
                inputs and Params as the reference's writer had them)
@@ -112,7 +113,27 @@ Phases, one line each; any failure raises and the script exits non-zero:
                The single-step encoders (pipeline._encode_batch, and
                sharded.sharded_encode at 4 x 2) on a tiny batch on the
                card: exactly their CPU outputs, one K1 launch each.
- 13. legacy  — the JAX package's older writers (params.HEADER_GENERATIONS:
+ 13. mesh_legacy — mesh archives of every header a JAX mesh writer
+               stores: (a) the committed fixtures of testdata/mesh_legacy
+               (MESH_LEGACY_FIXTURES: H0 on 2x2 and 2x1 meshes, SE, PE with
+               the anchors off and sorted order; H1 SE and PE with its
+               local tables and deltas per shard; H4 on 4x2; H6 on 2x2;
+               today's header at mesh_route_sb 1 on 2x4, once with nothing
+               dropped and once with the route cap's drop) written on the
+               card from their regenerated inputs, each sha256 the
+               committed file's, K1 once a group, and decoded through the
+               CLI's d to the reference's digests (SHA256SUMS), K2 once a
+               read row of each shard and K3 once a shard and batch —
+               route_drop_dp2tp4's decode failing with the reference's
+               payload checksum error (ROADMAP.md F7); (b) the 100k corpus
+               at -s -om o -qm o -im o -gs 5 under H0 and H4 at -dp 4 -tp 2
+               and under today's header at mesh_route_sb 1, -dp 2 -tp 4
+               (MESH_LEGACY_FULL): compress and decode timed, BYTE-EXACT,
+               peak CUDA memory, the dropped events, each K2 and K3
+               launch's device time; (c) the per-shard copy of the K2
+               tables: timed where the family has a row update (H6,
+               today's), none for the batch-frozen ones (H0, H4).
+ 14. legacy  — the JAX package's older writers (params.HEADER_GENERATIONS:
                H0, the first writer's batch-frozen table_* tables, ctx v1,
                no mix or ramp, three repairs, id codec v1; H1-H4, the same
                with in-batch local statistics: local_* tables of 2^22
@@ -133,7 +154,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                BYTE-EXACT, with the local state's peak memory and zeroing
                time. K1 at least once a group flush, K2 once a read row,
                K3 once a batch.
- 14. k3      — kernel K3 (the quality decode scan) against its plain torch
+ 15. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
@@ -150,7 +171,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                real batch of [legacy]'s H1 archive of the count (-qm o
                original order, -qm 8 sorted order); at 2 and 4 symbols
                random batches only.
- 15. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 16. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -178,7 +199,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound; on the PE batch also the row-end
                PE step (torch ops between K2's launches).
- 16. k2_legacy — K2's instantiations for the older headers
+ 17. k2_legacy — K2's instantiations for the older headers
                (K2_LEGACY: table cells batch-frozen, alone and with the
                local_* tables and with the DNA deltas too; ktable cells
                with the row update under H5 and H6 and batch-frozen, with
@@ -191,7 +212,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                batches of LEGACY's archives; K2, its chain floor, the
                plain row step and the bound timed on the batches of
                LEGACY_TIMED.
- 17. decode  — the 20k archive through the port's CLI `d` with no
+ 18. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -205,8 +226,8 @@ ktable-cell one at H6's, its local-statistics ones at H1's (original and
 sorted order), H2's and H4's, and K3 for each symbol count and with
 deltas) and the result line. K1's launches are those of
 the three timed compresses (the main path's, the sorted row's and the PE
-row's) and of [mesh_write]'s four mesh compresses, K3's for 8 symbols
-those of the two timed SE decodes.
+row's) and of [mesh_write]'s and [mesh_legacy]'s mesh compresses, K3's
+for 8 symbols those of the two timed SE decodes.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
 compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
@@ -411,6 +432,50 @@ MESH_WRITE_CLI = (
     (10_000, ("-p", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5", "-dp",
               "2", "-tp", "1")),
 )
+# [mesh_legacy] (a): the committed fixtures of every header a JAX mesh
+# writer stores (fqsqueezer_tpu_torch/testdata/mesh_legacy, written by the
+# reference's mesh writer; tests/test_torch_mesh_legacy.py's SPECS and
+# fixture_params, copied here: the card has no JAX): (name, header
+# generation (None: today's), kind, order, -qm, -im, (reads or pairs, read
+# length, seed), dp, tp, group budget in bytes (None: the default),
+# mesh_route_sb). Inputs: utils.corpus of a 20,000-base genome, or
+# write_repeat_corpus with MESH_LEGACY_DROP_ODD for route_drop_dp2tp4, whose
+# decode fails as the reference's does (MESH_LEGACY_DROP_ERROR); the
+# decode digests are the fixtures' SHA256SUMS
+MESH_LEGACY_DIR = os.path.join(REPO, "fqsqueezer_tpu_torch", "testdata",
+                               "mesh_legacy")
+MESH_LEGACY_FIXTURES = (
+    ("h0_se_dp2tp2", "H0", "se", "o", "lossless", "lossless", (40, 48, 31),
+     2, 2, 1, 0),
+    ("h0_pe_dp2tp1", "H0", "pe", "o", "lossless", "lossless", (40, 48, 33),
+     2, 1, None, 0),
+    ("h0_sorted_dp2tp1", "H0", "se", "s", "illumina_8", "none",
+     (96, 48, 35), 2, 1, None, 0),
+    ("h1_se_dp2tp1", "H1", "se", "o", "lossless", "lossless", (80, 40, 37),
+     2, 1, 1, 0),
+    ("h1_pe_dp2tp1", "H1", "pe", "o", "lossless", "lossless", (40, 48, 39),
+     2, 1, None, 0),
+    ("h4_se_dp4tp2", "H4", "se", "o", "illumina_8", "lossless",
+     (160, 40, 41), 4, 2, 1, 0),
+    ("h6_se_dp2tp2", "H6", "se", "o", "lossless", "lossless", (80, 32, 43),
+     2, 2, 1, 0),
+    ("route_se_dp2tp4", None, "se", "o", "illumina_8", "lossless",
+     (64, 84, 45), 2, 4, None, 1),
+    ("route_drop_dp2tp4", None, "se", "o", "illumina_8", "lossless",
+     (97, 89, 1), 2, 4, None, 1),
+)
+MESH_LEGACY_DROP_ODD = (14, 15, 30, 31, 60, 61, 62, 63, 92, 93, 94, 95, 96)
+MESH_LEGACY_DROP_ERROR = "payload checksum mismatch (seq mesh decode)"
+# (b): the 100k corpus round-tripped at full width: (header generation
+# (None: today's), mesh_route_sb, flags)
+MESH_LEGACY_FULL = (
+    ("H0", 0, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5", "-dp",
+               "4", "-tp", "2")),
+    ("H4", 0, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5", "-dp",
+               "4", "-tp", "2")),
+    (None, 1, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5", "-dp",
+               "2", "-tp", "4")),
+)
 # (N, r_pl, L, grown tables, short word stream) of the K2 checks on encoded
 # random batches
 K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
@@ -519,6 +584,9 @@ K2_LEGACY = (("table cells, batch-frozen (H0)", "H0", False, {}),
 K2_LEGACY_SHAPES = ((8, 2, 104, False, False), (256, 2, 40, True, True),
                     (2048, 2, 104, False, False))
 K2_LEGACY_SORTED = (256, 2, 104)
+# the K2_LEGACY_SHAPES entry on which each kind is also timed, with its
+# chain floor and bound
+K2_LEGACY_TIMED_SHAPE = (2048, 2, 104, False, False)
 
 
 def bench_params():
@@ -1281,7 +1349,8 @@ def phase_mesh():
                 for k in (1, 2)][:len(want)]
         out_args = ["-out", outs[0]] + (["-out2", outs[1]]
                                         if len(outs) == 2 else [])
-        cli.main(["d", "-v", "0", *out_args, arc])      # warm-up
+        # one decode, its first call's costs included (the fixtures are
+        # small: the time is no throughput figure)
         _reset_launches()
         rc, dt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
         k3, k2 = _launch_counts()
@@ -1300,7 +1369,7 @@ def phase_mesh():
         clone_ms = _ms(lambda: (st.s_tc.clone(), st.b_tc.clone()), 20)
         print(f"[mesh] {name} ({p.mesh_dp}x{p.mesh_tp} mesh, {p.n_lanes} "
               f"lanes, {reads} reads in {batches} batches, a small "
-              f"fixture): the CLI's d {dt:.3f} s, {reads / dt:.1f} reads/s, "
+              f"fixture): the CLI's d {dt:.3f} s (first call), "
               f"sha256 == the reference's sequential decode; K2 launches "
               f"{k2} (dp x shard rows, {k2 / batches:.1f} a batch), K3 "
               f"{k3}; copy of the 2 x {tuple(st.s_tc.shape)} K2 tables "
@@ -1484,6 +1553,265 @@ def phase_mesh_write():
           f"sharded.sharded_encode at 4 x 2) on the card == their CPU "
           f"outputs, exact, one K1 launch each ({n} calls)")
     return k1
+
+
+def _mesh_legacy_params(gen, kind, order, qm, im, route):
+    """A [mesh_legacy] fixture's Params (tests/test_torch_mesh_legacy.py's
+    fixture_params): the CPU geometry of the mesh fixtures (-gs 1 k-mers,
+    16 lanes, 128-read batches, 2^12-bucket s/b tables, SIV cap 7), the
+    generation's knobs with the k-mer geometry re-tuned, 2^10 local cells
+    for H1-H4."""
+    from fqsqueezer_tpu_torch.params import (HEADER_GENERATIONS, DnaMode,
+                                             IdMode, Params, QualityMode)
+
+    p = Params()
+    p.genome_size = 1
+    p.adjust_kmer_sizes()
+    p.dna_mode = {("se", "o"): DnaMode.SE_ORIGINAL,
+                  ("se", "s"): DnaMode.SE_SORTED,
+                  ("pe", "o"): DnaMode.PE_ORIGINAL}[kind, order]
+    p.quality_mode = QualityMode(qm)
+    p.id_mode = IdMode(im)
+    if gen is not None:
+        for k, v in HEADER_GENERATIONS[gen].items():
+            setattr(p, k, v)
+        p.adjust_kmer_sizes()
+    p.n_lanes, p.verbosity, p.max_batch_reads = 16, 0, 128
+    p.smer_log2_buckets = p.bmer_log2_buckets = 12
+    p.dna_siv_cap = 7
+    if gen is None:
+        p.local_log2_cells = 16
+    elif gen in ("H1", "H2", "H3", "H4"):
+        p.local_log2_cells = 10
+    p.mesh_route_sb = route
+    return p
+
+
+def _mesh_legacy_inputs(name, kind, corpus):
+    """A [mesh_legacy] fixture's input file(s), regenerated from its seed."""
+    from fqsqueezer_tpu_torch.utils.corpus import (write_fastq_corpus,
+                                                   write_pe_corpus,
+                                                   write_repeat_corpus)
+
+    n, L, seed = corpus
+    if kind == "pe":
+        paths = [os.path.join(WORK, f"{name}_{k}.fastq") for k in (1, 2)]
+        write_pe_corpus(*paths, n, L, 20_000, seed=seed)
+        return paths
+    path = os.path.join(WORK, f"{name}.fastq")
+    if name == "route_drop_dp2tp4":
+        write_repeat_corpus(path, n, L, seed=seed, odd=MESH_LEGACY_DROP_ODD)
+    else:
+        write_fastq_corpus(path, n, L, 20_000, seed=seed)
+    return [path]
+
+
+def _mesh_legacy_sums():
+    out = {}
+    with open(os.path.join(MESH_LEGACY_DIR, "SHA256SUMS")) as f:
+        for line in f:
+            sha, name = line.split()
+            out[name] = sha
+    return out
+
+
+def _kernel_ms(fn):
+    """fn's result and the device time of each K2 and K3 launch in it:
+    every launch bracketed by CUDA events (a sync after each, so run it
+    apart from a timed run). Returns (result, K2 ms list, K3 ms list)."""
+    import torch
+
+    from fqsqueezer_tpu_torch.streams import dna, quality
+
+    times = {"k2": [], "k3": []}
+    orig = dna._dna_decode_row_cuda, quality._qual_decode_scan_cuda
+
+    def wrap(f, key):
+        def g(*a, **kw):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            out = f(*a, **kw)
+            e1.record()
+            e1.synchronize()
+            times[key].append(e0.elapsed_time(e1))
+            return out
+        return g
+
+    dna._dna_decode_row_cuda = wrap(orig[0], "k2")
+    quality._qual_decode_scan_cuda = wrap(orig[1], "k3")
+    try:
+        out = fn()
+    finally:
+        dna._dna_decode_row_cuda, quality._qual_decode_scan_cuda = orig
+    return out, times["k2"], times["k3"]
+
+
+def phase_mesh_legacy():
+    """Mesh archives of every header a JAX mesh writer stores, on the card.
+    (a) The committed fixtures (MESH_LEGACY_FIXTURES: H0, H1, H4 and H6 on
+    dp x tp meshes, SE, PE and sorted order, and mesh_route_sb at tp 4)
+    written through mesh_pipeline.compress_file_mesh from their
+    regenerated inputs, each archive's sha256 the committed file's, K1 once
+    a group; each decoded through the CLI's d to the reference's digests
+    (SHA256SUMS), K2 once a read row of each shard, K3 once a shard and
+    batch with a quality stream — route_drop_dp2tp4's decode failing as
+    the reference's does. (b) The 100k corpus at full width
+    (MESH_LEGACY_FULL: H0 and H4 at dp 4 x tp 2, today's header at
+    mesh_route_sb 1 and dp 2 x tp 4) compressed and decoded, timed,
+    BYTE-EXACT, with peak CUDA memory, the routed exchange's dropped
+    events, and in a second decode every K2 and K3 launch's device time.
+    (c) The per-shard copy of the K2 tables that remains: timed for the
+    row-global families, none for the batch-frozen ones. Returns K1's
+    launches."""
+    import torch
+
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.io import fastq
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed
+
+    t0 = time.time()
+    sums = _mesh_legacy_sums()
+    k1 = 0
+    for (name, gen, kind, order, qm, im, corpus, dp, tp, budget,
+         route) in MESH_LEGACY_FIXTURES:
+        paths = _mesh_legacy_inputs(name, kind, corpus)
+        p = _mesh_legacy_params(gen, kind, order, qm, im, route)
+        arc = os.path.join(WORK, f"{name}.written.fqst")
+        kw = {} if budget is None else {"group_mem_bytes": budget}
+        data = None
+        if kind == "pe":
+            data = pipeline.interleave_pe(*(fastq.read_fastq(f)
+                                            for f in paths))
+        _reset_launches()
+        st, dt = timed(lambda: mesh_pipeline.compress_file_mesh(
+            p, paths[0], arc, dp=dp, tp=tp, data=data, **kw))
+        launches = rans.K1_LAUNCHES
+        k1 += launches
+        groups = _n_groups(arc, p.n_lanes)
+        sha = _sha256(arc)
+        want = _sha256(os.path.join(MESH_LEGACY_DIR, f"{name}.fqst"))
+        if sha != want or launches != groups:
+            raise RuntimeError(f"mesh_legacy {name}: sha256 {sha} (the "
+                               f"reference's {want}), K1 launched "
+                               f"{launches} times for {groups} groups")
+        outs = [os.path.join(WORK, f"{name}.dec_{k}.fastq")
+                for k in (1, 2)][:len(paths)]
+        out_args = ["-out", outs[0]] + (["-out2", outs[1]]
+                                        if len(outs) == 2 else [])
+        _reset_launches()
+        try:
+            rc = cli.main(["d", "-v", "0", *out_args, arc])
+        except SystemExit as e:
+            rc = e.code
+        k3, k2 = _launch_counts()
+        _, batches, rows, k3_want, _ = _mesh_rows(arc)
+        if name == "route_drop_dp2tp4":
+            if rc != f"error: {MESH_LEGACY_DROP_ERROR}":
+                raise RuntimeError(f"mesh_legacy {name}: the CLI's d gave "
+                                   f"{rc!r}, not the reference's "
+                                   f"{MESH_LEGACY_DROP_ERROR!r}")
+            how = f"d fails as the reference's: {MESH_LEGACY_DROP_ERROR}"
+        else:
+            names = ([f"{name}_1.fastq", f"{name}_2.fastq"] if kind == "pe"
+                     else [f"{name}.fastq"])
+            got = [_sha256(o) for o in outs]
+            if rc != 0 or got != [sums[n] for n in names]:
+                raise RuntimeError(f"mesh_legacy {name}: the CLI's d "
+                                   f"returned {rc}, sha256 {got} != the "
+                                   f"reference's")
+            how = "d sha256 == the reference's sequential decode"
+        if k2 != rows or k3 != k3_want:
+            raise RuntimeError(f"mesh_legacy {name}: K2 launched {k2} times "
+                               f"for {rows} shard rows, K3 {k3} (want "
+                               f"{k3_want})")
+        print(f"[mesh_legacy] {name} ({gen or 'today'}, {dp}x{tp}, "
+              f"route_sb {route}): compress_file_mesh {dt:.3f} s, sha256 == "
+              f"the reference mesh writer's, {st['route_dropped']} events "
+              f"dropped by the route cap, K1 {launches} for {groups} "
+              f"groups; {how}; K2 {k2} (dp x shard rows), K3 {k3}")
+
+    for gen, route, flags in MESH_LEGACY_FULL:
+        src = _corpus(FULL_READS)[0]
+        dp, tp = (int(flags[flags.index(f) + 1]) for f in ("-dp", "-tp"))
+        p = cli.parse_args(["e", *flags, "-v", "0", src])
+        if gen is not None:
+            from fqsqueezer_tpu_torch.params import header_generation
+
+            header_generation(p, gen)
+        p.mesh_route_sb = route
+        tag = f"mesh_legacy_{gen or 'today'}_r{route}_{dp}x{tp}"
+        arc = os.path.join(WORK, f"{tag}.fqst")
+        out = os.path.join(WORK, f"{tag}.dec.fastq")
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        st, c_dt = timed(lambda: mesh_pipeline.compress_file_mesh(
+            p, src, arc, dp=dp, tp=tp))
+        peak_e = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = rans.K1_LAUNCHES
+        k1 += launches
+        groups = _n_groups(arc, p.n_lanes)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rc, d_dt = timed(lambda: cli.main(["d", "-v", "0", "-out", out,
+                                           arc]))
+        peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
+        k3, k2 = _launch_counts()
+        _, batches, rows, k3_want, reads = _mesh_rows(arc)
+        if rc != 0 or _sha256(out) != _sha256(src):
+            raise RuntimeError(f"mesh_legacy `{' '.join(flags)}` under "
+                               f"{gen or 'today'}: d returned {rc}, or the "
+                               f"decode differs from the input")
+        if launches != groups or k2 != rows or k3 != k3_want:
+            raise RuntimeError(f"mesh_legacy {tag}: K1 launched {launches} "
+                               f"times for {groups} groups, K2 {k2} for "
+                               f"{rows} shard rows, K3 {k3} (want "
+                               f"{k3_want})")
+        _, k2_ms, k3_ms = _kernel_ms(lambda: cli.main(
+            ["d", "-v", "0", "-out", out, arc]))
+        print(f"[mesh_legacy] 100k `e {' '.join(flags)}` under "
+              f"{gen or 'today'}'s header, mesh_route_sb {route} "
+              f"({p.n_lanes} lanes a shard, {reads} reads in {batches} "
+              f"batches): compress {reads / c_dt:.1f} reads/s ({c_dt:.3f} s, "
+              f"peak {peak_e:.3f} GiB, K1 {launches} for {groups} groups, "
+              f"{st['route_dropped']} events dropped by the route cap); d "
+              f"{reads / d_dt:.1f} reads/s ({d_dt:.3f} s, peak "
+              f"{peak_d:.3f} GiB); BYTE-EXACT; K2 {k2} launches "
+              f"({sum(k2_ms):.3f} ms of device time, "
+              f"{sum(k2_ms) / max(1, len(k2_ms)):.4f} ms a shard row), K3 "
+              f"{k3} ({sum(k3_ms):.3f} ms, "
+              f"{sum(k3_ms) / max(1, len(k3_ms)):.4f} ms a shard and "
+              f"batch), each launch timed by CUDA events in a second d")
+
+    for gen in ("H0", "H4", "H6", None):
+        p = cli.parse_args(["e", "-gs", "5", "-v", "0", "x"])
+        if gen is not None:
+            from fqsqueezer_tpu_torch.params import header_generation
+
+            header_generation(p, gen)
+        dcfg = pipeline.make_configs(p)[0]
+        st = pipeline.state_create(dcfg, None, None, "cuda").dna
+        if dcfg.row_global:
+            ms = _ms(lambda: (st.s_tc.clone(), st.b_tc.clone()), 20)
+            what = (f"copied a shard and batch: 2 x "
+                    f"{tuple(st.s_tc.shape)} in {ms:.4f} ms")
+        else:
+            what = "not copied (batch-frozen: K2 reads the state's)"
+        print(f"[mesh_legacy] the K2 tables under {gen or 'today'}'s header "
+              f"at -gs 5 ({_table_kind(dcfg)}): {what}")
+        del st
+    torch.cuda.synchronize()
+    print(f"[mesh_legacy] the phase took {time.time() - t0:.1f} s")
+    return k1
+
+
+def _table_kind(dcfg):
+    """The s/b table family of dcfg and its update mode, in words."""
+    from fqsqueezer_tpu_torch.streams import dna
+
+    return dna.table_family(dcfg)[0] + (" row-global" if dcfg.row_global
+                                        else " batch-frozen")
 
 
 def phase_verify():
@@ -1934,11 +2262,21 @@ def phase_k2_legacy():
                 bmer_log2_buckets=db.LOG2_BUCKETS, **knobs)
             if frozen:
                 cfg = dataclasses.replace(cfg, row_global=False, rough=0)
-            k2c.check_rows(*db.dna_decode_inputs(
+            rows = k2c.check_rows(*db.dna_decode_inputs(
                 40 + seed, N, r_pl, L, "cuda", grow, short, cfg=cfg), L,
                 what=f"{name} N={N} r_pl={r_pl} L={L} grown={grow} "
                      f"short={short}")
             n_checks += 1
+            if (N, r_pl, L, grow, short) == K2_LEGACY_TIMED_SHAPE:
+                # the kinds no archive's batch times: K2 on the random
+                # batch, its chain floor and its bound
+                ms = k2c.replay_ms([a for a, _ in rows], reps=20)
+                floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
+                bound_ms, bound_by = k2c.k2_bound_ms(rows)
+                print(f"[k2] {name}, a random batch (N={N}, {r_pl} rows, "
+                      f"L={L}): K2 {ms:.4f} ms a batch, chain floor "
+                      f"({k2c.CHAIN_LANES} lanes) {floor_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms by {bound_by}")
         N, r_pl, L = K2_LEGACY_SORTED
         cfg = dataclasses.replace(cfg, n_lanes=N)
         *batch, lcp = db.dna_decode_inputs(50, N, r_pl, L, "cuda",
@@ -2092,6 +2430,7 @@ def main() -> int:
     phase_resume()
     phase_mesh()
     mesh_k1 = phase_mesh_write()
+    mesh_k1 += phase_mesh_legacy()
     legacy_k2, legacy_k3 = phase_legacy()
     k3 = phase_k3()
     k2 = phase_k2()

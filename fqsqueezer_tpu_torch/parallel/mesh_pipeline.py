@@ -5,10 +5,15 @@ The reference package writes an archive over a dp x tp mesh of devices
 dp contiguous shards, each shard codes every stream in its own rANS lane
 group, and the archive stores each (shard, stream) pair as a stream entry
 of the group, shard-major, with the mesh in the header. Every shard models
-its batch against the batch-frozen state (its row loop carrying its own
-copy of the s/b tables), and the state then evolves once from the whole
-batch — the shards' events gathered, the s/b tables replayed row block by
-row block.
+its batch against the batch-frozen state (a row-global row loop carrying
+its own copy of the s/b tables; in-batch local statistics, H1-H4, its
+own), and the state then evolves once from the whole batch — the shards'
+events gathered: batch-frozen s/b tables take the batch's events,
+row-global ones are replayed row block by row block, or under
+mesh_route_sb take the owner-routed exchange's capped lists
+(sharded.sb_routed_updates). It takes every header a reference mesh
+writer stores: today's, and the older writers' (params.HEADER_GENERATIONS
+H0-H6, id codec v1 among them).
 
 This module writes such an archive on one device (compress_file_mesh,
 compress_pe_mesh): the shards of a batch in turn (sharded.sharded_model),
@@ -18,15 +23,17 @@ words are cut by shard and batch (rans.rans_encode_shards). The bytes are
 the reference mesh writer's. It decodes one as the reference does with
 fewer devices than the mesh (decompress_file_mesh_seq): the shards in
 turn against the frozen state (_seq_decode_shard; the DNA scan with
-dna_decode_batch(apply_update=False), so each shard's rows update a
-private copy of the s/b tables, on a CUDA device one K2 launch a read row
-of the shard, and K3 once a shard and batch), then one state update from
-the gathered shards (pipeline.collect_batch, the writer's), and at each
-group end the mesh's table maintenance (_maintenance_local: no growth —
-mesh tables are presized — and the mesh's SIV prune rule). The output is
-the reference's, byte for byte. The mesh across several cards (NCCL) is
-not ported: on one card the tp axis changes no value, so it only rides
-the header.
+dna_decode_batch(apply_update=False): on a CUDA device one K2 launch a
+read row of the shard, row-global rows updating a private copy of the s/b
+tables, batch-frozen ones reading the state's; K3 once a shard and batch,
+with H1's deltas its own), then one state update from the gathered shards
+(pipeline.collect_batch, the writer's, with the replicated exchange even
+under mesh_route_sb, as the reference's sequential decode has it), and at
+each group end the mesh's table maintenance (_maintenance_local: no
+growth — mesh tables are presized — the u16 counters' clamp, and the
+mesh's SIV prune rule). The output is the reference's, byte for byte. The
+mesh across several cards (NCCL) is not ported: on one card the tp axis
+changes no value but the routed exchange's caps, so it rides the header.
 """
 from __future__ import annotations
 
@@ -91,6 +98,7 @@ def compress_file_mesh(p: Params, in_path: str, out_path: str, dp: int,
     N = p.n_lanes
     align = dp * N * (2 if is_pe else 1)   # PE: pairs never straddle a lane
 
+    drops = []         # the routed exchange's dropped events, a batch each
     group_fc = []      # per batch: [(f, c) [T, dp * N] per stream]
     group_meta = []    # per batch: (take, L)
     group_bytes = group_crc = group_idx = 0
@@ -149,10 +157,10 @@ def compress_file_mesh(p: Params, in_path: str, out_path: str, dp: int,
                                  + [b""] * (padded - take),
                                  ids.mesh_read_lanes(padded, dp, N),
                                  icfg.n_fields, icfg.max_id_len, id_chain,
-                                 n_valid=take))
+                                 n_valid=ids.host_n_valid(icfg, take)))
         grids, state = sharded.sharded_model(
             dcfg, qcfg, mcfg, icfg, state, to_dev(codes), qsyms,
-            to_dev(lengths), id_batch, take, dp)
+            to_dev(lengths), id_batch, take, dp, tp=tp, drops=drops)
         L = codes.shape[1]
         group_crc = base.payload_crc(group_crc, np.where(
             np.arange(L)[None, :] < lengths[:take, None], codes[:take],
@@ -173,7 +181,8 @@ def compress_file_mesh(p: Params, in_path: str, out_path: str, dp: int,
     return {"n_reads": data.n_reads, "out_bytes": out_bytes,
             "in_bytes": in_bytes,
             "bits_per_base": 8.0 * out_bytes / max(1, int(
-                data.lengths.sum()))}
+                data.lengths.sum())),
+            "route_dropped": int(sum(drops)) if drops else 0}
 
 
 def compress_pe_mesh(p: Params, in1: str, in2: str, out_path: str, dp: int,
@@ -198,29 +207,13 @@ def compress_pe_mesh(p: Params, in1: str, in2: str, out_path: str, dp: int,
     return stats
 
 
-def mesh_unported(p: Params) -> list:
-    """What a mesh header asks for that this package cannot write or
-    decode: pipeline.unported_archive's list, and one entry for a header
-    of the older writers (s/b tables other than row-global K2 cells, or id
-    codec v1), which single-device archives take but mesh ones do not
-    yet."""
-    missing = base.unported_archive(p)
-    dcfg = base.make_configs(p)[0]
-    if not (dcfg.row_global and dcfg.canon and dcfg.sb_proto):
-        missing.append("a mesh with s/b tables other than row-global K2 "
-                       "cells (dna_row_global, dna_canon, dna_sb_proto)")
-    if p.id_mode != IdMode.NONE and p.id_codec_v < 2:
-        missing.append(f"a mesh with id codec v{p.id_codec_v}")
-    return missing
-
-
 def _mesh_setup(p: Params, dp: int, tp: int, device) -> torch.device:
     """Set the mesh in the Params (it gates make_configs' knobs: the PE
     anchors, route_sb), refuse with one line (ValueError) what the port
     lacks or the mesh cannot shard, and resolve the device — all before
     the input is read."""
     p.mesh_dp, p.mesh_tp = dp, tp
-    missing = mesh_unported(p)
+    missing = base.unported_modes(p)
     if missing:
         raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
                          + ", ".join(missing))
@@ -275,10 +268,11 @@ def decompress_file_mesh_seq(p_cli: Params, in_path: str, out_path: str,
     reader = archive.ArchiveReader(in_path)
     try:
         p = Params.load_params(reader.header_blob, base=p_cli)
-        missing = mesh_unported(p)
+        missing = base.unported_modes(p)
         if missing:
             raise ValueError(", ".join(missing) + " not yet ported to "
                              "fqsqueezer_tpu_torch")
+        sharded.check_mesh(base.make_configs(p)[0], p.mesh_dp, p.mesh_tp)
         device = base.resolve_device(device)
         writers = [fastq.FastqWriter(out_path)]
         try:
@@ -329,8 +323,10 @@ def _seq_decode_shard(dcfg, qcfg, mcfg, icfg, R_shard: int, L: int,
     qsyms = q_out = None
     if qcfg is not None:
         q_w, q_x = rest_w.pop(0), rest_x.pop(0)
-        # the scan alone (K3 on a CUDA device): the shard's model update
-        # would be dropped, the gathered batch's is collect_batch's
+        # the scan alone (K3 on a CUDA device; under H1 with the shard's
+        # own in-batch deltas, zeroed for this call): the shard's model
+        # update would be dropped, the gathered batch's is collect_batch's,
+        # on qual_modeling's (ctx, syms, active)
         syms, q_x, _ = quality.qual_decode_scan(
             qcfg, state.qual, lengths.to(torch.int32).contiguous(), q_w, q_x,
             L)
@@ -358,7 +354,9 @@ def _seq_decode_shard(dcfg, qcfg, mcfg, icfg, R_shard: int, L: int,
 def _maintenance_local(dcfg):
     """The mesh's group-boundary table maintenance on one device — the
     reference's _maintenance_local, not pipeline.grow_tables: no growth
-    (mesh tables are presized), the K2 clamp (a no-op), and the SIV pruned
+    (mesh tables are presized, whatever their family), the canonical
+    tables' clamp (ktable_* u16 counters; a no-op on K2 cells), and the
+    SIV pruned
     when its nonzero counters exceed (4 * words * SIV_PRUNE_NUM) //
     SIV_PRUNE_DEN. Returns the step, DnaState -> DnaState."""
 
@@ -450,7 +448,7 @@ def _decode_mesh_groups(p: Params, reader, writers, device, start_group,
                 id_out = ids.decode_ids_host(
                     *(a.cpu().numpy() for a in id_g),
                     ids.mesh_read_lanes(padded, dp, N), id_chain,
-                    n_valid=take)[:take]
+                    n_valid=ids.host_n_valid(icfg, take))[:take]
             # PE: even reads to mate 1's file, odd reads to mate 2's
             for k, writer in enumerate(writers):
                 writer.write_batch(

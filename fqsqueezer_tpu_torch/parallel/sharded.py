@@ -6,8 +6,11 @@ each shard is modeled against the batch-frozen state (its DNA row loop
 carrying its own copy of the s/b tables, which is then dropped) and codes
 every stream in its own N rANS lanes; the shards' events are gathered and
 every device evolves the state once from the whole batch. The tp axis
-shards the s/b tables and the SIV by rows, and its finds sum the shards'
-answers to the local one, so it changes no value.
+shards the s/b tables and the SIV by rows: its finds sum the shards'
+answers to the local one, and each owner applies the events of its rows,
+so with the replicated exchange it changes no value. With the
+owner-routed exchange (mesh_route_sb, sb_routed_updates) it does: each
+owner takes at most route_cap events a dp shard and row block.
 
 Here the shards run in turn on one device (sharded_model): each through
 pipeline._model_rows against the frozen state, then one
@@ -16,14 +19,17 @@ update the sequential mesh decode replays (parallel.mesh_pipeline). A
 stream's grid is the shards' [T, N] grids side by side, [T, dp * N], so
 one walk codes every shard (rans.rans_encode_shards): one K1 launch a
 group flush on a CUDA device, or for the single-step encode
-(sharded_encode, rans.rans_encode_fresh) one a batch.
+(sharded_encode, rans.rans_encode_fresh) one a batch. Under
+mesh_route_sb the batch's s/b tables take the routed exchange's capped
+event lists (sb_routed_updates) in place of the replicated replay.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import pipeline as base
-from ..ops import rans
+from ..ops import rans, tables
+from ..streams import common, dna
 
 
 def shard_n_valid(take: int, R_shard: int, s: int) -> int:
@@ -46,6 +52,69 @@ def check_mesh(dcfg, dp: int, tp: int) -> None:
             f"{sizes[2]} words over tp")
 
 
+def route_cap(n_events: int, n_tp: int) -> int:
+    """The owner-routed exchange's event capacity a dp shard, tp owner and
+    row block, of n_events events a shard and row block: twice the
+    uniform-hash share, rounded up to 512, never above n_events — the
+    reference's _route_cap. At n_tp <= 2 it is n_events: nothing drops."""
+    if n_tp <= 1:
+        return n_events
+    want = -(-2 * n_events // n_tp)
+    return min(n_events, -(-want // 512) * 512)
+
+
+def sb_routed_updates(dcfg, s_tc, b_tc, kcodes, active, dp: int, tp: int):
+    """The owner-routed s/b update exchange (mesh_route_sb) on one device:
+    the reference's sb_routed_updates. kcodes, active: [dp * R_shard, L],
+    the batch's DNA rows (repaired k-mer codes and in-length mask), shard
+    after shard. Each shard's rows are cut into blocks of n_lanes / dp
+    lanes, so that block rd of every shard holds the reads of global row
+    rd; a block's canonical insert events (dna.sb_canon_events) that fall
+    in tp owner t's bucket range keep their order, and past route_cap of
+    them the rest drop. Every global row then takes the kept events of
+    all shards and owners in one update (tables.ktable_update, K2 cells
+    through k2_update) — the reference's per-owner updates, since owners'
+    bucket ranges are disjoint and an update decides bucket by bucket.
+    Returns (s_tc, b_tc, the dropped events as a 0-d int64 tensor)."""
+    N = dcfg.n_lanes
+    if N % dp:
+        raise ValueError(f"the routed exchange needs n_lanes ({N}) "
+                         f"divisible by dp ({dp})")
+    rows = [(common.to_row_blocks(k, N // dp), common.to_row_blocks(a,
+                                                                    N // dp))
+            for k, a in zip(kcodes.chunk(dp), active.chunk(dp))]
+    n_rows = rows[0][0].shape[0]
+    dropped = torch.zeros((), dtype=torch.int64, device=kcodes.device)
+
+    def route(tc, k, log2b):
+        nonlocal dropped
+        owner_rows = tc.shape[0] // tp
+        kept = []
+        for kc_r, act_r in rows:                 # shard by shard
+            L = kc_r.shape[2]
+            bkt, tag, valid = (x.reshape(n_rows, -1) for x in
+                               dna.sb_canon_events(
+                                   dcfg, kc_r.reshape(-1, L),
+                                   act_r.reshape(-1, L), k, log2b))
+            cap = route_cap(bkt.shape[1], tp)
+            owner = bkt // owner_rows
+            rank = torch.zeros_like(bkt)
+            for t in range(tp):
+                own = valid & (owner == t)
+                rank = torch.where(own, torch.cumsum(own.to(torch.int64),
+                                                     dim=1) - 1, rank)
+            dropped = dropped + (valid & (rank >= cap)).sum()
+            kept.append((bkt, tag, valid & (rank < cap) & (tag != 0)))
+        for rd in range(n_rows):
+            tc = tables.ktable_update(
+                tc, *(torch.cat([e[j][rd] for e in kept]) for j in range(3)),
+                log2_base=log2b)
+        return tc
+
+    return (route(s_tc, dcfg.smer_len, dcfg.smer_log2_buckets),
+            route(b_tc, dcfg.bmer_len, dcfg.bmer_log2_buckets), dropped)
+
+
 def cat_shards(parts):
     """Concatenate the shards' outputs along the reads, leaf by leaf
     (None stays None)."""
@@ -58,14 +127,17 @@ def cat_shards(parts):
 
 def sharded_model(dcfg, qcfg, mcfg, icfg, state: base.CodecState,
                   codes: torch.Tensor, qsyms, lengths: torch.Tensor,
-                  id_batch, take: int, dp: int, kcodes=None):
+                  id_batch, take: int, dp: int, kcodes=None, tp: int = 1,
+                  drops: list | None = None):
     """One batch's mesh modeling step: the reference's make_sharded_model.
     codes (and kcodes, default codes with N as 0): [R, L] int64, R a
     multiple of dp x n_lanes; qsyms: [R, L] int64 or None; lengths: [R];
     id_batch: the encode_ids_host planes (mesh_read_lanes) as tensors, or
-    (); take: the batch's real reads. Returns ([(freq, cum) int32 [T, dp *
-    N] per stream, archive order], new state); `state` is left as it
-    was."""
+    (); take: the batch's real reads; tp: the mesh's table shards, which
+    the routed exchange (dcfg.route_sb) owns by; drops: a list that takes
+    the routed exchange's dropped events (a 0-d tensor a batch). Returns
+    ([(freq, cum) int32 [T, dp * N] per stream, archive order], new
+    state); `state` is left as it was."""
     R_shard = codes.shape[0] // dp
     grids, events = [], []
     for s in range(dp):
@@ -80,12 +152,24 @@ def sharded_model(dcfg, qcfg, mcfg, icfg, state: base.CodecState,
         events.append(ev)
     side_by_side = [tuple(torch.cat([g[si][k] for g in grids], dim=1)
                           for k in (0, 1)) for si in range(len(grids[0]))]
-    return side_by_side, base.collect_batch(dcfg, state, *cat_shards(events),
-                                            codes, lengths)
+    events = cat_shards(events)
+    new = base.collect_batch(dcfg, state, *events, codes, lengths,
+                             skip_sb=bool(dcfg.route_sb))
+    if dcfg.route_sb:
+        _, eff, d_lengths = events[1][:3]
+        pos = torch.arange(eff.shape[1], device=eff.device)[None, :]
+        s_tc, b_tc, dropped = sb_routed_updates(
+            dcfg, state.dna.s_tc, state.dna.b_tc, eff,
+            pos < d_lengths[:, None], dp, tp)
+        new = new._replace(dna=new.dna._replace(s_tc=s_tc, b_tc=b_tc))
+        if drops is not None:
+            drops.append(dropped)
+    return side_by_side, new
 
 
 def sharded_encode(dcfg, qcfg, mcfg, icfg, state: base.CodecState, codes,
-                   kcodes, lengths, qsyms, id_batch, take: int, dp: int):
+                   kcodes, lengths, qsyms, id_batch, take: int, dp: int,
+                   tp: int = 1):
     """The single-step mesh encode (the reference's make_sharded_encode):
     sharded_model, then every shard of every stream coded from fresh lanes
     in one walk a stream, all in one K1 launch on a CUDA device. Returns
@@ -93,8 +177,8 @@ def sharded_encode(dcfg, qcfg, mcfg, icfg, state: base.CodecState, codes,
     qual, new state): words shard-major, shard s's the n_words[s] after
     those of the shards before it; an absent stream has no words or
     states and n_words 0. codes, kcodes, lengths, qsyms, id_batch: as
-    pipeline._encode_batch takes them. SE only, as in the reference (no
-    pe slot)."""
+    pipeline._encode_batch takes them; tp as sharded_model takes it. SE
+    only, as in the reference (no pe slot)."""
     if dcfg.pe_log2_buckets > 0:
         raise ValueError("single-step sharded encode has no pe-stream slot; "
                          "use sharded_model and rans.rans_encode_shards (the "
@@ -103,7 +187,7 @@ def sharded_encode(dcfg, qcfg, mcfg, icfg, state: base.CodecState, codes,
         qcfg, icfg, codes, kcodes, lengths, qsyms, id_batch)
     grids, new_state = sharded_model(dcfg, qcfg, mcfg, icfg, state, codes,
                                      qsyms, lengths, id_batch, take, dp,
-                                     kcodes)
+                                     kcodes, tp)
     coded = rans.rans_encode_fresh(grids, dcfg.scale_bits, dp)
     empty = (codes.new_zeros((0,), dtype=torch.int32),
              codes.new_zeros((dp,)), codes.new_zeros((0,)))

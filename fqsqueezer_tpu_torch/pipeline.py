@@ -55,14 +55,10 @@ class CodecState(NamedTuple):
 
 
 def unported_modes(p: Params) -> list:
-    """Names of the Params' modes this package can neither write nor
-    decode: a mesh's owner-routed s/b exchange (mesh_route_sb > 0, which
-    no entry point of either package sets)."""
-    out = []
-    if p.mesh_route_sb > 0 and p.mesh_dp * p.mesh_tp > 1:
-        out.append("mesh_route_sb > 0 (a mesh's owner-routed s/b update "
-                   "exchange)")
-    return out
+    """What the Params (or a loaded archive header) ask for that this
+    package can neither write nor decode: the header knobs whose code
+    paths it lacks (dna.unsupported), one entry each."""
+    return dna.unsupported(make_configs(p)[0])
 
 
 def make_configs(p: Params):
@@ -799,19 +795,6 @@ def compress_file(p: Params, in_path: str, out_path: str,
     }
 
 
-def unported_archive(p: Params) -> list:
-    """What a loaded archive header asks for that this package cannot
-    decode: unported_modes, and header knobs whose code paths the port
-    lacks (dna.check_supported). A mesh header is decoded, by
-    parallel.mesh_pipeline."""
-    missing = unported_modes(p)
-    try:
-        dna.check_supported(make_configs(p)[0])
-    except NotImplementedError as e:
-        missing.append(str(e).split(": ", 1)[-1])
-    return missing
-
-
 def decompress_file(p_cli: Params, in_path: str, out_path: str,
                     out_path2: str | None = None, start_group: int = 0,
                     init_state: Optional[CodecState] = None,
@@ -836,7 +819,7 @@ def decompress_file(p_cli: Params, in_path: str, out_path: str,
             raise ValueError(
                 f"archive was written on a {p.mesh_dp}x{p.mesh_tp} mesh — "
                 f"use parallel.mesh_pipeline.decompress_file_mesh")
-        missing = unported_archive(p)
+        missing = unported_modes(p)
         if missing:
             raise ValueError(", ".join(missing) + " not yet ported to "
                              "fqsqueezer_tpu_torch")

@@ -166,9 +166,9 @@ class DnaConfig:
     let_pb2: int = 0
 
 
-def check_supported(cfg: DnaConfig) -> None:
-    """Raise, one entry for each, for configurations whose code paths are
-    not ported yet (ROADMAP.md lists them)."""
+def unsupported(cfg: DnaConfig) -> list:
+    """The knobs of cfg whose code paths are not ported yet, one entry
+    each (ROADMAP.md lists them)."""
     missing = []
     if cfg.row_global and not cfg.canon:
         missing.append("dna_canon=0 with dna_row_global=1 (row-global "
@@ -177,6 +177,12 @@ def check_supported(cfg: DnaConfig) -> None:
         missing.append("dna_sorted_ctx=1 (sorted-mode position contexts)")
     if cfg.pe_pos_ctx:
         missing.append("dna_pe_pos_ctx=1 (paired-end position contexts)")
+    return missing
+
+
+def check_supported(cfg: DnaConfig) -> None:
+    """Raise, one line, for a configuration with unsupported knobs."""
+    missing = unsupported(cfg)
     if missing:
         raise NotImplementedError(
             "not ported to fqsqueezer_tpu_torch: " + ", ".join(missing))
@@ -1608,8 +1614,9 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     holds the batch's starting tables.
 
     apply_update=False (the mesh decode: one dp shard against the
-    batch-frozen state): the rows read and update a private copy of the
-    s/b tables, made for this call, so the given state is left as it was;
+    batch-frozen state): row-global rows read and update a private copy
+    of the s/b tables, made for this call (batch-frozen ones only read the
+    state's), so the given state is left as it was;
     the returned state is the given one with those copies after the
     batch's rows, as the reference's (no model, SIV or pair-table update:
     the caller collects the batch's statistics itself, dna_collect_updates
@@ -1650,7 +1657,8 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     ptr = torch.zeros((), dtype=torch.int64, device=dev)
     regs = torch.zeros((K2_NREGS, N), dtype=torch.int64, device=dev)
     s_tc, b_tc = state.s_tc, state.b_tc
-    if not apply_update:
+    if not apply_update and cfg.row_global:
+        # only the row update writes the tables (batch-frozen ones are read)
         s_tc, b_tc = s_tc.clone(), b_tc.clone()
     if with_pe:
         pe_tbl = state.pe[:4]

@@ -5,7 +5,8 @@ reads sampled from a random genome, or from one with real-genome-like
 structure (the bench's se_real row), and mate pairs from both ends of
 fragments (write_pe_corpus, the bench's PE row), with sequencing errors,
 occasional N's, and Illumina-like quality profiles. The same seed gives
-the same file bytes as the reference package's generators.
+the same file bytes as the reference package's generators. One more is
+the port's own: a low-complexity corpus (write_repeat_corpus).
 """
 from __future__ import annotations
 
@@ -142,3 +143,26 @@ def write_fastq_corpus_realistic(path: str, n_reads: int, read_len: int,
     lengths = np.full(n_reads, read_len, np.int32)
     ids = [f"SIM.{i} {i} length={read_len}".encode() for i in range(n_reads)]
     write_fastq(path, codes.astype(np.uint8), quals, lengths, ids)
+
+
+def write_repeat_corpus(path: str, n_reads: int, read_len: int,
+                        seed: int = 0, odd=()) -> None:
+    """A low-complexity corpus: every read one base repeated (poly-A),
+    except the reads at the indices `odd`, which are windows of one
+    random sequence of twice read_len bases drawn from `seed` (so their
+    k-mers recur). Poly-A k-mers all fall in one table bucket, so a batch
+    of such reads loads one bucket range with most of its s/b events (the
+    owner-routed exchange's worst case)."""
+    from ..io.fastq import write_fastq
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 2 * read_len, dtype=np.int8)
+    odd = list(odd)
+    starts = rng.integers(0, read_len + 1, len(odd))
+    codes = np.zeros((n_reads, read_len), np.uint8)
+    for r, s0 in zip(odd, starts):
+        codes[r] = genome[s0:s0 + read_len]
+    quals = rng.integers(20, 41, (n_reads, read_len)).astype(np.uint8)
+    lengths = np.full(n_reads, read_len, np.int32)
+    ids = [f"SIM.{i} {i}".encode() for i in range(n_reads)]
+    write_fastq(path, codes, quals, lengths, ids)

@@ -165,20 +165,20 @@ def test_cli_writes_and_decodes_a_mesh_archive(tmp_path, monkeypatch):
         got.quals, np.where(in_len, rev[fwd[ref.quals]], 0))
 
 
-_MESH_SB = "a mesh with s/b tables other than row-global K2 cells"
-
-
-@pytest.mark.parametrize("case", ["route_sb", "tp3", "H0", "H5", "H6"])
+@pytest.mark.parametrize("case", ["route_sb", "tp3", "H0", "H5", "H6",
+                                  "canon0_rg"])
 def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
                                                        monkeypatch, case):
-    """mesh_route_sb > 0 (the owner-routed s/b exchange, which no entry
-    point sets), a tp that does not divide the s/b tables' rows and
-    the SIV's words, and an older writer's header knobs (HEADER_GENERATIONS:
-    s/b tables other than K2 cells; H0's id codec v1 too) exit 1 with one
-    line, before any input is read; the writer itself raises the same
-    ValueError."""
+    """A tp that does not divide the s/b tables' rows and the SIV's words
+    (-tp 3) exits 1 with one line naming it, before any input is read,
+    whatever the header: today's, with mesh_route_sb (the owner-routed
+    s/b exchange), or an older writer's knobs (HEADER_GENERATIONS H0, H5,
+    H6), which the mesh writer once refused themselves and now writes, so
+    the line names the tp alone. So does a knob no writer stored
+    (dna_canon=0 with dna_row_global=1), at a tp that divides. The writer
+    itself raises the same ValueError."""
     parse = _tiny_geometry(cli.parse_args)
-    tp = "3" if case == "tp3" else "1"
+    tp = "1" if case == "canon0_rg" else "3"
     im = "o" if case.startswith("H") else "n"
 
     def parse_args(argv):
@@ -186,6 +186,9 @@ def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
         p.mesh_route_sb = int(case == "route_sb")
         if case.startswith("H"):
             tparams.header_generation(p, case)
+            p.smer_log2_buckets = p.bmer_log2_buckets = 12
+        if case == "canon0_rg":
+            p.dna_canon, p.dna_row_global = 0, 1
         return p
 
     monkeypatch.setattr(cli, "parse_args", parse_args)
@@ -197,15 +200,15 @@ def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
     msg = e.value.code
     assert isinstance(msg, str) and "\n" not in msg and msg.startswith(
         "error: ")
-    keys = {"route_sb": ["mesh_route_sb > 0"], "tp3": ["-tp 3"],
-            "H0": [_MESH_SB, "a mesh with id codec v1"]}.get(case, [_MESH_SB])
+    key = ("dna_canon=0 with dna_row_global=1" if case == "canon0_rg"
+           else "-tp 3")
     p = parse_args(["e", "-s", "-om", "o", "-qm", "8", "-im", im, "x"])
     with pytest.raises(ValueError) as v:
         mesh_pipeline.compress_file_mesh(p, "absent.fastq", "absent.fqst",
                                          dp=2, tp=int(tp), device="cpu")
-    for key in keys:
-        assert key in msg and key in str(v.value)
-    assert ("id codec" in msg) == (case == "H0")
+    assert key in msg and key in str(v.value)
+    for gone in ("mesh_route_sb", "id codec", "s/b tables other than"):
+        assert gone not in msg
     assert "\n" not in str(v.value)
     assert not os.path.exists(tmp_path / "o.fqst")
 

@@ -734,7 +734,7 @@ def test_dna_pe_pos_ctx_is_refused():
     with pytest.raises(NotImplementedError, match="dna_pe_pos_ctx"):
         dna.check_supported(pipeline.make_configs(
             _pos_ctx_params())[0])
-    missing = pipeline.unported_archive(_pos_ctx_params())
+    missing = pipeline.unported_modes(_pos_ctx_params())
     assert len(missing) == 1 and "dna_pe_pos_ctx" in missing[0]
 
 

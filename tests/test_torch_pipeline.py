@@ -256,7 +256,7 @@ def _decodes_to_empty_fastq(arc, out):
     mesh_pipeline.decompress_file_mesh), to an empty FASTQ (a paired-end
     archive to two, the second at -out2)."""
     p = tparams.Params.load_params(_header_blob(arc))
-    assert pipeline.unported_archive(p) == []
+    assert pipeline.unported_modes(p) == []
     pe = p.dna_mode in (tparams.DnaMode.PE_ORIGINAL,
                         tparams.DnaMode.PE_SORTED)
     out2 = out + ".2"
@@ -287,12 +287,10 @@ def _header_blob(arc):
         rd.close()
 
 
-_MESH_SB = "a mesh with s/b tables other than row-global K2 cells"
-
 # `what` None: a mode this package decodes; "routed": a mesh header, which
-# the CLI's d routes to parallel.mesh_pipeline (the cases keep their ids);
-# a tuple: a mesh header of an older writer, which the mesh decode refuses
-# with one line naming each entry
+# the CLI's d routes to parallel.mesh_pipeline — today's writer's, and
+# those of the older writers (H0, H5, H1, once refused on a mesh); the
+# cases keep their ids
 _D_CASES = [
     ({"quality_mode": jparams.QualityMode.LOSSLESS}, None),
     ({"dna_mode": jparams.DnaMode.SE_SORTED}, None),
@@ -302,12 +300,11 @@ _D_CASES = [
     ({"dna_row_global": 0}, None),
     ({"id_mode": jparams.IdMode.LOSSLESS, "id_codec_v": 1}, None),
     ({**tparams.HEADER_GENERATIONS["H0"], "mesh_dp": 2,
-      "id_mode": jparams.IdMode.LOSSLESS}, (_MESH_SB, "a mesh with id codec v1")),
+      "id_mode": jparams.IdMode.LOSSLESS}, "routed"),
     ({**tparams.HEADER_GENERATIONS["H5"], "mesh_dp": 2,
-      "id_mode": jparams.IdMode.LOSSLESS}, (_MESH_SB,)),
+      "id_mode": jparams.IdMode.LOSSLESS}, "routed"),
     ({**tparams.HEADER_GENERATIONS["H1"], "mesh_dp": 2,
-      "id_mode": jparams.IdMode.LOSSLESS},
-     (_MESH_SB, "a mesh with id codec v1")),
+      "id_mode": jparams.IdMode.LOSSLESS}, "routed"),
 ]
 
 
@@ -323,30 +320,12 @@ def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
     (dna_row_global 0 with the default local_log2_cells, once refused)
     decode instead (an archive with no group: an empty FASTQ), and so does
     a mesh header through the CLI, which routes it to the mesh decode,
-    while pipeline.decompress_file raises the reference's error for it. A
-    mesh header of an older writer (H0, H5, H1) is refused by the mesh
-    decode, through the CLI and mesh_pipeline.decompress_file_mesh
-    alike."""
+    while pipeline.decompress_file raises the reference's error for it:
+    today's writer's, and an older writer's (H0, H5, H1), which the mesh
+    decode once refused."""
     arc = _header_only_archive(tmp_path / "a.fqst", **fields)
     if what is None:
         _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
-        return
-    if isinstance(what, tuple):
-        from fqsqueezer_tpu_torch.parallel import mesh_pipeline
-
-        out = str(tmp_path / "o.fq")
-        with pytest.raises(SystemExit) as e:
-            cli.main(["d", "--device", "cpu", "-out", out, arc])
-        msg = e.value.code
-        assert isinstance(msg, str) and "\n" not in msg
-        assert msg.startswith("error: ") and all(w in msg for w in what)
-        assert msg.endswith("not yet ported to fqsqueezer_tpu_torch")
-        assert (_MESH_SB in msg) + ("id codec" in msg) == len(what)
-        assert not os.path.exists(out)
-        with pytest.raises(ValueError) as f:
-            mesh_pipeline.decompress_file_mesh(tparams.Params(), arc, out,
-                                               device="cpu")
-        assert msg == f"error: {f.value}"
         return
     if what == "routed":
         out = str(tmp_path / "o.fq")
