@@ -212,7 +212,32 @@ Phases, one line each; any failure raises and the script exits non-zero:
                batches of LEGACY's archives; K2, its chain floor, the
                plain row step and the bound timed on the batches of
                LEGACY_TIMED.
- 18. decode  — the 20k archive through the port's CLI `d` with no
+ 18. knobs   — the header knobs no CLI flag sets: dna_sorted_ctx (the
+               sorted-mode position buckets), dna_pe_pos_ctx (read2's
+               coordinates on rowA and rowB) and dna_canon 0 with
+               dna_row_global 1 (row-global context-keyed table_* cells):
+               (a) KNOB_FIXTURES, the committed JAX-written archives of
+               testdata/knobs, written on the card from their regenerated
+               inputs (sha256 == the committed file's) and decoded
+               through the CLI's d to the JAX decoder's digests
+               (SHA256SUMS), K2 once a read row (of each shard for the -dp
+               2 -tp 2 mesh); (b) KNOBS_FULL at -gs 5: 20k and 100k reads
+               of sorted_ctx (-s -om s -qm 8 -im n) and canon0_rg (-s -om
+               o -qm 8 -im n), 10k and 50k pairs of pe_pos (-p -om o -qm n
+               -im n), 10k pairs of pe_pos_sorted (-p -om s -qm n -im n),
+               each archive and decode held to the JAX package's digests,
+               compress and decode timed with peak CUDA memory, K2 once a
+               read row with the position maps its rows take
+               (dna.K2_POS_LAUNCHES); (c) K2's position-map
+               instantiations and the table cells' row-global rows (K2,
+               then the row's table update as torch ops) against the plain
+               row step, tables included: random sorted and PE batches
+               (K2_POS_SORTED_SHAPES, K2_POS_PE_SHAPES), then the real
+               second batch of the 100k sorted_ctx, 50k-pair pe_pos and
+               100k canon0_rg archives, each K2 timed with chain floor,
+               plain time (once) and bound, canon0_rg's without the
+               table update, which is timed apart.
+ 19. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -223,8 +248,9 @@ Then the run's wall time; the last two lines are the kernels' JSON record
 (K1, K2 at the main path's, sorted order's and the PE row's shape, K2's
 table-cell instantiations at H0's original- and sorted-order batches, its
 ktable-cell one at H6's, its local-statistics ones at H1's (original and
-sorted order), H2's and H4's, and K3 for each symbol count and with
-deltas) and the result line. K1's launches are those of
+sorted order), H2's and H4's, its position maps at [knobs]' sorted_ctx
+and pe_pos batches and its row-global table cells at canon0_rg's, and K3
+for each symbol count and with deltas) and the result line. K1's launches are those of
 the three timed compresses (the main path's, the sorted row's and the PE
 row's) and of [mesh_write]'s and [mesh_legacy]'s mesh compresses, K3's
 for 8 symbols those of the two timed SE decodes.
@@ -247,7 +273,11 @@ test_reference_regenerates_fixture_and_digests), the LEGACY and
 LEGACY_FULL digests from fqsqueezer_tpu.pipeline.compress_file /
 compress_pe at the Params of the reference CLI's parse_args under the
 row's header generation, and decompress_file for the decode digest
-(tests/test_torch_legacy.py::test_chip_smoke_legacy_digests).
+(tests/test_torch_legacy.py::test_chip_smoke_legacy_digests), the
+KNOBS_FULL digests from fqsqueezer_tpu.pipeline.compress_file /
+compress_pe at the Params of the reference CLI's parse_args with the
+row's knobs set, and decompress_file for each output
+(tests/test_torch_knobs.py::test_chip_smoke_knob_digests).
 All were computed with the reference package on a CPU.
 """
 from __future__ import annotations
@@ -589,6 +619,79 @@ K2_LEGACY_SORTED = (256, 2, 104)
 K2_LEGACY_TIMED_SHAPE = (2048, 2, 104, False, False)
 
 
+# [knobs]: the header knobs no CLI flag sets — dna_sorted_ctx (sorted-mode
+# position buckets), dna_pe_pos_ctx (read2's coordinates on the anchored
+# rows) and dna_canon 0 with dna_row_global 1 (row-global context-keyed
+# table_* cells, claim rounds 0). (a) The committed fixtures of
+# testdata/knobs (KNOB_FIXTURES: tests/test_torch_knobs.py's SPECS and
+# knob_params, copied here: the card has no JAX): (name, flags, knobs,
+# (reads or pairs, read length, seed, genome bases), mesh dp x tp or None);
+# the decode digests are the fixtures' SHA256SUMS, the JAX decoder's
+KNOBS_DIR = os.path.join(REPO, "fqsqueezer_tpu_torch", "testdata", "knobs")
+_SORTED_CTX = {"dna_sorted_ctx": 1}
+_PE_POS = {"dna_pe_pos_ctx": 1}
+_CANON0_RG = {"dna_canon": 0, "dna_row_global": 1, "dna_claim_rounds": 0}
+KNOB_FIXTURES = (
+    ("sorted_ctx", ("-s", "-om", "s", "-qm", "8", "-im", "n"), _SORTED_CTX,
+     (24, 48, 61, 20_000), None),
+    ("pe_pos", ("-p", "-om", "o", "-qm", "n", "-im", "n"), _PE_POS,
+     (24, 48, 63, 400), None),
+    ("pe_pos_sorted", ("-p", "-om", "s", "-qm", "n", "-im", "n"),
+     {**_PE_POS, **_SORTED_CTX}, (24, 48, 65, 400), None),
+    ("canon0_rg", ("-s", "-om", "o", "-qm", "8", "-im", "n"), _CANON0_RG,
+     (24, 48, 67, 20_000), None),
+    ("canon0_rg_r2", ("-s", "-om", "o", "-qm", "8", "-im", "n"),
+     {**_CANON0_RG, "dna_claim_rounds": 2}, (24, 48, 69, 20_000), None),
+    ("canon0_rg_sorted", ("-s", "-om", "s", "-qm", "8", "-im", "n"),
+     _CANON0_RG, (24, 48, 71, 20_000), None),
+    ("canon0_rg_dp2tp2", ("-s", "-om", "o", "-qm", "8", "-im", "n"),
+     _CANON0_RG, (48, 48, 73, 20_000), (2, 2)),
+)
+# (b) the knobs at full width (-gs 5, the CLI's lanes, 2^22-bucket tables):
+# (name, knobs, reads or pairs, flags, the JAX writer's archive sha256,
+# the JAX decoder's FASTQ sha256 of each output file), the bench corpus
+# (_corpus) or bench pairs (_pe_corpus); the larger run of each name is
+# timed (the smaller one, run first, warms it up)
+KNOBS_FULL = (
+    ("sorted_ctx", _SORTED_CTX, DIGEST_READS,
+     ("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5"),
+     "4dffd0ecf274aadd68ed48dd4fabcd49e6c726cc422336fd2575e8acd5b91f36",
+     ("6e2c51b2dbc600760a3454249ec6c317c2bf7ccbc7cfe4ad6f0da2ddc8bda21e",)),
+    ("sorted_ctx", _SORTED_CTX, FULL_READS,
+     ("-s", "-om", "s", "-qm", "8", "-im", "n", "-gs", "5"),
+     "9fce84540ec137238335de3b815c0696531891e2cba4b8296a10e2eb18d3c4cf",
+     ("9d9d844128eccc4f0af2c23bf0601d16f67007b52775c9ce40c2f98dfb8029b4",)),
+    ("canon0_rg", _CANON0_RG, DIGEST_READS,
+     ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5"),
+     "59eee1377476470131671a8a471b6209628e5ad5495be97221900c32eb92a455",
+     ("ea7c1942f71dfd492a10d527c271e8a2ea52519e07f3de75ecfd4a52d3c12fcb",)),
+    ("canon0_rg", _CANON0_RG, FULL_READS,
+     ("-s", "-om", "o", "-qm", "8", "-im", "n", "-gs", "5"),
+     "3f04f1b86e0e7fe708c04d0c6f839d9c1daf2b9a8f0bf0a04b31fef245acda90",
+     ("a00dacd9b85ce07c6092b65118fbb9a490edd14d31739630fb5f9d17a1ab999a",)),
+    ("pe_pos", _PE_POS, 10_000,
+     ("-p", "-om", "o", "-qm", "n", "-im", "n", "-gs", "5"),
+     "9002f04814649232f27c31f8bb733a802931a8bb264b15f440fa80b208114aab",
+     ("723617e0d0d8234c2b1aca12f6fffebef300566b8c238590698e61877d846c49",
+      "3984e9cf71b1b03e6e764b91bbb3d45905a7998165ca861eebda56669a358394")),
+    ("pe_pos", _PE_POS, 50_000,
+     ("-p", "-om", "o", "-qm", "n", "-im", "n", "-gs", "5"),
+     "a69043711d09ae6b5747d63a467ac931e2dfec7e084effa862814cb5260f02f4",
+     ("74360fee0d28078bc3d72c31b242610f2a095b8909f1d07e458345c29b809c27",
+      "3d3abe48c3eb34cf506c680fd70804ea28559f210091f362f0e57bdf8a5b54f8")),
+    ("pe_pos_sorted", {**_PE_POS, **_SORTED_CTX}, 10_000,
+     ("-p", "-om", "s", "-qm", "n", "-im", "n", "-gs", "5"),
+     "7af649452495b8f9228859d86bb06c7aa9b1da4ebe24dbf5879413983e541d60",
+     ("6a0234e3ae3f9751afda88fbb6f9ff1ccd4356d9782f6c7ffbf21356f5b4d290",
+      "caaccc5c106126f6e4e2d13c54b91866159e8c7b56d69beec5716a5c97d32f6e")),
+)
+# (N, r_pl, L) of the K2 checks of the sorted-mode position map on random
+# sorted batches, and (N, pairs a lane, L) of the paired-end map's on
+# random PE batches (dna_batches.pe_row_inputs)
+K2_POS_SORTED_SHAPES = ((8, 3, 40), (256, 4, 104))
+K2_POS_PE_SHAPES = ((8, 5, 40), (256, 2, 104))
+
+
 def bench_params():
     """bench.py's primary row: e -s -om o -qm 8 -im n -gs 5, 2048 lanes
     (the Params the CLI makes of BENCH_ROW)."""
@@ -877,6 +980,7 @@ def _reset_launches():
     from fqsqueezer_tpu_torch.streams import dna, quality
 
     rans.K1_LAUNCHES = quality.K3_LAUNCHES = dna.K2_LAUNCHES = 0
+    dna.K2_POS_LAUNCHES = dict.fromkeys(dna.K2_POS, 0)
 
 
 def _check_decode_launches(arc, has_quality, what):
@@ -2171,7 +2275,7 @@ def phase_k2():
                                                        L, "cuda")
         k2c.check_spec_rows(cfg, st, specs, words, init, L,
                             what=f"PE N={N} pairs a lane {r_pl} L={L}")
-        anchored += sum(int((lcp > 0).sum()) for _, lcp, _ in specs
+        anchored += sum(int((lcp > 0).sum()) for _, lcp, _, _ in specs
                         if lcp is not None)
     k2c.check_rows(*k2c.real_dna_batch(os.path.join(
         WORK, f"pe_cli_{PE_CLI[0]}.fqst")), what="the PE CLI batch")
@@ -2217,18 +2321,17 @@ def phase_k2():
     return out
 
 
-def _k2_timed(key, batch, rows):
-    """K2, its chain floor, the plain row step and the bound on one real
-    batch's checked rows; prints them and returns the kernels line's
-    numbers."""
-    from fqsqueezer_tpu_torch.streams import dna
+def _k2_timed(key, batch, rows, plain_reps=2):
+    """K2, its chain floor, its plain version (k2_compare.plain_row:
+    without the table update K2 does not apply itself, as K2's time and
+    bound) timed plain_reps times, and the bound on one real batch's
+    checked rows; prints them and returns the kernels line's numbers."""
     from fqsqueezer_tpu_torch.tools import k2_compare as k2c
 
     args = [a for a, _ in rows]
     ms = k2c.replay_ms(args, reps=20)
     floor_ms = k2c.replay_ms(k2c.chain_rows(rows), reps=20)
-    plain_ms = _ms(lambda: [dna.dna_decode_row_plain(*a[:10], loc=a[10])
-                            for a in args], 2)
+    plain_ms = _ms(lambda: [k2c.plain_row(a) for a in args], plain_reps)
     bound_ms, bound_by = k2c.k2_bound_ms(rows)
     cfg, L = batch[0], batch[5]
     steps = len(rows) * L
@@ -2297,6 +2400,264 @@ def phase_k2_legacy():
           f"{len(LEGACY)} [legacy] archives' real batches), tables "
           f"included")
     return out
+
+
+def _knob_sums():
+    """testdata/knobs/SHA256SUMS: output file name -> the JAX decoder's
+    sha256."""
+    out = {}
+    with open(os.path.join(KNOBS_DIR, "SHA256SUMS")) as f:
+        for line in f:
+            sha, name = line.split()
+            out[name] = sha
+    return out
+
+
+def _knob_fixture(name, flags, knobs, corpus, mesh):
+    """Write one KNOB_FIXTURES archive on the card from its regenerated
+    input (tests/test_torch_knobs.py's knob_params: `e FLAGS -gs 1`, the
+    knobs and ctx v1, 8 lanes, batches of 16 reads (PE: 32), 2^10-bucket
+    tables, SIV cap 7; the mesh one 16 lanes, 64-read batches,
+    2^12-bucket tables) and decode it through the CLI's d; returns
+    (archive, outputs, K1 launches, K2 launches of the decode, its
+    K2_POS_LAUNCHES)."""
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.utils.corpus import (write_fastq_corpus,
+                                                   write_pe_corpus)
+
+    n, L, seed, genome = corpus
+    d = os.path.join(WORK, "knobs")
+    os.makedirs(d, exist_ok=True)
+    if "-p" in flags:
+        files = [os.path.join(d, f"{name}_{k}.fastq") for k in (1, 2)]
+        write_pe_corpus(*files, n, L, genome, seed=seed)
+    else:
+        files = [os.path.join(d, f"{name}.fastq")]
+        write_fastq_corpus(files[0], n, L, genome, seed=seed)
+    p = cli.parse_args(["e", *flags, "-gs", "1", *files])
+    for k, v in {**knobs, "dna_ctx_v": 1}.items():
+        setattr(p, k, v)
+    p.adjust_kmer_sizes()
+    p.n_lanes, p.max_batch_reads, log2b = (
+        (16, 64, 12) if mesh else (8, 32, 10) if "-p" in flags
+        else (8, 16, 10))
+    p.smer_log2_buckets = p.bmer_log2_buckets = log2b
+    p.dna_siv_cap = 7
+    p.verbosity = 0
+    arc = os.path.join(d, f"{name}.fqst")
+    _reset_launches()
+    if mesh is not None:
+        mesh_pipeline.compress_file_mesh(p, files[0], arc, dp=mesh[0],
+                                         tp=mesh[1])
+    elif len(files) == 2:
+        pipeline.compress_pe(p, *files, arc)
+    else:
+        pipeline.compress_file(p, files[0], arc)
+    k1 = rans.K1_LAUNCHES
+    outs = [os.path.join(d, f"{name}.dec_{k}.fastq")
+            for k in range(1, len(files) + 1)]
+    _reset_launches()
+    rc = cli.main(["d", "-v", "0", "-out", outs[0], *(
+        ["-out2", outs[1]] if len(outs) > 1 else []), arc])
+    if rc != 0:
+        raise RuntimeError(f"[knobs] {name}: the CLI's d returned {rc}")
+    return arc, outs, k1, dna.K2_LAUNCHES, dict(dna.K2_POS_LAUNCHES)
+
+
+def _knob_full(name, knobs, n, flags):
+    """One KNOBS_FULL row on the card: compress through pipeline
+    (compress_file, or compress_pe), decode through
+    pipeline.decompress_file, each timed with its peak CUDA memory;
+    returns (archive, outputs, compress (stats, s, GiB), K1 launches,
+    decode (s, GiB), K2 launches, K2_POS_LAUNCHES, K3 launches, lanes)."""
+    from fqsqueezer_tpu_torch import cli, pipeline
+    from fqsqueezer_tpu_torch.ops import rans
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.streams import dna, quality
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed_peak
+
+    files = list(_pe_corpus(n)) if "-p" in flags else [_corpus(n)[0]]
+    p = cli.parse_args(["e", *flags, *files])
+    for k, v in knobs.items():
+        setattr(p, k, v)
+    p.verbosity = 0
+    arc = os.path.join(WORK, f"knobs_{name}_{n}.fqst")
+    outs = [os.path.join(WORK, f"knobs_{name}_{n}.dec_{k}.fastq")
+            for k in range(1, len(files) + 1)]
+    write = pipeline.compress_pe if len(files) == 2 else \
+        pipeline.compress_file
+    _reset_launches()
+    stats, dt, peak = timed_peak(lambda: write(p, *files, arc))
+    k1 = rans.K1_LAUNCHES
+    _reset_launches()
+    _, ddt, dpeak = timed_peak(lambda: pipeline.decompress_file(
+        Params(), arc, *outs))
+    return (arc, outs, (stats, dt, peak), k1, (ddt, dpeak), dna.K2_LAUNCHES,
+            dict(dna.K2_POS_LAUNCHES), quality.K3_LAUNCHES, p.n_lanes)
+
+
+def _want_pos_launches(knobs, pe, rows):
+    """K2_POS_LAUNCHES a decode under these knobs of `rows` read rows (PE:
+    expanded rows, a third of them read1 rows) must make: the sorted-mode
+    map on every sorted read row (read1 rows in PE), the paired-end map
+    on every rowA and rowB, the rest plain."""
+    sorted_rows = ((rows // 3 if pe else rows) if knobs.get("dna_sorted_ctx")
+                   else 0)
+    pe_rows = 2 * rows // 3 if knobs.get("dna_pe_pos_ctx") else 0
+    return {"plain": rows - sorted_rows - pe_rows, "sorted": sorted_rows,
+            "pe": pe_rows}
+
+
+def phase_knobs():
+    """The header knobs no CLI flag sets (dna_sorted_ctx, dna_pe_pos_ctx,
+    dna_canon 0 with dna_row_global 1): (a) the KNOB_FIXTURES archives
+    written on the card == the committed JAX-written files, decoded
+    through the CLI's d to the JAX decoder's digests; (b) the KNOBS_FULL
+    rows, each archive == the JAX writer's sha256, each decode == the JAX
+    decoder's, the larger run of each timed both ways, K1 once a group
+    flush at least, K2 once a read row with its position maps as the rows
+    take them (K2_POS_LAUNCHES), K3 once a batch with a quality stream;
+    (c) K2's position-map instantiations == the plain row step on random
+    batches and on the real second batch of each timed archive (the table
+    update of row-global context-keyed tables, torch ops after K2,
+    included), K2 timed with chain floor, plain version and bound (each
+    without that update: k2_compare.plain_row, k2_updates) and the update
+    timed apart. Returns (the kernels line's numbers by key, the launches
+    by key)."""
+    import torch
+
+    from fqsqueezer_tpu_torch.ops import tables
+    from fqsqueezer_tpu_torch.streams import dna
+    from fqsqueezer_tpu_torch.tools import k2_compare as k2c
+
+    t0 = time.time()
+    _knob_fixtures()
+    launches = _knobs_full()
+    n_checks = _k2_pos_random()
+    out = {}
+    for key, name, n in (("sorted", "sorted_ctx", FULL_READS),
+                         ("pe", "pe_pos", 50_000),
+                         ("canon0", "canon0_rg", FULL_READS)):
+        batch = k2c.real_dna_batch(os.path.join(WORK,
+                                                f"knobs_{name}_{n}.fqst"))
+        rows = k2c.check_rows(*batch, what=f"the {name} batch")
+        n_checks += 1
+        out[key] = _k2_timed(f"the {name} {n} batch", batch, rows, 1)
+        if key == "canon0":
+            # the table update after each K2 launch (torch ops)
+            ms = _ms(lambda: [dna._apply_sb_updates(
+                a[0], tables.LOCAL, a[1].s_tc, a[1].b_tc, want[0][1],
+                torch.arange(a[7], device="cuda")[None, :]
+                < a[2][:, None]) for a, want in rows], 5)
+            print(f"[knobs] the {name} batch's row-end table updates "
+                  f"(torch ops after K2, outside K2's time, bound and plain "
+                  f"version): {ms:.4f} ms a batch, {ms / len(rows):.4f} ms "
+                  f"a row")
+            out[key]["torch_update_ms"] = ms
+    print(f"[knobs] K2's position maps and the table cells' row-global "
+          f"rows exact on {n_checks} batches, tables included; the phase "
+          f"took {time.time() - t0:.1f} s")
+    return out, launches
+
+
+def _knob_fixtures():
+    """[knobs] (a): each KNOB_FIXTURES archive written on the card == the
+    committed file, its decode == the JAX decoder's."""
+    sums = _knob_sums()
+    for name, flags, knobs, corpus, mesh in KNOB_FIXTURES:
+        arc, outs, k1, k2, pos = _knob_fixture(name, flags, knobs, corpus,
+                                               mesh)
+        with open(arc, "rb") as f, open(os.path.join(
+                KNOBS_DIR, f"{name}.fqst"), "rb") as g:
+            if f.read() != g.read():
+                raise RuntimeError(f"[knobs] {name}: the archive written on "
+                                   f"the card differs from the JAX writer's")
+        names = ([f"{name}_{k}.fastq" for k in (1, 2)] if len(outs) == 2
+                 else [f"{name}.fastq"])
+        got = [_sha256(o) for o in outs]
+        if got != [sums[x] for x in names]:
+            raise RuntimeError(f"[knobs] {name}: decode sha256 {got} != the "
+                               f"JAX decoder's")
+        rows = (_mesh_rows(arc)[2] if mesh else _batches_and_rows(arc)[1])
+        if k1 < 1 or k2 != rows:
+            raise RuntimeError(f"[knobs] {name}: K1 launched {k1} times, K2 "
+                               f"{k2} times for {rows} read rows")
+        print(f"[knobs] fixture {name}: archive == the JAX writer's, decode "
+              f"== the JAX decoder's (K1 {k1}, K2 {k2} for {rows} rows, "
+              f"maps {pos})")
+
+
+def _knobs_full():
+    """[knobs] (b): the KNOBS_FULL rows; returns the K2 launches of their
+    decodes: with the sorted-mode map, with the paired-end map, and of the
+    canon0_rg rows."""
+    launches = {"sorted": 0, "pe": 0, "canon0": 0}
+    for name, knobs, n, flags, want, want_dec in KNOBS_FULL:
+        (arc, outs, (stats, dt, peak), k1, (ddt, dpeak), k2, pos, k3,
+         lanes) = _knob_full(name, knobs, n, flags)
+        groups = _n_groups(arc, lanes)
+        sha = _sha256(arc)
+        got = tuple(_sha256(o) for o in outs)
+        batches, rows = _batches_and_rows(arc)
+        qual = flags[flags.index("-qm") + 1] != "n"
+        if sha != want or got != want_dec:
+            raise RuntimeError(f"[knobs] {name} {n}: archive sha256 {sha} "
+                               f"(JAX writer's {want}), decode {got} (JAX "
+                               f"decoder's {want_dec})")
+        if (k1 < max(1, groups) or k2 != rows
+                or k3 != (batches if qual else 0)
+                or pos != _want_pos_launches(knobs, "-p" in flags, rows)):
+            raise RuntimeError(f"[knobs] {name} {n}: K1 {k1} in {groups} "
+                               f"flushes, K2 {k2} for {rows} rows (maps "
+                               f"{pos}), K3 {k3} for {batches} batches")
+        launches["sorted"] += pos["sorted"]
+        launches["pe"] += pos["pe"]
+        if name.startswith("canon0"):
+            launches["canon0"] += k2
+        n_reads = stats["n_reads"]
+        print(f"[knobs] {name} {n} {'pairs' if '-p' in flags else 'reads'} "
+              f"`{' '.join(flags)}` ({lanes} lanes): archive sha256 == the "
+              f"JAX writer's, decode == the JAX decoder's; compress "
+              f"{n_reads / dt:.1f} "
+              f"reads/s ({dt:.3f} s, {stats['bits_per_base']:.4f} "
+              f"bits/base, K1 {k1} in {groups} flushes, peak {peak:.3f} "
+              f"GiB), decode {n_reads / ddt:.1f} reads/s ({ddt:.3f} s, K2 "
+              f"{k2} for {rows} rows, maps {pos}, K3 {k3}, peak "
+              f"{dpeak:.3f} GiB)")
+    return launches
+
+
+def _k2_pos_random():
+    """[knobs] (c): K2's position maps == the plain row step on random
+    sorted and PE batches; returns the batches checked."""
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.tools import k2_compare as k2c
+    from fqsqueezer_tpu_torch.utils import dna_batches as db
+
+    n_checks = 0
+    for seed, (N, r_pl, L) in enumerate(K2_POS_SORTED_SHAPES):
+        cfg = dataclasses.replace(db.bench_dna_config(N),
+                                  smer_log2_buckets=db.LOG2_BUCKETS,
+                                  bmer_log2_buckets=db.LOG2_BUCKETS,
+                                  sorted_ctx=True)
+        *batch, lcp = db.dna_decode_inputs(60 + seed, N, r_pl, L, "cuda",
+                                           sorted_reads=True, cfg=cfg)
+        rows = k2c.check_rows(*batch, L, lcp, what=f"the sorted-mode map, "
+                                                   f"N={N} r_pl={r_pl}")
+        if not all(a[11] is not None for a, _ in rows):
+            raise RuntimeError("[knobs] a sorted row without its map")
+        n_checks += 1
+    for seed, (N, r_pl, L) in enumerate(K2_POS_PE_SHAPES):
+        cfg, st, specs, words, init, _ = db.pe_row_inputs(
+            70 + seed, N, r_pl, L, "cuda", pe_pos_ctx=True)
+        k2c.check_spec_rows(cfg, st, specs, words, init, L,
+                            what=f"the paired-end map, N={N}")
+        n_checks += 1
+    return n_checks
 
 
 def _batches_and_rows(arc):
@@ -2435,6 +2796,7 @@ def main() -> int:
     k3 = phase_k3()
     k2 = phase_k2()
     k2.update(phase_k2_legacy())
+    knobs_k2, knobs_launches = phase_knobs()
     k3_launches[8], k2_launches = phase_decode()
     k3_launches[8] += sorted_k3
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
@@ -2486,6 +2848,16 @@ def main() -> int:
                           "sorted order"),
             ("H2", "table cells, local_* tables"),
             ("H4", "ktable cells, batch-frozen, klocal_* tables"))] + [{
+        "name": f"dna_decode_row (K2, {what})", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/dna_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/dna.py:1357",
+        "launches": knobs_launches[key], **knobs_k2[key]} for key, what in (
+            ("sorted", "sorted-mode position map: dna_sorted_ctx"),
+            ("pe", "paired-end position map on rowA and rowB: "
+                   "dna_pe_pos_ctx"),
+            ("canon0", "table cells, row-global, without the row's update "
+                       "(torch ops after it, torch_update_ms): dna_canon 0 "
+                       "with dna_row_global 1"))] + [{
         "name": f"qual_decode_scan (K3, {n_sym} symbols, {mode})",
         "route": "cuda",
         "source": "fqsqueezer_tpu_torch/csrc/qual_decode.cu",

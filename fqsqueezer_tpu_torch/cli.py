@@ -207,10 +207,6 @@ def _mesh_archive(p: Params, path: str) -> bool:
     return hdr.mesh_dp > 1 or hdr.mesh_tp > 1
 
 
-def _not_ported(what: str):
-    return SystemExit(f"error: {what} not yet ported to fqsqueezer_tpu_torch")
-
-
 def _compress(p: Params, device) -> dict:
     """`e`: the reference CLI's routes — a mesh (-dp/-tp) to
     parallel.mesh_pipeline, PE to pipeline.compress_pe, SE to
@@ -247,10 +243,6 @@ def main(argv=None) -> int:
         raise SystemExit("no input files" if compress else "no input archive")
     from . import pipeline
 
-    if compress:
-        missing = pipeline.unported_modes(p)
-        if missing:
-            raise _not_ported(", ".join(missing))
     try:
         device = pipeline.resolve_device(device)
     except RuntimeError as e:

@@ -5,7 +5,7 @@
 // (its `outer` scan over read rows around the `inner` step over positions;
 // the JAX package has no Pallas kernel on the decode side). Its plain
 // version is streams/dna.py:dna_decode_row_plain, step for step, for every
-// header dna.check_supported admits. Template parameters: the s/b table
+// header the JAX writer stores. Template parameters: the s/b table
 // family (kFam: K2 cells, rows of 4 tag24|count8 words; ktable cells, 6-word
 // rows of 4 tags and 4 u16 counters; or the first writer's context-keyed
 // table cells, 16-word rows of 8 tags and 8 u8x4 count words; each u32 word
@@ -17,8 +17,10 @@
 // in-batch local statistics of the headers without row-global updates
 // (kLoc: none; local_* tables of context-keyed cells, 5-word rows; the
 // same with the DNA model's deltas; klocal_* tables keyed by the canonical
-// middle, 9-word rows of 16 u16 counters; the same with the deltas). For
-// lane n at position i of the row:
+// middle, 9-word rows of 16 u16 counters; the same with the deltas), and
+// on rows that copy prefixes or anchors the position map of the contexts'
+// buckets (kPos: none; sorted mode's distance past the lane's LCP; read2's
+// coordinates on rowA and rowB). For lane n at position i of the row:
 //   finds    SIV word of pkey (at i < pmer_gate when the gate is set); the
 //            s and b queries — canonical (canon strand, hash bucket and
 //            tag, 4 end-letter slots) or, in context-keyed tables, the
@@ -38,7 +40,8 @@
 //   combine  the cascade (b, mixed, s, SIV); with the rough rescue, at i >=
 //            s_w: srun counts s/b misses, 3 single-base substitutions of
 //            the s window at the suspect offset, one s find each
-//   context  sorted counts quantized, position bucket, rank-miss history,
+//   context  sorted counts quantized, position bucket (of i, or mapped:
+//            kPos), rank-miss history,
 //            previous level class (ctx v2), in the layout of the header
 //            (rough: 23 bits, v2: 22, v1: 20); or the letters context,
 //            its position bucket coarse (pb >> 2) under let_pb2
@@ -172,6 +175,8 @@ __host__ __device__ constexpr int local_words() {
   return kLoc >= kLocK ? 9 : 5;
 }
 constexpr uint32_t kLocalTagMask = (1u << 27) - 1u;
+// a row's position map (dna.K2_POS)
+constexpr int kPosNone = 0, kPosSorted = 1, kPosPe = 2;
 
 // The launch's arguments, in the order of K2_ARGS in streams/dna.py.
 struct Args {
@@ -213,6 +218,15 @@ struct Args {
   const int64_t* lb;
   const int32_t* lm;
   int64_t local, local_log2_cells, local_cap;
+  // the row's position map (dna.K2_POS, kPos), on rows that copy prefixes
+  // or anchors (kLcp): 0 none; 1 sorted mode, pos_off the lanes' LCPs [N];
+  // 2 paired-end, position max(pos_off + pos_sign * i, 0) of a read of
+  // length pos_len, pos_off and pos_len [N], pos_sign +1 or -1. Null
+  // pointers without a map.
+  int64_t pos;
+  const int64_t* pos_off;
+  const int64_t* pos_len;
+  int64_t pos_sign;
 };
 constexpr int kNArgs = sizeof(Args) / sizeof(int64_t);
 static_assert(sizeof(void*) == sizeof(int64_t), "64-bit pointers");
@@ -606,8 +620,12 @@ __device__ __forceinline__ void apply_events(const uint64_t* ev, int64_t* tc,
 // prefix ramp, two-level mix, no pmer gate, one repair), compile-time
 // constants instead of Args values: with them loaded from Args the main
 // path's kernel took 127 registers against 119 and 8.5% longer a batch
-// (NVIDIA H100 80GB HBM3 at 700 W, PERF.md).
-template <int kFam, bool kRowUpdate, bool kLcp, bool kToday, int kLoc = 0>
+// (NVIDIA H100 80GB HBM3 at 700 W, PERF.md). kPos: the row's position
+// map (kPosNone; kPosSorted, the buckets past the lanes' LCPs; kPosPe,
+// read2's coordinates on rowA and rowB), a template parameter for the same
+// reason; only rows that copy prefixes or anchors (kLcp) take a map.
+template <int kFam, bool kRowUpdate, bool kLcp, bool kToday, int kLoc = 0,
+          int kPos = 0>
 __global__ void __launch_bounds__(kThreads)
     dna_decode_row_kernel(const Args a) {
   constexpr int kW = row_words<kFam>();
@@ -617,6 +635,8 @@ __global__ void __launch_bounds__(kThreads)
                             (kLoc >= kLocK) == (kFam != kFamTable)),
                 "local statistics go with batch-frozen tables, klocal "
                 "with canonical ones");
+  static_assert(kPos == kPosNone || kLcp,
+                "a position map goes with the prefix copy's rows");
   __shared__ fqtz::ScanSmem scan_sm;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -662,7 +682,7 @@ __global__ void __launch_bounds__(kThreads)
   // carried registers
   uint32_t x = kRansL;
   uint64_t pkey = 0, S = 0, B = 0, RS = 0, RB = 0;
-  int64_t length = 0, lcp = 0;
+  int64_t length = 0, lcp = 0, pos_off = 0, pos_len = 0;
   if (live) {
     const int64_t* rg = a.regs_in + lane;
     x = static_cast<uint32_t>(a.x_in[lane]);
@@ -676,7 +696,10 @@ __global__ void __launch_bounds__(kThreads)
          static_cast<uint64_t>(rg[7 * N]);
     length = a.lengths[lane];
     if (kLcp) lcp = a.lcp[lane];
+    if constexpr (kPos != kPosNone) pos_off = a.pos_off[lane];
+    if constexpr (kPos == kPosPe) pos_len = a.pos_len[lane];
   }
+  const int64_t pos_sign = kPos == kPosPe ? a.pos_sign : 0;
   int64_t ptr = a.ptr_in[0];
   // reset each row
   uint32_t lh = kLhReset, rh = 0, prevc = 0;
@@ -853,12 +876,32 @@ __global__ void __launch_bounds__(kThreads)
       // --- context ---
       use_code = level > kNone && i >= prefix_len;
       uint32_t pb;
-      {
+      if constexpr (kPos != kPosPe) {
         const int64_t rem = length - i;
         pb = i < 24 ? static_cast<uint32_t>(i / 4)
                     : static_cast<uint32_t>(min(6 + (i - 24) / 16, 13));
         if (rem <= 4) pb = 14;
         if (rem <= 2) pb = 15;
+      } else {   // read2's coordinate of position i (_pe_pos_map)
+        int64_t p = pos_off + pos_sign * i;
+        p = p > 0 ? p : 0;
+        const int64_t rem = pos_len - p;
+        pb = p < 24 ? static_cast<uint32_t>(p / 4)
+                    : static_cast<uint32_t>(
+                          min(6 + (p - 24) / 16, static_cast<int64_t>(13)));
+        if (rem <= 4) pb = 14;
+        if (rem <= 2) pb = 15;
+      }
+      if constexpr (kPos == kPosSorted) {
+        // past a shared prefix, the distance from its end
+        // (_pos_bucket_sorted)
+        if (pos_off > 0) {
+          const int64_t rem = length - i;
+          const int64_t d = i - pos_off < 13 ? i - pos_off : 13;
+          pb = rem <= 2   ? 15u
+               : rem <= 4 ? 14u
+                          : static_cast<uint32_t>(d > 0 ? d : 0);
+        }
       }
       if (use_code) {
         uint32_t v0 = counts[0], v1 = counts[1], v2 = counts[2], v3 = counts[3];
@@ -1043,45 +1086,46 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The kernel of one instantiation: (family, row update, lcp, today's
-// knobs, local statistics). A context-keyed table never takes the row
-// update (dna.check_supported), only K2 cells with the row update take
-// today's knobs, and local statistics go with batch-frozen tables
-// (local_* with context-keyed ones, klocal_* with canonical ones), so the
-// other combinations are not instantiated.
+// knobs, local statistics, position map). A context-keyed table never
+// takes the row update (row-global context-keyed tables take the row's
+// events as torch ops after the launch), only K2 cells with the row update
+// take today's knobs, local statistics go with batch-frozen tables
+// (local_* with context-keyed ones, klocal_* with canonical ones), and a
+// position map with the prefix copy, so the other combinations are not
+// instantiated.
 using KernelFn = void (*)(Args);
-template <int kFam, bool kLcp>
-KernelFn local_kernel(int loc) {
-  if constexpr (kFam == kFamTable) {
-    return loc == kLocTable
-               ? &dna_decode_row_kernel<kFam, false, kLcp, false, kLocTable>
-               : &dna_decode_row_kernel<kFam, false, kLcp, false,
-                                        kLocTableDeltas>;
-  } else {
-    return loc == kLocK
-               ? &dna_decode_row_kernel<kFam, false, kLcp, false, kLocK>
-               : &dna_decode_row_kernel<kFam, false, kLcp, false,
-                                        kLocKDeltas>;
-  }
+template <int kFam, bool kRowUpdate, bool kToday, int kLoc>
+KernelFn lcp_kernel(bool lcp, int pos) {
+  if (!lcp)
+    return &dna_decode_row_kernel<kFam, kRowUpdate, false, kToday, kLoc>;
+  return pos == kPosSorted
+             ? &dna_decode_row_kernel<kFam, kRowUpdate, true, kToday, kLoc,
+                                      kPosSorted>
+         : pos == kPosPe
+             ? &dna_decode_row_kernel<kFam, kRowUpdate, true, kToday, kLoc,
+                                      kPosPe>
+             : &dna_decode_row_kernel<kFam, kRowUpdate, true, kToday, kLoc>;
 }
 
 template <int kFam>
-KernelFn kernel_of(bool row_update, bool lcp, bool today, int loc) {
-  if (loc != kLocNone)
-    return lcp ? local_kernel<kFam, true>(loc) : local_kernel<kFam, false>(loc);
+KernelFn kernel_of(bool row_update, bool lcp, bool today, int loc, int pos) {
   if constexpr (kFam == kFamTable) {
-    return lcp ? &dna_decode_row_kernel<kFam, false, true, false>
-               : &dna_decode_row_kernel<kFam, false, false, false>;
+    return loc == kLocTable ? lcp_kernel<kFam, false, false, kLocTable>(lcp,
+                                                                       pos)
+           : loc == kLocTableDeltas
+               ? lcp_kernel<kFam, false, false, kLocTableDeltas>(lcp, pos)
+               : lcp_kernel<kFam, false, false, kLocNone>(lcp, pos);
   } else {
+    if (loc != kLocNone)
+      return loc == kLocK
+                 ? lcp_kernel<kFam, false, false, kLocK>(lcp, pos)
+                 : lcp_kernel<kFam, false, false, kLocKDeltas>(lcp, pos);
     if constexpr (kFam == kFamK2) {
       if (row_update && today)
-        return lcp ? &dna_decode_row_kernel<kFam, true, true, true>
-                   : &dna_decode_row_kernel<kFam, true, false, true>;
+        return lcp_kernel<kFam, true, true, kLocNone>(lcp, pos);
     }
-    return row_update
-               ? (lcp ? &dna_decode_row_kernel<kFam, true, true, false>
-                      : &dna_decode_row_kernel<kFam, true, false, false>)
-               : (lcp ? &dna_decode_row_kernel<kFam, false, true, false>
-                      : &dna_decode_row_kernel<kFam, false, false, false>);
+    return row_update ? lcp_kernel<kFam, true, false, kLocNone>(lcp, pos)
+                      : lcp_kernel<kFam, false, false, kLocNone>(lcp, pos);
   }
 }
 
@@ -1127,6 +1171,10 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
         (a.local >= kLocK) != (a.family != kFamTable) ||
         ((a.local == kLocTableDeltas || a.local == kLocKDeltas) &&
          a.lm == nullptr))) ||
+      a.pos < kPosNone || a.pos > kPosPe ||
+      (a.pos != kPosNone && (a.lcp == nullptr || a.pos_off == nullptr)) ||
+      (a.pos == kPosPe && (a.pos_len == nullptr ||
+                           (a.pos_sign != 1 && a.pos_sign != -1))) ||
       (s_at < b_at + (row_bytes << a.b_log2_rows) &&
        b_at < s_at + (row_bytes << a.s_log2_rows)))   // the tables overlap
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1136,11 +1184,12 @@ extern "C" int fqtz_dna_decode_row(const int64_t* args, int n_args,
                      a.prefix_ramp != 0 && a.mix_w > 0 && a.pmer_gate == 0 &&
                      a.repair_iters == 1;
   const int loc = static_cast<int>(a.local);
+  const int pos = static_cast<int>(a.pos);
   const KernelFn kernel =
-      a.family == kFamK2 ? kernel_of<kFamK2>(upd, lcp, today, loc)
+      a.family == kFamK2 ? kernel_of<kFamK2>(upd, lcp, today, loc, pos)
       : a.family == kFamKtable
-          ? kernel_of<kFamKtable>(upd, lcp, today, loc)
-          : kernel_of<kFamTable>(false, lcp, today, loc);
+          ? kernel_of<kFamKtable>(upd, lcp, today, loc, pos)
+          : kernel_of<kFamTable>(false, lcp, today, loc, pos);
   return static_cast<int>(fqtz::launch_one_cluster(
       kernel, n_blocks, kThreads, static_cast<cudaStream_t>(stream), a));
 }

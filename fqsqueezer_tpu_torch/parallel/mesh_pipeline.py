@@ -209,14 +209,10 @@ def compress_pe_mesh(p: Params, in1: str, in2: str, out_path: str, dp: int,
 
 def _mesh_setup(p: Params, dp: int, tp: int, device) -> torch.device:
     """Set the mesh in the Params (it gates make_configs' knobs: the PE
-    anchors, route_sb), refuse with one line (ValueError) what the port
-    lacks or the mesh cannot shard, and resolve the device — all before
-    the input is read."""
+    anchors, route_sb), refuse with one line (ValueError) a mesh that
+    cannot shard the tables, and resolve the device — all before the
+    input is read."""
     p.mesh_dp, p.mesh_tp = dp, tp
-    missing = base.unported_modes(p)
-    if missing:
-        raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
-                         + ", ".join(missing))
     sharded.check_mesh(base.make_configs(p)[0], dp, tp)
     return base.resolve_device(device)
 
@@ -268,10 +264,6 @@ def decompress_file_mesh_seq(p_cli: Params, in_path: str, out_path: str,
     reader = archive.ArchiveReader(in_path)
     try:
         p = Params.load_params(reader.header_blob, base=p_cli)
-        missing = base.unported_modes(p)
-        if missing:
-            raise ValueError(", ".join(missing) + " not yet ported to "
-                             "fqsqueezer_tpu_torch")
         sharded.check_mesh(base.make_configs(p)[0], p.mesh_dp, p.mesh_tp)
         device = base.resolve_device(device)
         writers = [fastq.FastqWriter(out_path)]

@@ -54,13 +54,6 @@ class CodecState(NamedTuple):
     id: Optional[torch.Tensor] = None
 
 
-def unported_modes(p: Params) -> list:
-    """What the Params (or a loaded archive header) ask for that this
-    package can neither write nor decode: the header knobs whose code
-    paths it lacks (dna.unsupported), one entry each."""
-    return dna.unsupported(make_configs(p)[0])
-
-
 def make_configs(p: Params):
     """(DnaConfig, QualConfig | None, MetaConfig, IdConfig | None) from
     Params — the same mapping as fqsqueezer_tpu.pipeline.make_configs."""
@@ -147,10 +140,11 @@ def _model_rows(dcfg, qcfg, mcfg, icfg, state: CodecState,
     # the DNA codec's rows: the reads, or with the PE anchors their
     # anchored 3-row recoding
     d_codes, d_lengths, d_lcp, anchor_mask = codes, lengths, lcp, None
-    pe_ev = ()
+    pos_map, pe_ev = None, ()
     if dcfg.pe_log2_buckets > 0:
         (d_codes, d_lengths, anchor_mask, d_lcp, pe_syms, pe_act, pe_f, pe_c,
-         _) = dna.dna_pe_encode(dcfg, state.dna, codes, lengths, lcp=lcp)
+         pos_map) = dna.dna_pe_encode(dcfg, state.dna, codes, lengths,
+                                      lcp=lcp)
         pe_ev = (pe_syms, pe_act)
         kcodes = None          # the recoded rows have their own
     if kcodes is None:
@@ -158,7 +152,7 @@ def _model_rows(dcfg, qcfg, mcfg, icfg, state: CodecState,
     (eff, d_ctx, d_sym, d_f, d_c, d_act, s_tc,
      b_tc) = dna.dna_process_batch(
         dcfg, state.dna, d_codes, kcodes, d_lengths, lcp=d_lcp,
-        anchor_mask=anchor_mask)
+        anchor_mask=anchor_mask, pos_map=pos_map)
 
     grid = common.lane_grid
     grids = [(grid(m_f, mcfg.n_lanes), grid(m_c, mcfg.n_lanes)),
@@ -619,10 +613,6 @@ def compress_file(p: Params, in_path: str, out_path: str,
     in_path), SE sorted order through the external bin sort, which
     carries no ids, so only with -im n. The archive is the in-RAM path's,
     byte for byte."""
-    missing = unported_modes(p)
-    if missing:
-        raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
-                         + ", ".join(missing))
     in_paths = list(in_path) if isinstance(in_path, (list, tuple)) else [
         in_path]
     is_pe = p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
@@ -802,9 +792,9 @@ def decompress_file(p_cli: Params, in_path: str, out_path: str,
     """Decode an archive into a FASTQ file at `out_path`, on `device`
     (default: the first CUDA card; see resolve_device); a PE archive's
     mate 2 reads go to `out_path2` (or, as in the reference, to the
-    Params' out_path2). The modes come from the archive's header; one the
-    port lacks, a mesh archive (parallel.mesh_pipeline decodes those), or a
-    file that is not an archive, is a ValueError. Each group's payload
+    Params' out_path2). The modes come from the archive's header; a mesh
+    archive (parallel.mesh_pipeline decodes those), or a file that is not
+    an archive, is a ValueError. Each group's payload
     checksum is held to the decoded reads. Returns {"n_reads": ...}, both
     mates counted.
 
@@ -819,10 +809,6 @@ def decompress_file(p_cli: Params, in_path: str, out_path: str,
             raise ValueError(
                 f"archive was written on a {p.mesh_dp}x{p.mesh_tp} mesh — "
                 f"use parallel.mesh_pipeline.decompress_file_mesh")
-        missing = unported_modes(p)
-        if missing:
-            raise ValueError(", ".join(missing) + " not yet ported to "
-                             "fqsqueezer_tpu_torch")
         device = resolve_device(device)
         writers = [fastq.FastqWriter(out_path)]
         try:
@@ -1032,10 +1018,6 @@ def compress_pe(p: Params, in1: str, in2: str, out_path: str,
                               stream_chunk_bytes=stream_chunk_bytes, **kw)
         stats["ratio"] = stats["in_bytes"] / max(1, stats["out_bytes"])
         return stats
-    missing = unported_modes(p)
-    if missing:
-        raise ValueError("not yet ported to fqsqueezer_tpu_torch: "
-                         + ", ".join(missing))
     resolve_device(device)
     d1 = fastq.read_fastq(in1)
     d2 = fastq.read_fastq(in2)

@@ -60,9 +60,15 @@ cdf. They are frozen during a read row and take the row's events at its
 end (local_row_update), in the encoder's row loop and the decoder's alike;
 a batch starts them from zero.
 
-Not ported yet (check_supported): row-global updates of the context-keyed
-tables, sorted-mode position contexts (dna_sorted_ctx) and paired-end
-position contexts (dna_pe_pos_ctx).
+Two header knobs change the position buckets of the contexts, on both
+sides alike: dna_sorted_ctx (sorted order), where a read shares a prefix
+with the previous read of its lane, counts positions from the end of
+that prefix (_pos_bucket_sorted); dna_pe_pos_ctx (paired-end, with the
+anchors on) gives rowA and rowB read2's coordinates (_pe_pos_map). In
+the decode they are K2's position maps (PosMap). Row-global updates of
+the context-keyed table cells (dna_canon 0 with dna_row_global 1) run
+the reference's table_update at each row end, in the encoder's row loop
+and after each of the decoder's rows.
 """
 from __future__ import annotations
 
@@ -166,28 +172,6 @@ class DnaConfig:
     let_pb2: int = 0
 
 
-def unsupported(cfg: DnaConfig) -> list:
-    """The knobs of cfg whose code paths are not ported yet, one entry
-    each (ROADMAP.md lists them)."""
-    missing = []
-    if cfg.row_global and not cfg.canon:
-        missing.append("dna_canon=0 with dna_row_global=1 (row-global "
-                       "updates of the context-keyed tables)")
-    if cfg.sorted_ctx:
-        missing.append("dna_sorted_ctx=1 (sorted-mode position contexts)")
-    if cfg.pe_pos_ctx:
-        missing.append("dna_pe_pos_ctx=1 (paired-end position contexts)")
-    return missing
-
-
-def check_supported(cfg: DnaConfig) -> None:
-    """Raise, one line, for a configuration with unsupported knobs."""
-    missing = unsupported(cfg)
-    if missing:
-        raise NotImplementedError(
-            "not ported to fqsqueezer_tpu_torch: " + ", ".join(missing))
-
-
 class DnaState(NamedTuple):
     siv: torch.Tensor
     # s/b tables, [n_buckets, width] u32 words in int64; the width is the
@@ -203,7 +187,6 @@ class DnaState(NamedTuple):
 
 
 def dna_state_create(cfg: DnaConfig, device=None) -> DnaState:
-    check_supported(cfg)
     n_model = _n_model_ctx(cfg) + (_n_coarse_ctx(cfg) if cfg.mix_w > 0
                                    else 0)
     pe_state = None
@@ -265,6 +248,38 @@ def _pos_bucket(i, length):
     pb = torch.where(i < 24, early, mid)
     pb = torch.where(rem <= 4, 14, pb)
     return torch.where(rem <= 2, 15, pb)
+
+
+def _pos_bucket_sorted(pb, i, length, lcp):
+    """Sorted-mode position bucket (cfg.sorted_ctx): where the read shares
+    a prefix with the previous read of its lane (lcp > 0), the distance
+    past that prefix, capped at 13, in place of the absolute position;
+    the end-of-read buckets 14 and 15 stay."""
+    d = torch.clamp(i - lcp, max=13)
+    rem = length - i
+    pbs = torch.where(rem <= 2, 15, torch.where(rem <= 4, 14,
+                                                torch.clamp(d, min=0)))
+    return torch.where(lcp > 0, pbs, pb)
+
+
+# the position-bucket length of a rowB under dna_pe_pos_ctx: so large that
+# the end-of-read buckets (rem <= 4) never fire
+_PE_NO_END = 1 << 20
+
+
+def _pe_pos_map(lengths, a_start, has, lenB):
+    """(off, sign, plen) [R3] each, per row of the anchored 3-row recoding
+    (dna_pe_pos_ctx): read1 rows keep their coordinates (0, +1, L1); rowA
+    starts at the anchor's start in read2's frame (a, +1, L2, a = 0
+    without an anchor); rowB counts back toward read2's start (lenB - 1,
+    -1, _PE_NO_END), with no end-of-read bucket. lengths: the interleaved
+    [R] true lengths; a_start, has, lenB: [R/2] a pair."""
+    L1, L2 = lengths[0::2], lengths[1::2]
+    z, one = torch.zeros_like(L1), torch.ones_like(L1)
+    off3 = torch.stack([z, torch.where(has, a_start, 0), lenB - 1], dim=1)
+    sign3 = torch.stack([one, one, -one], dim=1)
+    plen3 = torch.stack([L1, L2, torch.full_like(L1, _PE_NO_END)], dim=1)
+    return off3.reshape(-1), sign3.reshape(-1), plen3.reshape(-1)
 
 
 _SLOT_MASK = 0xF
@@ -790,11 +805,22 @@ def _let_pb(cfg, pb):
     return (pb >> 2) if cfg.let_pb2 else pb
 
 
-def _pos_buckets(cfg, pos, lens):
-    """[R, L] position buckets, in original and sorted order and of the
-    paired-end rows (check_supported refuses the sorted-mode buckets of
-    dna_sorted_ctx and the paired-end coordinate map of dna_pe_pos_ctx)."""
-    return _pos_bucket(pos, lens)
+def _pos_buckets(cfg, pos, lens, lcp=None, pos_map=None):
+    """[R, L] position buckets: of each row's own positions, or through
+    the paired-end coordinate map pos_map (off, sign, plen) [R] each
+    (dna_pe_pos_ctx, _pe_pos_map); then, under cfg.sorted_ctx, the
+    sorted-mode override past each row's lcp [R] (_pos_bucket_sorted).
+    The two never meet in one row: a row with lcp > 0 is a read1 row,
+    whose map is the identity."""
+    if pos_map is None:
+        pb = _pos_bucket(pos, lens)
+    else:
+        off, sign, plen = pos_map
+        pb = _pos_bucket(torch.clamp(off[:, None] + sign[:, None] * pos,
+                                     min=0), plen[:, None])
+    if cfg.sorted_ctx and lcp is not None:
+        pb = _pos_bucket_sorted(pb, pos, lens, lcp[:, None])
+    return pb
 
 
 def _code_active(pos, lens, lcp, anchor_mask):
@@ -809,11 +835,12 @@ def _code_active(pos, lens, lcp, anchor_mask):
 
 
 def dna_modeling(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
-                 be=tables.LOCAL, lcp=None, anchor_mask=None):
+                 be=tables.LOCAL, lcp=None, anchor_mask=None, pos_map=None):
     """Batch-frozen modeling (dna_row_global = 0): the cascade over the
     whole batch against the batch-start tables, then (ctx, coded symbol,
     freq, cum) at every position; kcodes are the repaired ones
-    (dna_effective_kcodes). lcp, anchor_mask: as in dna_process_batch_rg.
+    (dna_effective_kcodes). lcp, anchor_mask, pos_map: as in
+    dna_process_batch_rg.
 
     With in-batch local statistics (cfg.local_log2_cells > 0) a loop over
     the read rows: each row is modeled against the batch-frozen tables
@@ -825,7 +852,7 @@ def dna_modeling(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
     pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     lens = lengths[:, None]
     code_active = _code_active(pos, lens, lcp, anchor_mask)
-    pb = _pos_buckets(cfg, pos, lens)
+    pb = _pos_buckets(cfg, pos, lens, lcp, pos_map)
     let_ctx = _letters_plane(cfg, codes, pos, pb)
     parts, _ = _window_parts(cfg, state, kcodes, lengths, be)
     sb = cfg.scale_bits
@@ -865,7 +892,8 @@ def dna_modeling(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
 
 
 def dna_process_batch(cfg: DnaConfig, state: DnaState, codes, kcodes,
-                      lengths, be=tables.LOCAL, lcp=None, anchor_mask=None):
+                      lengths, be=tables.LOCAL, lcp=None, anchor_mask=None,
+                      pos_map=None):
     """One batch's DNA modeling, by the header's update mode: row-global
     (dna_process_batch_rg), or repair and modeling against the
     batch-frozen tables (dna_effective_kcodes, dna_modeling), which leave
@@ -873,15 +901,16 @@ def dna_process_batch(cfg: DnaConfig, state: DnaState, codes, kcodes,
     code_active, s_tc, b_tc)."""
     if cfg.row_global:
         return dna_process_batch_rg(cfg, state, codes, kcodes, lengths, be,
-                                    lcp, anchor_mask)
+                                    lcp, anchor_mask, pos_map)
     eff = dna_effective_kcodes(cfg, state, codes, kcodes, lengths, be)
     return (eff,) + dna_modeling(cfg, state, codes, eff, lengths, be, lcp,
-                                 anchor_mask) + (state.s_tc, state.b_tc)
+                                 anchor_mask, pos_map) + (state.s_tc,
+                                                          state.b_tc)
 
 
 def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
                          lengths, be=tables.LOCAL, lcp=None,
-                         anchor_mask=None):
+                         anchor_mask=None, pos_map=None):
     """Row-global encoder pass: a loop over the r_pl read rows carrying the
     s/b tables. Per row: greedy repair against the row-fresh tables, the
     cascade find (+ rough rescue), context/rank modeling against the
@@ -892,14 +921,16 @@ def dna_process_batch_rg(cfg: DnaConfig, state: DnaState, codes, kcodes,
     no-ops and the rank history skips them) while repair, the finds and
     the insert events keep every in-length position; anchor_mask
     (paired-end): [R, L], the anchored rows' preset spans, also left
-    uncoded.
+    uncoded; pos_map (dna_pe_pos_ctx): the rows' coordinate map
+    (_pe_pos_map). Under dna_sorted_ctx the position buckets past lcp
+    count from it (_pos_buckets).
     Returns (eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc)."""
     R, L = codes.shape
     dev = codes.device
     pos = torch.arange(L, dtype=torch.int64, device=dev)[None, :]
     lens = lengths[:, None]
     code_active = _code_active(pos, lens, lcp, anchor_mask)
-    pb = _pos_buckets(cfg, pos, lens)
+    pb = _pos_buckets(cfg, pos, lens, lcp, pos_map)
     let_ctx = _letters_plane(cfg, codes, pos, pb)
 
     N = cfg.n_lanes
@@ -955,8 +986,8 @@ def dna_pe_encode(cfg: DnaConfig, state: DnaState, codes, lengths,
 
     Returns (codes3 [R3, L], lengths3 [R3], anchor_mask3 [R3, L], lcp3
     [R3] or None, pe_syms [P, 3], pe_act [P, 3], f [P, 3], c [P, 3],
-    None) — the last the reference's dna_pe_pos_ctx map, which
-    check_supported refuses."""
+    pos_map3): the last the rows' coordinate map (_pe_pos_map) under
+    cfg.pe_pos_ctx, else None."""
     B = cfg.bmer_len
     R, L = codes.shape
     raw_k = torch.where(codes >= 4, 0, codes)
@@ -965,6 +996,11 @@ def dna_pe_encode(cfg: DnaConfig, state: DnaState, codes, lengths,
     has = cand_any & (mid < pe.N_CAND)
     codes3, lengths3 = pe.expand_pe_rows(codes, lengths, pos, has, B)
     anchor_mask3 = pe.expand_lengths_mask(codes3.shape[0], L, has, B)
+    pos_map3 = None
+    if cfg.pe_pos_ctx:
+        lenB = torch.where(has, torch.minimum(torch.where(has, pos, 0) + B,
+                                              lengths[1::2]), 0)
+        pos_map3 = _pe_pos_map(lengths, pos, has, lenB)
     lcp3 = None
     if lcp is not None:
         lcp3 = torch.zeros((codes3.shape[0],), dtype=torch.int64,
@@ -979,7 +1015,7 @@ def dna_pe_encode(cfg: DnaConfig, state: DnaState, codes, lengths,
     f = torch.where(pe_act, f, 1 << cfg.scale_bits)
     c = torch.where(pe_act, c, 0)
     return (codes3, lengths3, anchor_mask3, lcp3, pe_syms, pe_act, f, c,
-            None)
+            pos_map3)
 
 
 # ---------------------------------------------------------------------------
@@ -1104,7 +1140,6 @@ def dna_apply_batch(cfg: DnaConfig, state: DnaState, codes, kcodes,
                     lengths, be=tables.LOCAL, lcp=None) -> DnaState:
     """Recompute a (decoded) batch's contexts and evolve the state — the
     encoder's own pass, so both sides converge."""
-    check_supported(cfg)
     eff, ctx_all, sym_enc, _, _, code_active, s_tc, b_tc = \
         dna_process_batch(cfg, state, codes, kcodes, lengths, be, lcp)
     return dna_collect_updates(
@@ -1118,7 +1153,6 @@ def dna_encode_batch(cfg: DnaConfig, state: DnaState, codes, kcodes, lengths,
     encode): the row loop carries row-global s/b tables, and the rest of
     the state (batch-frozen tables too) evolves from the batch. Returns
     (words, n_words, decoder initial states, new state)."""
-    check_supported(cfg)
     eff, ctx_all, sym_enc, f, c, code_active, s_tc, b_tc = \
         dna_process_batch(cfg, state, codes, kcodes, lengths, lcp=lcp)
     words, n_words, states = rans.rans_encode(
@@ -1191,11 +1225,45 @@ K2_ARGS = ("siv", "s_tc", "b_tc", "model", "lengths", "words", "x_in",
            "s_log2_base", "b_log2_rows", "b_log2_base", "mix_w", "mix_b",
            "events", "family", "row_update", "ctx_v", "rough", "let_pb2",
            "prefix_ramp", "pmer_gate", "repair_iters", "ls", "lb", "lm",
-           "local", "local_log2_cells", "local_cap")
+           "local", "local_log2_cells", "local_cap", "pos", "pos_off",
+           "pos_len", "pos_sign")
 # the in-batch local statistics K2 reads, in the order of its kLoc template
 # parameter: none, local_* tables, local_* tables and the DNA model's
 # deltas, klocal_* tables, klocal_* tables and the deltas
 K2_LOCAL = ("none", "local", "local+deltas", "klocal", "klocal+deltas")
+
+
+# a read row's position map, in the order of K2's kPos template parameter:
+# the row's own positions, the sorted-mode buckets past each lane's LCP
+# (dna_sorted_ctx), the paired-end coordinate map (dna_pe_pos_ctx)
+K2_POS = ("plain", "sorted", "pe")
+# K2's launches by the row's position map
+K2_POS_LAUNCHES = dict.fromkeys(K2_POS, 0)
+
+
+class PosMap(NamedTuple):
+    """The position map of one decoded read row (K2's kPos), for the
+    contexts' position buckets: kind 1 (dna_sorted_ctx), off the lanes'
+    LCPs [N] — the prefix each read shares with the previous read of its
+    lane, as meta coded it —, past which a position counts
+    (_pos_bucket_sorted); kind 2 (dna_pe_pos_ctx, rowA and rowB), a
+    position i stands at max(off + sign * i, 0) in a read of length plen,
+    off and plen [N] (_pe_pos_map)."""
+    kind: int
+    off: torch.Tensor
+    plen: torch.Tensor | None = None
+    sign: int = 1
+
+
+def _row_pos_bucket(i: int, length, pos):
+    """[N] position buckets of position i of a row (PosMap pos, or None)."""
+    if pos is not None and pos.kind == 2:
+        return _pos_bucket(torch.clamp(pos.off + pos.sign * i, min=0),
+                           pos.plen)
+    pb = _pos_bucket(torch.full_like(length, i), length)
+    if pos is not None:
+        pb = _pos_bucket_sorted(pb, i, length, pos.off)
+    return pb
 
 
 def k2_local(cfg: DnaConfig) -> int:
@@ -1207,7 +1275,7 @@ def k2_local(cfg: DnaConfig) -> int:
 
 def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
                          ptr, regs, L: int, lcp=None, src=None,
-                         be=tables.LOCAL, loc=None):
+                         be=tables.LOCAL, loc=None, pos=None):
     """K2's plain torch version, on any device: one read row of the decode,
     the reference's whole `outer` step — its `inner` step for each of the
     row's static steps (_decode_segments), then, where the tables are
@@ -1225,7 +1293,8 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
     in-batch local state (ls, lb, lm) as the earlier rows left it
     (_local_state_create, local_row_update), read only: the local s and b
     counts merge into the cascade's, and the deltas lm into the cdf; None
-    without local statistics.
+    without local statistics. pos: the row's position map (PosMap), or
+    None for the row's own positions.
     Returns ((base, kc, ctx_all, sym) int64 [N, L], x, ptr, regs, s_tc,
     b_tc), row-global tables new tensors (the state's are left as they
     were), batch-frozen ones the state's."""
@@ -1308,7 +1377,7 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
             counts, level = _combine_rough(counts, level, cr, fr)
 
         use_code = (level > LEVEL_NONE) & (i >= cfg.prefix_len)
-        pb = _pos_bucket(torch.full_like(level, i), length)
+        pb = _row_pos_bucket(i, length, pos)
         nz = _popcount4(rh)
         if cfg.ctx_v >= 2:
             code_ctx = _code_ctx(level, counts, pb, nz, prevc,
@@ -1358,8 +1427,7 @@ def dna_decode_row_plain(cfg: DnaConfig, state: DnaState, length, words, x,
 
 
 def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be,
-              loc=None):
-    check_supported(cfg)
+              loc=None, pos=None):
     if be is not tables.LOCAL:
         raise ValueError("K2 reads whole tables on one device (the local "
                          "backend)")
@@ -1387,6 +1455,18 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be,
     if lcp is not None:
         want += (("lcp", lcp, torch.int64, (N,)),
                  ("src", src, torch.int64, (N, L)))
+    if pos is not None:
+        # the maps ride on the prefix copy's instantiations: the rows that
+        # take one (sorted rows, rowA, rowB) copy prefixes or anchors
+        if lcp is None or pos.kind not in (1, 2) or (
+                pos.kind == 1 and not cfg.sorted_ctx) or (
+                pos.kind == 2 and (not cfg.pe_pos_ctx
+                                   or pos.sign not in (1, -1))):
+            raise ValueError(f"K2: a position map of kind {pos.kind} "
+                             f"(sign {pos.sign}) on this row and header")
+        want += (("pos.off", pos.off, torch.int64, (N,)),)
+        if pos.kind == 2:
+            want += (("pos.plen", pos.plen, torch.int64, (N,)),)
     if (loc is not None) != _with_local(cfg):
         raise ValueError("K2: the in-batch local state goes with "
                          "local_log2_cells > 0 without row-global updates")
@@ -1436,7 +1516,7 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be,
 
 
 def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
-               lcp=None, src=None, loc=None):
+               lcp=None, src=None, loc=None, pos=None):
     """Allocate one row's outputs and its event scratch and launch `entry`
     (a C function with K2's signature) on the current stream. No checks:
     _check_k2 first. Returns (planes, x, ptr, regs, s_tc, b_tc), the tables
@@ -1467,7 +1547,8 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
         "b_log2_base": cfg.bmer_log2_buckets,
         "mix_w": cfg.mix_w, "mix_b": cfg.mix_b, "events": events,
         "family": FAMILIES.index(table_family(cfg)[0]),
-        "row_update": int(cfg.row_global), "ctx_v": cfg.ctx_v,
+        "row_update": int(cfg.row_global and cfg.canon),
+        "ctx_v": cfg.ctx_v,
         "rough": int(cfg.rough > 0), "let_pb2": int(cfg.let_pb2 > 0),
         "prefix_ramp": int(cfg.prefix_ramp), "pmer_gate": cfg.pmer_gate,
         "repair_iters": cfg.repair_iters,
@@ -1476,7 +1557,11 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
         "lm": None if loc is None else loc[2], "local": k2_local(cfg),
         "local_log2_cells": cfg.local_log2_cells,
         "local_cap": models.local_cap(A_SYM, cfg.scale_bits,
-                                      extra=max(cfg.mix_w, 0))}
+                                      extra=max(cfg.mix_w, 0)),
+        "pos": 0 if pos is None else pos.kind,
+        "pos_off": None if pos is None else pos.off,
+        "pos_len": None if pos is None else pos.plen,
+        "pos_sign": 0 if pos is None else pos.sign}
     args = (ctypes.c_int64 * len(K2_ARGS))(*(
         v.data_ptr() if isinstance(v, torch.Tensor) else v or 0
         for v in (vals[k] for k in K2_ARGS)))
@@ -1490,22 +1575,32 @@ def _k2_launch(entry, cfg, state, length, words, x, ptr, regs, L,
 
 
 def _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs, L, lcp,
-                         src, be, loc=None):
+                         src, be, loc=None, pos=None):
     """One K2 launch for one read row, its table update included. Checks
-    everything before it builds or launches."""
+    everything before it builds or launches. K2 updates canonical tables
+    itself; context-keyed ones take the row's events after it, as torch
+    ops (_apply_sb_updates, the encoder's rule), copied back in place."""
     global K2_LAUNCHES
-    _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be, loc)
+    _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be, loc,
+              pos)
     from ..ops import _build
 
     out = _k2_launch(_build.kernels().fqtz_dna_decode_row, cfg, state,
-                     length, words, x, ptr, regs, L, lcp, src, loc)
+                     length, words, x, ptr, regs, L, lcp, src, loc, pos)
     K2_LAUNCHES += 1
+    K2_POS_LAUNCHES[K2_POS[0 if pos is None else pos.kind]] += 1
+    if cfg.row_global and not cfg.canon:
+        at = torch.arange(L, dtype=torch.int64, device=x.device)[None, :]
+        for tc, new in zip(out[4:], _apply_sb_updates(
+                cfg, be, state.s_tc, state.b_tc, out[0][1],
+                at < length[:, None])):
+            tc.copy_(new)
     return out
 
 
 def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
                    regs, L: int, lcp=None, src=None, be=tables.LOCAL,
-                   loc=None):
+                   loc=None, pos=None):
     """One read row of the decode, its s/b table update included: on CUDA
     tensors kernel K2 (a failed build or launch raises; nothing falls back
     to the plain version), which updates state.s_tc and state.b_tc IN
@@ -1517,10 +1612,10 @@ def dna_decode_row(cfg: DnaConfig, state: DnaState, length, words, x, ptr,
     kind = state.model.device.type
     if kind == "cuda":
         return _dna_decode_row_cuda(cfg, state, length, words, x, ptr, regs,
-                                    L, lcp, src, be, loc)
+                                    L, lcp, src, be, loc, pos)
     if kind == "cpu":
         return dna_decode_row_plain(cfg, state, length, words, x, ptr, regs,
-                                    L, lcp, src, be, loc)
+                                    L, lcp, src, be, loc, pos)
     raise ValueError(f"dna_decode_row: no scan for device "
                      f"{state.model.device}")
 
@@ -1608,7 +1703,11 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     pe symbols and arms its anchor, and rowA and rowB, of the lengths the
     anchor gives, take their first B positions from the anchor through the
     row's prefix copy. In sorted order a read1 row's source is the previous
-    read1, 3 rows back.
+    read1, 3 rows back. Each row's position map (PosMap) follows the
+    header: under dna_sorted_ctx the sorted rows' (read1 rows' in PE)
+    buckets count past their meta LCP, under dna_pe_pos_ctx rowA and
+    rowB take read2's coordinates (from the anchor's start a, of length
+    L2, on rowA; back from lenB - 1 on rowB).
     On a CUDA device row-global s/b tables are updated in place: the
     returned state holds the same tensors, and the given one no longer
     holds the batch's starting tables.
@@ -1627,7 +1726,6 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
     ctx_all, sym, code_active), of the walked rows, and with anchors also
     (final pe lane states, pe_syms [P, 3], pe_act [P, 3], the walked rows'
     codes [R3, L] and lengths [R3]), as the reference's."""
-    check_supported(cfg)
     if lcp is not None and lcp_stride not in (1, 2):
         raise NotImplementedError(f"LCP stride {lcp_stride}: only 1 "
                                   f"(single-end) and 2 (paired-end) are "
@@ -1670,6 +1768,7 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
         zeros = torch.zeros((N,), dtype=torch.int64, device=dev)
         anc_lo = anc_hi = lenA = lenB = zeros
         anc_has = torch.zeros((N,), dtype=torch.bool, device=dev)
+        no_end = torch.full((N,), _PE_NO_END, dtype=torch.int64, device=dev)
         row_lens, anc_lcps, pe_rows = [], [], []
     loc = _local_state_create(cfg, dev) if _with_local(cfg) else None
     rows = []
@@ -1680,17 +1779,24 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
                       else lenA if k3 == 1 else lenB)
         else:
             length = len_grid[:, rd].contiguous()
-        row_lcp = src = None
+        row_lcp = src = pos_map = None
         if k3:
             # rowA or rowB: an anchored lane's first B bases are preset
             # from the anchor (positions below the row's "lcp")
             row_lcp = torch.where(anc_has, torch.clamp(length, max=B), 0)
             src = _anchor_plane(anc_lo, anc_hi, k3 == 2, B, L)
+            if cfg.pe_pos_ctx:
+                # read2's coordinates: rowA from the anchor's start, rowB
+                # back from lenB - 1 (_pe_pos_map)
+                pos_map = (PosMap(2, a, L2, 1) if k3 == 1 else
+                           PosMap(2, lenB - 1, no_end, -1))
         elif lcp is not None:
             row_lcp, src = lcp_rows[rd], prev[0]
+            if cfg.sorted_ctx:
+                pos_map = PosMap(1, row_lcp)
         planes, x, ptr, regs, s_tc, b_tc = dna_decode_row(
             cfg, state._replace(s_tc=s_tc, b_tc=b_tc), length, words, x, ptr,
-            regs, L, row_lcp, src, be=be, loc=loc)
+            regs, L, row_lcp, src, be=be, loc=loc, pos=pos_map)
         if loc is not None:
             act_r = pos < length[:, None]
             if lcp is not None:
@@ -1704,10 +1810,10 @@ def dna_decode_batch(cfg: DnaConfig, state: DnaState, lengths, words,
             row_lens.append(length)
             anc_lcps.append(row_lcp if k3 else zeros)
         if with_pe and k3 == 0:
+            L2 = len_grid[:, 2 * (rd // 3) + 1].contiguous()
             (pe_x, pe_ptr, anc_lo, anc_hi, a, anc_has, lenA, lenB, syms,
-             act) = _pe_row_end(cfg, pe_tbl, pe_cdfs, planes[0], length,
-                                len_grid[:, 2 * (rd // 3) + 1], pe_x,
-                                pe_ptr, pe_words)
+             act) = _pe_row_end(cfg, pe_tbl, pe_cdfs, planes[0], length, L2,
+                                pe_x, pe_ptr, pe_words)
             pe_rows.append((syms, act, a, anc_has))
 
     codes, eff, ctx_all, sym = (common.from_row_blocks(torch.stack(r))

@@ -3,8 +3,8 @@ the row's s/b table update, one launch) on one card, against its plain
 torch version.
 
     python3 -m fqsqueezer_tpu_torch.tools.k2_compare [--sorted | --pe]
-        [--family k2|ktable|table|local|klocal] [--other other.cu ...]
-        [--other-args N]
+        [--pos sorted|pe] [--family k2|ktable|table|local|klocal]
+        [--other other.cu ...] [--other-args N]
 
 The input is the main path's real batch: the bench corpus's first 20,000
 reads (chip_smoke.py's) compressed on the card at the bench primary row
@@ -19,7 +19,11 @@ H0 — the first writer's batch-frozen table_* cells, ctx v1, no mix, no
 ramp, three repairs —, with --family local under H1 — H0's tables with
 in-batch local_* tables and DNA deltas — and with --family klocal under
 H4 — batch-frozen ktable_* cells with klocal_* tables —, each at -s -om
-o -qm o -im o -gs 5, 2048 lanes, 2 read rows a batch), and the DNA decode inputs of the archive's second
+o -qm o -im o -gs 5, 2048 lanes, 2 read rows a batch; with --pos sorted
+the sorted row under dna_sorted_ctx 1, whose read rows take K2's
+sorted-mode position map, and with --pos pe the PE row under
+dna_pe_pos_ctx 1, whose rowA and rowB take the paired-end map), and the
+DNA decode inputs of the archive's second
 batch with the DNA state the first batch left (real_dna_batch). With
 --pe the row-end PE step (dna._pe_row_end, torch ops between K2's
 launches) is timed too. dna_decode_batch decodes it with every read row
@@ -172,13 +176,14 @@ def _row_checker(rows, what):
     k2 = dna.dna_decode_row
 
     def both(cfg, state, length, words, x, ptr, regs, L, lcp=None, src=None,
-             be=tables.LOCAL, loc=None):
-        args = (cfg, state, length, words, x, ptr, regs, L, lcp, src, loc)
-        want = dna.dna_decode_row_plain(*args[:10], be=be, loc=loc)
+             be=tables.LOCAL, loc=None, pos=None):
+        args = (cfg, state, length, words, x, ptr, regs, L, lcp, src, loc,
+                pos)
+        want = dna.dna_decode_row_plain(*args[:10], be=be, loc=loc, pos=pos)
         work = state._replace(s_tc=state.s_tc.clone(),
                               b_tc=state.b_tc.clone())
         before = dna.K2_LAUNCHES
-        got = k2(cfg, work, *args[2:10], be=be, loc=loc)
+        got = k2(cfg, work, *args[2:10], be=be, loc=loc, pos=pos)
         if dna.K2_LAUNCHES != before + 1:
             raise RuntimeError("dna_decode_row did not launch K2")
         if got[4] is not work.s_tc or got[5] is not work.b_tc:
@@ -193,7 +198,7 @@ def _row_checker(rows, what):
                                f"{what}, row {len(rows)}: {', '.join(bad)}, "
                                f"max abs err {err}")
         if loc is not None:   # the batch updates its local state in place
-            args = args[:10] + (tuple(t.clone() for t in loc),)
+            args = args[:10] + (tuple(t.clone() for t in loc), pos)
         rows.append((args, want))
         return want
     return both
@@ -207,8 +212,8 @@ def check_rows(cfg, state, lengths, words, init, L, lcp=None, pe=None,
     (_row_checker): K2 against the plain row step. The batch goes on with
     the plain results, and the caller's state keeps its tables. Returns,
     a row, (its dna_decode_row arguments — cfg, state, length, words, x,
-    ptr, regs, L, lcp, src and the in-batch local state the row read, or
-    None —, the plain result)."""
+    ptr, regs, L, lcp, src, the in-batch local state the row read, or
+    None, and its position map, or None —, the plain result)."""
     k2 = dna.dna_decode_row
     rows = []
     dna.dna_decode_row = _row_checker(rows, what)
@@ -222,7 +227,7 @@ def check_rows(cfg, state, lengths, words, init, L, lcp=None, pe=None,
 
 def check_spec_rows(cfg, state, specs, words, init, L, what="the batch"):
     """check_rows for rows given one by one (utils/dna_batches.py
-    pe_row_inputs): specs holds each row's (length, lcp, src); x, the
+    pe_row_inputs): specs holds each row's (length, lcp, src, pos); x, the
     word cursor, the registers and the tables carry from row to row as in
     dna_decode_batch."""
     rows = []
@@ -231,9 +236,9 @@ def check_spec_rows(cfg, state, specs, words, init, L, what="the batch"):
     x, ptr = init, torch.zeros((), dtype=torch.int64, device=init.device)
     regs = torch.zeros((dna.K2_NREGS, N), dtype=torch.int64,
                        device=init.device)
-    for length, lcp, src in specs:
+    for length, lcp, src, pos in specs:
         _, x, ptr, regs, s_tc, b_tc = check(cfg, state, length, words, x,
-                                            ptr, regs, L, lcp, src)
+                                            ptr, regs, L, lcp, src, pos=pos)
         state = state._replace(s_tc=s_tc, b_tc=b_tc)
     return rows
 
@@ -245,11 +250,14 @@ def chain_rows(rows, lanes=CHAIN_LANES):
         return None if t is None else t[:lanes].contiguous()
 
     out = []
-    for (cfg, st, length, words, x, ptr, regs, L, lcp, src, loc), _ in rows:
+    for (cfg, st, length, words, x, ptr, regs, L, lcp, src, loc,
+         pos), _ in rows:
+        if pos is not None:
+            pos = pos._replace(off=cut(pos.off), plen=cut(pos.plen))
         out.append((dataclasses.replace(cfg, n_lanes=lanes), st,
                     cut(length), words, cut(x), ptr,
                     regs[:, :lanes].contiguous(), L, cut(lcp), cut(src),
-                    loc))
+                    loc, pos))
     return out
 
 
@@ -261,10 +269,29 @@ def k2_launcher(entry=None):
     entry = entry or _build.kernels().fqtz_dna_decode_row
 
     def launch(cfg, state, length, words, x, ptr, regs, L, lcp=None,
-               src=None, loc=None, be=tables.LOCAL):
+               src=None, loc=None, pos=None, be=tables.LOCAL):
         return dna._k2_launch(entry, cfg, state, length, words, x, ptr, regs,
-                              L, lcp, src, loc)
+                              L, lcp, src, loc, pos)
     return launch
+
+
+def k2_updates(cfg) -> bool:
+    """Whether K2 applies the row's s/b table update itself: canonical
+    row-global tables (_k2_launch's row_update). Context-keyed row-global
+    tables take it after K2, as torch ops (dna._dna_decode_row_cuda): not
+    K2's work, so neither K2's bound nor its plain version counts it."""
+    return cfg.row_global and cfg.canon
+
+
+def plain_row(a):
+    """K2's plain version on one row's dna_decode_row arguments a
+    (check_rows'): the plain row step, without the table update where K2
+    does not apply it (k2_updates). Such a config reads row_global nowhere
+    else in the row: it keeps no local state (loc is None)."""
+    cfg = a[0]
+    if cfg.row_global and not k2_updates(cfg):
+        cfg = dataclasses.replace(cfg, row_global=False)
+    return dna.dna_decode_row_plain(cfg, *a[1:10], loc=a[10], pos=a[11])
 
 
 def replay_ms(args, launch=None, reps=20):
@@ -276,7 +303,7 @@ def replay_ms(args, launch=None, reps=20):
     not see its own events."""
     if launch is None:
         for a in args:
-            dna._check_k2(*a[:10], tables.LOCAL, a[10])
+            dna._check_k2(*a[:10], tables.LOCAL, a[10], a[11])
         launch = k2_launcher()
     work = [(a, a[1].s_tc.clone(), a[1].b_tc.clone()) for a in args]
     marks = [(torch.cuda.Event(enable_timing=True),
@@ -376,10 +403,12 @@ def k2_bound_ms(rows):
     update changes (8 B), and in sorted order the LCPs and the prefix
     source's copied bases (8 B each). Operations: K2_OPS_PER_POS an active
     lane-position and K2_OPS_PER_EVENT an insert event over the published
-    32-bit rate."""
+    32-bit rate. The update's cells and events count only where K2 applies
+    it (k2_updates)."""
     nbytes = 0
     n_ops = 0
-    for (cfg, st, length, words, x, ptr, regs, L, lcp, src, loc), want in rows:
+    for (cfg, st, length, words, x, ptr, regs, L, lcp, src, loc,
+         pmap), want in rows:
         (_, kc, ctx, _), _, ptr_end, _, s_new, b_new = want
         N = length.shape[0]
         pos = torch.arange(L, device=kc.device)[None, :]
@@ -422,10 +451,13 @@ def k2_bound_ms(rows):
         model_rows = (torch.cat([fine, dna._n_model_ctx(cfg)
                                  + dna._coarse_ctx(cfg, fine)])
                       if cfg.mix_w > 0 else fine)
-        changed = int((s_new != st.s_tc).sum() + (b_new != st.b_tc).sum())
-        n_events = (int((active & (pos >= s_w)).sum()
-                        + (active & (pos >= b_w)).sum())
-                    if cfg.row_global else 0)
+        if k2_updates(cfg):
+            changed = int((s_new != st.s_tc).sum()
+                          + (b_new != st.b_tc).sum())
+            n_events = int((active & (pos >= s_w)).sum()
+                           + (active & (pos >= b_w)).sum())
+        else:
+            changed = n_events = 0
         row_bytes = 8 * dna.table_family(cfg)[2]
         if loc is not None:
             # the local cells of the s and b queries (keyed as the finds)
@@ -446,6 +478,8 @@ def k2_bound_ms(rows):
                    + 8 * changed)
         if lcp is not None:
             nbytes += 8 * N + 8 * int(torch.minimum(lcp, length).sum())
+        if pmap is not None:     # the map's per-lane arrays
+            nbytes += 8 * N * (1 if pmap.plen is None else 2)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT_OPS_PER_S * 1e3
     return (max(by_bytes, by_ops),
@@ -460,6 +494,10 @@ def main() -> int:
     ap.add_argument("--pe", action="store_true",
                     help="the bench's PE row (-p -om o -qm n -im n) instead "
                     "of the primary row")
+    ap.add_argument("--pos", choices=("sorted", "pe"),
+                    help="the sorted row with dna_sorted_ctx 1, or the PE "
+                    "row with dna_pe_pos_ctx 1: K2's position maps (an "
+                    "--other source must take them too)")
     ap.add_argument("--family", choices=("k2", *FAMILY_ROWS),
                     default="k2",
                     help="the s/b table family: K2 cells (the bench rows), "
@@ -471,6 +509,8 @@ def main() -> int:
                     help="the length of the --other sources' struct Args "
                     "(41: a source from before the local statistics)")
     args = ap.parse_args()
+    args.sorted = args.sorted or args.pos == "sorted"
+    args.pe = args.pe or args.pos == "pe"
     if not torch.cuda.is_available():
         raise SystemExit("k2_compare: no CUDA device is visible")
     print(subprocess.run(
@@ -482,12 +522,14 @@ def main() -> int:
         if args.pe:
             src2 = os.path.join(d, "in_2.fastq")
             write_pe_corpus(src, src2, 10_000, 100, 4_600_000, seed=42)
-            pipeline.compress_pe(cli.parse_args(["e", *PE_ROW, src, src2]),
-                                 src, src2, arc)
+            p = cli.parse_args(["e", *PE_ROW, src, src2])
+            p.dna_pe_pos_ctx = int(args.pos == "pe")
+            pipeline.compress_pe(p, src, src2, arc)
         else:
             write_fastq_corpus(src, 20_000, 100, 4_600_000, seed=42)
             row = SORTED_ROW if args.sorted else BENCH_ROW
             p = cli.parse_args(["e", *row, src])
+            p.dna_sorted_ctx = int(args.pos == "sorted")
             if args.family != "k2":
                 gen, row = FAMILY_ROWS[args.family]
                 p = header_generation(cli.parse_args(["e", *row, src]), gen)
@@ -498,7 +540,7 @@ def main() -> int:
     steps = len(rows) * L
     row_args = [a for a, _ in rows]
     runs = [("K2", None, True)]
-    cut_runs = CUTS if batch[0].row_global else {}
+    cut_runs = CUTS if k2_updates(batch[0]) else {}
     for k, (name, cuts) in enumerate(cut_runs.items()):
         runs.append((name, variant(cut_source(f"k2_cut{k}", cuts),
                                    f"k2_cut{k}"), False))
@@ -528,12 +570,14 @@ def main() -> int:
               f"{d_ms / len(rows):.4f} ms a row")
     chain = chain_rows(rows)
     floor_ms = replay_ms(chain)
-    plain_ms = replay_ms(
-        row_args, lambda *a: dna.dna_decode_row_plain(*a[:10], loc=a[10]), 2)
+    plain_ms = replay_ms(row_args, lambda *a: plain_row(a), 2)
     bound, by = k2_bound_ms(rows)
-    name = ("sorted" if args.sorted else "PE" if args.pe
-            else "main" if args.family == "k2"
-            else f"{FAMILY_ROWS[args.family][0]} ({args.family} cells)")
+    if args.sorted or args.pe:
+        name = ("sorted" if args.sorted else "PE") + (
+            f" (the {args.pos} position map)" if args.pos else "")
+    else:
+        name = ("main" if args.family == "k2" else
+                f"{FAMILY_ROWS[args.family][0]} ({args.family} cells)")
     print(f"the {name} path's batch "
           f"({len(rows)} rows, {steps} steps): chain "
           f"floor ({CHAIN_LANES} lanes) {floor_ms:.4f} ms, plain torch "

@@ -155,16 +155,19 @@ def _warm(cfg, rng, seed, R, L, device):
     """(genome, the DNA state after two warm-up batches of R reads through
     the port's encoder and state update, encode): about 8x coverage a
     batch, so that a batch's k-mers hit the tables. encode(codes, lengths,
-    lcp=None, anchor_mask=None, state=...) models one batch: ((codes,
-    lengths, eff, ctx, sym, code_active, s_tc, b_tc), (freq, cum))."""
+    lcp=None, anchor_mask=None, state=..., pos_map=None) models one
+    batch: ((codes, lengths, eff, ctx, sym, code_active, s_tc, b_tc),
+    (freq, cum))."""
     genome = make_genome(max(600, R * L // 8), seed)
 
-    def encode(codes, lengths, lcp=None, anchor_mask=None, state=None):
+    def encode(codes, lengths, lcp=None, anchor_mask=None, state=None,
+               pos_map=None):
         c = torch.from_numpy(codes).to(device)
         n = torch.from_numpy(lengths).to(device)
         kc = torch.where(c >= 4, 0, c)
         eff, ctx, sym, f, cum, act, s_tc, b_tc = dna.dna_process_batch(
-            cfg, state, c, kc, n, lcp=lcp, anchor_mask=anchor_mask)
+            cfg, state, c, kc, n, lcp=lcp, anchor_mask=anchor_mask,
+            pos_map=pos_map)
         return (c, n, eff, ctx, sym, act, s_tc, b_tc), (f, cum)
 
     state = dna.dna_state_create(cfg, device)
@@ -198,7 +201,8 @@ def _word_plane(cfg, f, cum, cap, short, device):
 PE_KINDS = ("none", "start", "end", "random", "short")
 
 
-def pe_row_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device):
+def pe_row_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device,
+                  pe_pos_ctx: bool = False):
     """(cfg, state, rows, words int32 [W], init states [N] int64, bases) of
     one encoded paired-end batch: n_lanes * r_pl interleaved pairs (r_pl pairs
     a lane), mates from one small genome, each pair's anchor of the kind
@@ -206,12 +210,16 @@ def pe_row_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device):
     recoding (pe.expand_pe_rows, the spans left uncoded) and encoded into
     one word stream. rows: the dna_decode_row arguments of each expanded
     row, in decode order — (length [N], lcp [N] or None, src [N, L] or
-    None), an anchored row's lcp min(B, length) on its anchored lanes and
-    its src the anchor's bases, as dna_decode_batch gives them; bases: the
-    rows' encoded base planes, [N, L] each, what their decode must give."""
+    None, pos: the row's dna.PosMap or None), an anchored row's lcp
+    min(B, length) on its anchored lanes and its src the anchor's bases,
+    as dna_decode_batch gives them; bases: the rows' encoded base planes,
+    [N, L] each, what their decode must give. pe_pos_ctx: the header's
+    dna_pe_pos_ctx, so that rowA and rowB take read2's coordinates (the
+    encoder's dna._pe_pos_map, the rows' PosMap)."""
     cfg = dataclasses.replace(bench_dna_config(n_lanes),
                               smer_log2_buckets=LOG2_BUCKETS,
-                              bmer_log2_buckets=LOG2_BUCKETS)
+                              bmer_log2_buckets=LOG2_BUCKETS,
+                              pe_pos_ctx=pe_pos_ctx)
     B = cfg.bmer_len
     rng = np.random.default_rng(seed)
     P = n_lanes * r_pl
@@ -243,8 +251,12 @@ def pe_row_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device):
         torch.from_numpy(codes).to(device),
         torch.from_numpy(lengths).to(device), a_t, has_t, B)
     mask3 = pe.expand_lengths_mask(codes3.shape[0], L, has_t, B)
+    lengths_t = torch.from_numpy(lengths).to(device)
+    lenB = torch.where(has_t, torch.minimum(a_t + B, lengths_t[1::2]), 0)
+    pos_map = (dna._pe_pos_map(lengths_t, a_t, has_t, lenB) if pe_pos_ctx
+               else None)
     _, (f, cum) = encode(codes3.cpu().numpy(), lengths3.cpu().numpy(),
-                         anchor_mask=mask3, state=state)
+                         anchor_mask=mask3, state=state, pos_map=pos_map)
     words, init = _word_plane(cfg, f, cum, codes3.shape[0] * max(L, 2),
                               False, device)
     n_rows = 3 * r_pl
@@ -253,14 +265,18 @@ def pe_row_inputs(seed: int, n_lanes: int, r_pl: int, L: int, device):
     anchored = grid(torch.stack([torch.zeros_like(has_t), has_t, has_t],
                                 dim=1).reshape(-1))
     code_g = codes3.reshape(n_lanes, n_rows, L)
+    maps = ([grid(t) for t in pos_map] if pe_pos_ctx else None)
     rows = []
     for rd in range(n_rows):
         length = len_g[:, rd].contiguous()
         if rd % 3 == 0:
-            rows.append((length, None, None))
+            rows.append((length, None, None, None))
         else:
             # an expanded row's own first B bases are its anchor's
             lcp = torch.where(anchored[:, rd], torch.clamp(length, max=B), 0)
-            rows.append((length, lcp, code_g[:, rd].contiguous()))
+            pos = None if maps is None else dna.PosMap(
+                2, maps[0][:, rd].contiguous(), maps[2][:, rd].contiguous(),
+                1 if rd % 3 == 1 else -1)
+            rows.append((length, lcp, code_g[:, rd].contiguous(), pos))
     return cfg, state, rows, words, init, list(code_g.unbind(1))
 

@@ -279,6 +279,40 @@ def test_k2_with_lcp_equals_plain_row_scan(N, r_pl, L):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "pe", "canon0"])
+def test_k2_position_maps_and_table_rows_equal_plain_row_scan(kind):
+    """The header knobs: the sorted-mode position map on sorted rows
+    (dna_sorted_ctx), the paired-end map on rowA and rowB
+    (dna_pe_pos_ctx), and row-global context-keyed table cells (dna_canon
+    0 with dna_row_global 1: K2, then the row's table update as torch
+    ops, in place); every row exactly against the plain row step, both
+    tables included, and each row takes its map."""
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.tools.k2_compare import (check_rows,
+                                                       check_spec_rows)
+    from fqsqueezer_tpu_torch.utils import dna_batches as db
+
+    _card()
+    if kind == "pe":
+        cfg, state, specs, words, init, _ = db.pe_row_inputs(
+            7, 256, 2, 104, "cuda", pe_pos_ctx=True)
+        rows = check_spec_rows(cfg, state, specs, words, init, 104)
+        assert [a[11] is not None for a, _ in rows] == [
+            k % 3 != 0 for k in range(len(rows))]
+        return
+    cfg = dataclasses.replace(db.bench_dna_config(256),
+                              smer_log2_buckets=db.LOG2_BUCKETS,
+                              bmer_log2_buckets=db.LOG2_BUCKETS)
+    cfg = (dataclasses.replace(cfg, sorted_ctx=True) if kind == "sorted"
+           else dataclasses.replace(cfg, canon=False, sb_proto=0, rough=0))
+    *batch, lcp = db.dna_decode_inputs(9, 256, 3, 104, "cuda",
+                                       sorted_reads=True, cfg=cfg)
+    rows = check_rows(*batch, 104, lcp)
+    assert all((a[11] is not None) == (kind == "sorted") for a, _ in rows)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("N,r_pl,L", [(8, 5, 40), (8, 5, 104),
                                       (1024, 2, 104)])
 def test_k2_on_anchored_rows_equals_plain_row_scan(N, r_pl, L):
@@ -297,7 +331,7 @@ def test_k2_on_anchored_rows_equals_plain_row_scan(N, r_pl, L):
     # some anchored lanes copy their whole row (read2 shorter than B, or
     # an anchor at read2's end: rowA is the anchor alone)
     assert any(lcp is not None and bool(((lcp > 0) & (lcp == length)).any())
-               for length, lcp, _ in specs)
+               for length, lcp, _, _ in specs)
     for (_, plain), want in zip(rows, bases):
         assert torch.equal(plain[0][0], want)
 
@@ -473,9 +507,10 @@ def test_k2_refuses_instead_of_falling_back():
             dna.dna_decode_row(*args)
     with pytest.raises(ValueError):          # another table backend
         dna.dna_decode_row(*good, be=tables.LocalBackend())
-    with pytest.raises(NotImplementedError):  # a header K2 does not take
+    with pytest.raises(ValueError):  # a position map without a prefix copy
         dna.dna_decode_row(*bad(0, dataclasses.replace(cfg,
-                                                       sorted_ctx=True)))
+                                                       sorted_ctx=True)),
+                           pos=dna.PosMap(1, lengths))
     with pytest.raises(ValueError):     # tables of another family's width
         dna.dna_decode_row(*bad(1, st._replace(
             s_tc=torch.zeros((rows, tables.KW), dtype=torch.int64,

@@ -303,31 +303,64 @@ def test_qual_ctx_plane_equals_the_scans_contexts(decoded):
                                   decoded["tqual"][0].numpy())
 
 
+def _one_row(cfg, seed):
+    """(cfg's fresh state, codes [8, 40], lengths [8]): one read row of 8
+    lanes, reads of a 200-base genome, lengths 30 to 40."""
+    from fqsqueezer_tpu_torch.utils import dna_batches
+
+    rng = np.random.default_rng(seed)
+    codes, lengths = dna_batches._reads(rng, make_genome(200, seed), 8, 40,
+                                        seed)
+    lengths = np.minimum(lengths, rng.integers(30, 41, 8))
+    codes = np.where(np.arange(40)[None, :] < lengths[:, None], codes, 0)
+    return (dna.dna_state_create(cfg), torch.from_numpy(codes),
+            torch.from_numpy(lengths).to(torch.int64))
+
+
 def test_decode_scans_refuse_what_is_not_ported():
-    """What the decode scans lack raises NotImplementedError; the in-batch
-    deltas and local tables, once refused here, are ported: the quality
-    scan with deltas decodes (an empty batch), and the DNA header of
-    context-keyed tables with local tables passes check_supported, while
-    row-global updates of those tables stay refused."""
+    """What the decode scans lack raises NotImplementedError: an LCP
+    stride no writer stores. What they once refused decodes: the quality
+    scan with deltas (an empty batch); one read row of row-global
+    context-keyed tables (dna_canon 0, dna_row_global 1), whose plain
+    decode returns the row and leaves the tables the encoder's row loop
+    left; and one rowB-like row under the paired-end position map
+    (dna_pe_pos_ctx: positions counted back from 37, no end bucket),
+    encoded through dna_process_batch_rg's pos_map and decoded through
+    the row's PosMap."""
     cfg = quality.QualConfig(with_local=True, n_lanes=8)
     syms, _, ptr = quality.qual_decode_scan(
         cfg, torch.zeros((cfg.n_ctx, 8), dtype=torch.int32),
         torch.zeros(8, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
         rans.rans_initial_states(8), 8)
     assert tuple(syms.shape) == (8, 8) and int(ptr) == 0
-    dna.check_supported(dna.DnaConfig())
-    with pytest.raises(NotImplementedError, match="dna_canon=0"):
-        dna.dna_decode_batch(dataclasses.replace(dna.DnaConfig(),
-                                                 row_global=True), None,
-                             torch.zeros(8), None, None, 8)
     # no writer stores an LCP stride but 1 (single-end) and 2 (paired-end)
     with pytest.raises(NotImplementedError, match="stride 3"):
         dna.dna_decode_batch(bench_dna_config(8), None, torch.zeros(8),
                              None, None, 8, lcp=torch.zeros(8), lcp_stride=3)
-    with pytest.raises(NotImplementedError, match="dna_pe_pos_ctx"):
-        dna.dna_decode_batch(dataclasses.replace(
-            bench_dna_config(8), pe_log2_buckets=14, pe_pos_ctx=True), None,
-            torch.zeros(8), None, None, 8)
+    small = dataclasses.replace(bench_dna_config(8), siv_len=8, prefix_len=5,
+                                smer_log2_buckets=9, bmer_log2_buckets=9)
+    canon0 = dataclasses.replace(small, canon=False, sb_proto=0, rough=0,
+                                 claim_rounds=0)
+    pe_pos = dataclasses.replace(small, pe_log2_buckets=10, pe_pos_ctx=True)
+    no_end = torch.full((8,), dna._PE_NO_END, dtype=torch.int64)
+    for cfg, pos in ((canon0, None),
+                     (pe_pos, dna.PosMap(2, torch.full((8,), 37), no_end,
+                                         -1))):
+        state, c, n = _one_row(cfg, 7)
+        pos_map = None if pos is None else (
+            pos.off, torch.full((8,), pos.sign), pos.plen)
+        (_, _, _, f, cum, _, s_tc, b_tc) = dna.dna_process_batch(
+            cfg, state, c, torch.where(c >= 4, 0, c), n, pos_map=pos_map)
+        words, n_words, init = rans.rans_encode(
+            common.lane_grid(f, 8).to(torch.int32),
+            common.lane_grid(cum, 8).to(torch.int32), cfg.scale_bits)
+        (base, *_), _, ptr, _, s_got, b_got = dna.dna_decode_row_plain(
+            cfg, state, n, words.to(torch.int32), init,
+            torch.zeros((), dtype=torch.int64),
+            torch.zeros((dna.K2_NREGS, 8), dtype=torch.int64), 40, pos=pos)
+        assert torch.equal(base, c) and int(ptr) == int(n_words)
+        assert torch.equal(s_got, s_tc) and torch.equal(b_got, b_tc)
+        assert not torch.equal(s_tc, state.s_tc)
 
 
 def _jax_state(state):
@@ -412,7 +445,7 @@ def _knob_digest(outs):
 def test_check_supported_refuses_untested_header_knobs(knob, value, named):
     """Each header knob that the older writers set (once refused, now
     ported) holds its branch against the reference on one batch
-    (_knob_batch): check_supported takes it; the batch's modeling —
+    (_knob_batch): the batch's modeling —
     repair, the cascade, the contexts, the cdf (f, c), the tables the
     row-global pass carried — equals the reference's (dna_modeling against
     batch-frozen tables; for the rough knob dna_process_batch_rg), by the
@@ -421,7 +454,6 @@ def test_check_supported_refuses_untested_header_knobs(knob, value, named):
     batch, its repaired kcodes, and its contexts and symbols at every
     coded position."""
     cfg, state, c, n = _knob_batch(knob, value, named)
-    dna.check_supported(cfg)
     got = dna.dna_process_batch(cfg, state, c, torch.where(c >= 4, 0, c), n)
     assert _knob_digest(got) == KNOB_SHA256[named]
     words, _, init = rans.rans_encode(

@@ -243,7 +243,7 @@ def test_id_decode_batch(id_batch):
 
 def test_id_codec_v1_is_refused():
     """The legacy id codec (the first writer's, id_codec_v 1), once
-    refused, against the reference: unported_modes passes it; on the
+    refused, against the reference: make_configs maps it; on the
     device batch of the other tests, with its padding rows tokenized like
     real ones (host_n_valid), the reference's encode (ALPHA over all 256
     symbols of every context, the padding coded) decodes through the
@@ -254,9 +254,7 @@ def test_id_codec_v1_is_refused():
     p.dna_mode = DnaMode.SE_ORIGINAL
     p.id_mode = IdMode.LOSSLESS
     p.id_codec_v = 1
-    assert pipeline.unported_modes(p) == []
-    p.id_codec_v = 2
-    assert pipeline.unported_modes(p) == []
+    assert pipeline.make_configs(p)[3].codec_v == 1
     _, _, idl, _, model = _batch()
     jcfg = jids.IdConfig(max_id_len=28, n_fields=2, n_lanes=N, codec_v=1)
     tcfg = tids.IdConfig(max_id_len=28, n_fields=2, n_lanes=N, codec_v=1)

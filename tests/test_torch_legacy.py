@@ -275,7 +275,7 @@ def test_load_params_without_knob_keys_is_h0():
     ("H4", "ktable", 6)])
 def test_header_generations_map_onto_their_table_family(gen, family, width):
     """Each generation's DnaConfig in both packages: the same config, its
-    table family, check_supported passes, and the tables at -gs 5 (H0
+    table family, and the tables at -gs 5 (H0
     2^21 buckets x 16 words, H5/H6 2^22 x 6)."""
     p = tparams.header_generation(
         cli.parse_args(["e", "-s", "-om", "o", "-qm", "o", "-im", "o",
@@ -284,7 +284,6 @@ def test_header_generations_map_onto_their_table_family(gen, family, width):
     tcfg = pipeline.make_configs(p)[0]
     jcfg = jpipeline.make_configs(jp)[0]
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    dna.check_supported(tcfg)
     assert dna.table_family(tcfg)[0::2] == (family, width)
     log2b = 21 if family == "table" else 22
     assert tcfg.smer_log2_buckets == tcfg.bmer_log2_buckets == log2b

@@ -340,7 +340,6 @@ def test_generation_batch_matches_the_reference(gen):
     encode of the batch returns the batch, its repaired kcodes and its
     contexts and symbols at every coded position."""
     cfg, state, c, n = _gen_batch(gen)
-    dna.check_supported(cfg)
     got = dna.dna_process_batch(cfg, state, c, torch.where(c >= 4, 0, c), n)
     assert _digest(got[:6]) == GEN_SHA256[gen]
     words, _, init = rans.rans_encode(common.lane_grid(got[3], 8),
@@ -474,7 +473,6 @@ def test_load_params_of_each_generation_header(gen):
     jp = jparams.Params.load_params(blob)
     assert tp.store_params() == jp.store_params() == want.store_params()
     dcfg, qcfg = pipeline.make_configs(tp)[:2]
-    dna.check_supported(dcfg)
     assert dcfg.local_log2_cells == 22 and not dcfg.row_global
     assert dcfg.canon == (gen == "H4")
     assert (dcfg.local_model_inc > 0) == qcfg.with_local == (gen == "H1")

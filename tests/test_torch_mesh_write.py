@@ -34,6 +34,7 @@ from fqsqueezer_tpu_torch.io import fastq
 from fqsqueezer_tpu_torch.ops import rans
 from fqsqueezer_tpu_torch.parallel import mesh_pipeline, sharded
 from fqsqueezer_tpu_torch.streams import dna, ids, meta, quality
+from fqsqueezer_tpu_torch.utils.corpus import write_fastq_corpus
 from fqsqueezer_tpu_torch.utils.rans_grids import random_grid
 from tests.test_torch_mesh import (CPU_FIXTURES, SNAP_GROUP_MEM, SPECS,
                                    fixture, mesh_params, snapshot,
@@ -172,13 +173,14 @@ def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
     """A tp that does not divide the s/b tables' rows and the SIV's words
     (-tp 3) exits 1 with one line naming it, before any input is read,
     whatever the header: today's, with mesh_route_sb (the owner-routed
-    s/b exchange), or an older writer's knobs (HEADER_GENERATIONS H0, H5,
-    H6), which the mesh writer once refused themselves and now writes, so
-    the line names the tp alone. So does a knob no writer stored
-    (dna_canon=0 with dna_row_global=1), at a tp that divides. The writer
+    s/b exchange), an older writer's knobs (HEADER_GENERATIONS H0, H5,
+    H6), or row-global context-keyed tables (dna_canon=0 with
+    dna_row_global=1), which the mesh writer once refused themselves and
+    now writes, so the line names the tp alone: the last at -tp 1 and 2
+    through the CLI's e, its d giving the input's reads. The writer
     itself raises the same ValueError."""
     parse = _tiny_geometry(cli.parse_args)
-    tp = "1" if case == "canon0_rg" else "3"
+    tp = "3"
     im = "o" if case.startswith("H") else "n"
 
     def parse_args(argv):
@@ -200,8 +202,7 @@ def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
     msg = e.value.code
     assert isinstance(msg, str) and "\n" not in msg and msg.startswith(
         "error: ")
-    key = ("dna_canon=0 with dna_row_global=1" if case == "canon0_rg"
-           else "-tp 3")
+    key = "-tp 3"
     p = parse_args(["e", "-s", "-om", "o", "-qm", "8", "-im", im, "x"])
     with pytest.raises(ValueError) as v:
         mesh_pipeline.compress_file_mesh(p, "absent.fastq", "absent.fqst",
@@ -211,6 +212,19 @@ def test_cli_refuses_what_the_mesh_writer_cannot_write(tmp_path,
         assert gone not in msg
     assert "\n" not in str(v.value)
     assert not os.path.exists(tmp_path / "o.fqst")
+    if case != "canon0_rg":
+        return
+    src = str(tmp_path / "in.fastq")
+    write_fastq_corpus(src, 32, 40, 20_000, seed=3)
+    for tp in ("1", "2"):
+        arc, out = str(tmp_path / f"tp{tp}.fqst"), str(tmp_path / "o.fq")
+        assert cli.main([*argv[:11], tp, "--device", "cpu", "-v", "0",
+                         "-out", arc, src]) == 0
+        assert cli.main(["d", "--device", "cpu", "-v", "0", "-out", out,
+                         arc]) == 0
+        got, ref = fastq.read_fastq(out), fastq.read_fastq(src)
+        np.testing.assert_array_equal(got.lengths, ref.lengths)
+        np.testing.assert_array_equal(got.codes, ref.codes)
 
 
 # --- the single-step encoders --------------------------------------------------

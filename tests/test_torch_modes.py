@@ -18,6 +18,7 @@ asks for the CPU.
 import contextlib
 import hashlib
 import io
+import os
 
 import jax
 import jax.numpy as jnp
@@ -140,10 +141,21 @@ _IM = ["o", "i", "n", None]
 
 @pytest.mark.parametrize("qm", _QM)
 @pytest.mark.parametrize("im", _IM)
-def test_cli_modes_pass_the_port_mode_check(qm, im):
+def test_cli_modes_pass_the_port_mode_check(tmp_path, qm, im):
+    """Each -qm/-im pair of the CLI: a header-only archive of its Params
+    (the tables cut to 2^8 buckets) round-trips through the port's
+    decoder to an empty FASTQ."""
+    from fqsqueezer_tpu_torch.archive import ArchiveWriter
+
     argv = ["e", "-s", "-om", "o", "-qm", qm] + (
         ["-im", im] if im else []) + ["a.fq"]
-    assert pipeline.unported_modes(cli.parse_args(argv)) == []
+    p = cli.parse_args(argv)
+    p.smer_log2_buckets = p.bmer_log2_buckets = 8
+    arc, out = str(tmp_path / "a.fqst"), str(tmp_path / "o.fq")
+    ArchiveWriter(arc, p.store_params()).close()
+    assert pipeline.decompress_file(tparams.Params(), arc, out,
+                                    device="cpu") == {"n_reads": 0}
+    assert os.path.getsize(out) == 0
 
 
 # --- archive level, a tiny multi-group geometry -----------------------------

@@ -728,14 +728,28 @@ def test_cli_e_p_and_d_out2(tmp_path, monkeypatch):
         cli.main(["e", "--device", "cpu", "-p", "-out", arc, r1])
 
 
-def test_dna_pe_pos_ctx_is_refused():
-    """The knob no entry point sets: refused in one line that names it,
-    by the DNA codec and for an archive header."""
-    with pytest.raises(NotImplementedError, match="dna_pe_pos_ctx"):
-        dna.check_supported(pipeline.make_configs(
-            _pos_ctx_params())[0])
-    missing = pipeline.unported_modes(_pos_ctx_params())
-    assert len(missing) == 1 and "dna_pe_pos_ctx" in missing[0]
+def test_dna_pe_pos_ctx_is_refused(pe_runs):
+    """The knob no entry point sets (dna_pe_pos_ctx), once refused, now
+    passes and decodes: pe_runs' third batch modeled under it from the
+    same state gives its anchored rowA and rowB read2's coordinates
+    (dna._pe_pos_map), so its dna grid differs from the one without the
+    knob, and the plain decode (K2's plain version) of its encode
+    returns the batch and consumes every word. The archives under the
+    knob are held to the reference writer's in tests/test_torch_knobs.py."""
+    tcfgs = pipeline.make_configs(_pos_ctx_params())
+    assert tcfgs[0].pe_pos_ctx
+    c3, l3 = pe_runs["batch"]
+    tgrids, _ = pipeline._model_batch(
+        *tcfgs, state_from_numpy(pe_runs["start"]), _t(c3), None, _t(l3))
+    assert not torch.equal(tgrids[1][0], pe_runs["tgrids"][1][0])
+    (df, dc), (pf, pc) = tgrids[1], tgrids[-1]
+    words, n_words, x = rans.rans_encode(df, dc, SB)
+    pwords, _, px = rans.rans_encode(pf, pc, SB)
+    codes_t, _, _, ptr, _ = dna.dna_decode_batch(
+        tcfgs[0], state_from_numpy(pe_runs["start"]).dna, _t(l3), words, x,
+        L_BATCH, pe_words=pwords, pe_states=px)
+    np.testing.assert_array_equal(codes_t.numpy(), c3)
+    assert int(ptr) == int(n_words)
 
 
 def _pos_ctx_params():

@@ -256,7 +256,6 @@ def _decodes_to_empty_fastq(arc, out):
     mesh_pipeline.decompress_file_mesh), to an empty FASTQ (a paired-end
     archive to two, the second at -out2)."""
     p = tparams.Params.load_params(_header_blob(arc))
-    assert pipeline.unported_modes(p) == []
     pe = p.dna_mode in (tparams.DnaMode.PE_ORIGINAL,
                         tparams.DnaMode.PE_SORTED)
     out2 = out + ".2"
@@ -315,50 +314,36 @@ _D_CASES = [
          "fields6-id codec v1", "fields7-mesh H0", "fields8-mesh H5",
          "fields9-mesh H1"])
 def test_cli_d_refuses_unported_archives(tmp_path, fields, what):
-    """Each header the port lacks is refused with one line; the quality and
-    id modes it has (id codec v1 too) and the in-batch local tables
-    (dna_row_global 0 with the default local_log2_cells, once refused)
-    decode instead (an archive with no group: an empty FASTQ), and so does
-    a mesh header through the CLI, which routes it to the mesh decode,
-    while pipeline.decompress_file raises the reference's error for it:
-    today's writer's, and an older writer's (H0, H5, H1), which the mesh
-    decode once refused."""
+    """Every header a JAX writer stores decodes, once refused or not: the
+    quality and id modes (id codec v1 too) and the in-batch local tables
+    (dna_row_global 0 with the default local_log2_cells) decode (an
+    archive with no group: an empty FASTQ), and so does a mesh header
+    through the CLI, which routes it to the mesh decode, while
+    pipeline.decompress_file raises the reference's error for it: today's
+    writer's, and an older writer's (H0, H5, H1), which the mesh decode
+    once refused."""
     arc = _header_only_archive(tmp_path / "a.fqst", **fields)
     if what is None:
         _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
         return
-    if what == "routed":
-        out = str(tmp_path / "o.fq")
-        assert cli.main(["d", "--device", "cpu", "-v", "0", "-out", out,
-                         arc]) == 0
-        assert os.path.getsize(out) == 0
-        with pytest.raises(ValueError) as e:
-            pipeline.decompress_file(tparams.Params(), arc, out,
-                                     device="cpu")
-        with pytest.raises(ValueError) as f:
-            jp.decompress_file(jparams.Params(), arc, out)
-        assert str(e.value) == str(f.value)
-        assert str(e.value) == ("archive was written on a 2x1 mesh — use "
-                                "parallel.mesh_pipeline.decompress_file_mesh")
-        return
-    with pytest.raises(SystemExit) as e:
-        cli.main(["d", "--device", "cpu", "-out", str(tmp_path / "o.fq"),
-                  arc])
-    msg = e.value.code
-    assert isinstance(msg, str) and "\n" not in msg
-    assert msg.startswith("error: ") and what in msg
-    assert msg.endswith("not yet ported to fqsqueezer_tpu_torch")
-    assert not os.path.exists(tmp_path / "o.fq")
-    with pytest.raises(ValueError, match="not yet ported"):
-        pipeline.decompress_file(tparams.Params(), arc,
-                                 str(tmp_path / "o.fq"), device="cpu")
+    out = str(tmp_path / "o.fq")
+    assert cli.main(["d", "--device", "cpu", "-v", "0", "-out", out,
+                     arc]) == 0
+    assert os.path.getsize(out) == 0
+    with pytest.raises(ValueError) as e:
+        pipeline.decompress_file(tparams.Params(), arc, out, device="cpu")
+    with pytest.raises(ValueError) as f:
+        jp.decompress_file(jparams.Params(), arc, out)
+    assert str(e.value) == str(f.value)
+    assert str(e.value) == ("archive was written on a 2x1 mesh — use "
+                            "parallel.mesh_pipeline.decompress_file_mesh")
 
 
 def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     """No visible card and no --device (in a fresh process, which shows
     the exit code and that no traceback is printed); a file that is not
-    an archive; an archive of a mode the port lacks (sorted-mode position
-    contexts, dna_sorted_ctx); a
+    an archive; an archive of a 2 x 3 mesh, whose tp does not divide the
+    tables (the reference's mesh decode raises on it too); a
     missing file. Each is exit 1 with one line, and writes no output
     file. And a mesh archive (the reference's dp=2 writer, a committed
     fixture) whose first group's payload crc is broken: exit 1 with one
@@ -374,11 +359,10 @@ def test_cli_d_error_paths_exit_with_one_line(tmp_path):
     assert "no CUDA device" in lines[0]
     bad = tmp_path / "bad.fqst"
     bad.write_bytes(b"@r1\nACGT\n+\nIIII\n")
-    ctx_arc = _header_only_archive(tmp_path / "ctx.fqst",
-                                   dna_mode=jparams.DnaMode.SE_SORTED,
-                                   dna_sorted_ctx=1)
+    tp3_arc = _header_only_archive(tmp_path / "tp3.fqst", mesh_dp=2,
+                                   mesh_tp=3)
     for path, what in ((str(bad), "not an fqsqueezer_tpu archive"),
-                       (ctx_arc, "dna_sorted_ctx"),
+                       (tp3_arc, "-dp 2 -tp 3"),
                        (str(tmp_path / "none.fqst"), "none.fqst")):
         with pytest.raises(SystemExit) as e:
             cli.main(["d", "--device", "cpu", "-out", out, path])
@@ -433,28 +417,20 @@ _E_CASES = [
          "argv3-quality", "argv4-quality", "argv5-quality", "argv6-id mode",
          "argv7-id mode", "argv8-mesh"])
 def test_cli_unported_modes_exit_with_one_line(tmp_path, argv, what):
-    """Each mode the port lacks exits 1 with one line; the quality and id
-    modes it has, and a dp x tp mesh, pass its mode check, and a
-    header-only archive of their Params decodes to an empty FASTQ."""
-    if what is None:
-        from fqsqueezer_tpu_torch.archive import ArchiveWriter
+    """Every mode of the CLI is ported: the paired-end, sorted, quality
+    and id modes, and a dp x tp mesh; a header-only archive of their
+    Params decodes to an empty FASTQ."""
+    from fqsqueezer_tpu_torch.archive import ArchiveWriter
 
-        p = cli.parse_args(argv)
-        assert pipeline.unported_modes(p) == []
-        # the default -gs 3100 sizes its tables at 2^26 buckets (the pair
-        # table at 2^24): keep the decoder's state small, its modes as
-        # they are
-        p.smer_log2_buckets = p.bmer_log2_buckets = p.pe_log2_buckets = 8
-        arc = str(tmp_path / "a.fqst")
-        ArchiveWriter(arc, p.store_params()).close()
-        _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
-        return
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    msg = e.value.code
-    assert isinstance(msg, str) and "\n" not in msg
-    assert msg.startswith("error: ") and what in msg
-    assert msg.endswith("not yet ported to fqsqueezer_tpu_torch")
+    assert what is None
+    p = cli.parse_args(argv)
+    # the default -gs 3100 sizes its tables at 2^26 buckets (the pair
+    # table at 2^24): keep the decoder's state small, its modes as they
+    # are
+    p.smer_log2_buckets = p.bmer_log2_buckets = p.pe_log2_buckets = 8
+    arc = str(tmp_path / "a.fqst")
+    ArchiveWriter(arc, p.store_params()).close()
+    _decodes_to_empty_fastq(arc, str(tmp_path / "o.fq"))
 
 
 def test_cli_refuses_streamed_input(tmp_path, monkeypatch):
@@ -485,7 +461,6 @@ def test_cli_refuses_streamed_input(tmp_path, monkeypatch):
     for argv in ([*_SE, "-dp", "2", big[0]],
                  ["-p", "-om", "o", "-dp", "2", "-tp", "1", *big]):
         p = cli.parse_args(["e", *argv])
-        assert pipeline.unported_modes(p) == []
         assert cli.stream_chunk_bytes(p) == 0
         assert cli.main(["e", *argv, "--device", "cpu", "-v", "0", "-out",
                          out]) == 0
