@@ -133,7 +133,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
                launch's device time; (c) the per-shard copy of the K2
                tables: timed where the family has a row update (H6,
                today's), none for the batch-frozen ones (H0, H4).
- 14. legacy  — the JAX package's older writers (params.HEADER_GENERATIONS:
+ 14. mesh_ranks — the dp x tp mesh on several processes, one rank each
+               (parallel.mesh_pipeline.run_ranks): (a) NCCL at world 1:
+               every testdata/mesh and testdata/mesh_legacy fixture written
+               on the rank (== the committed archive; snap_dp2tp1's
+               group-1 snapshot == the committed one) and the committed
+               archives decoded (== the JAX decoders' SHA256SUMS and
+               MESH_FIXTURES; route_drop_dp2tp4, whose route cap dropped
+               events, == the JAX mesh decode's MESH_RANKS_DROP: the ranks
+               replay the writer's routed exchange), snap_dp2tp1 also from
+               its committed snapshot; a gather of known tensors == their
+               concatenation in rank order; K1 once a group flush on every
+               rank, K2 once a shard row and K3 once a shard and batch
+               over the ranks; (b) gloo ranks sharing the one card, R = dp
+               (2 and 4): the same for the fixtures of that dp, and on 2
+               ranks the 100k corpus at MESH_RANKS_SHARED compressed (==
+               the one-process writer's archive in this run) and decoded
+               (BYTE-EXACT), walls printed as no speed figure; (c) where
+               torch sees 2 cards or more, NCCL across min(cards, 4) cards
+               at MESH_RANKS_CARDS on the 100k corpus, compress and decode
+               timed (warm-up, then timed) beside one process on one
+               card, with the card's name and power limit; on one card a
+               line says only (a) and (b) ran.
+ 15. legacy  — the JAX package's older writers (params.HEADER_GENERATIONS:
                H0, the first writer's batch-frozen table_* tables, ctx v1,
                no mix or ramp, three repairs, id codec v1; H1-H4, the same
                with in-batch local statistics: local_* tables of 2^22
@@ -154,7 +176,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                BYTE-EXACT, with the local state's peak memory and zeroing
                time. K1 at least once a group flush, K2 once a read row,
                K3 once a batch.
- 15. k3      — kernel K3 (the quality decode scan) against its plain torch
+ 16. k3      — kernel K3 (the quality decode scan) against its plain torch
                version on the card, exact (symbols, final states, words
                consumed), for every symbol count it takes (2, 4, 8, 96):
                random batches whose lengths include 0, 1 and L (N in {8,
@@ -171,7 +193,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                real batch of [legacy]'s H1 archive of the count (-qm o
                original order, -qm 8 sorted order); at 2 and 4 symbols
                random batches only.
- 16. k2      — kernel K2 (one read row of the DNA decode — the scan and
+ 17. k2      — kernel K2 (one read row of the DNA decode — the scan and
                the row's s/b table update — one launch) against its plain
                torch version (the row scan, then _apply_sb_updates) on the
                card, exact (the four planes, final states, words consumed,
@@ -199,7 +221,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                timed region), the plain row step, the chain floor (K2 on
                32 lanes) and the bound; on the PE batch also the row-end
                PE step (torch ops between K2's launches).
- 17. k2_legacy — K2's instantiations for the older headers
+ 18. k2_legacy — K2's instantiations for the older headers
                (K2_LEGACY: table cells batch-frozen, alone and with the
                local_* tables and with the DNA deltas too; ktable cells
                with the row update under H5 and H6 and batch-frozen, with
@@ -212,7 +234,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                batches of LEGACY's archives; K2, its chain floor, the
                plain row step and the bound timed on the batches of
                LEGACY_TIMED.
- 18. knobs   — the header knobs no CLI flag sets: dna_sorted_ctx (the
+ 19. knobs   — the header knobs no CLI flag sets: dna_sorted_ctx (the
                sorted-mode position buckets), dna_pe_pos_ctx (read2's
                coordinates on rowA and rowB) and dna_canon 0 with
                dna_row_global 1 (row-global context-keyed table_* cells):
@@ -237,7 +259,7 @@ Phases, one line each; any failure raises and the script exits non-zero:
                100k canon0_rg archives, each K2 timed with chain floor,
                plain time (once) and bound, canon0_rg's without the
                table update, which is timed apart.
- 19. decode  — the 20k archive through the port's CLI `d` with no
+ 20. decode  — the 20k archive through the port's CLI `d` with no
                --device, and the 100k archive through
                pipeline.decompress_file (warm-up + timed run); the decoded
                FASTQs' sha256 must equal the reference decoder's
@@ -252,8 +274,10 @@ sorted order), H2's and H4's, its position maps at [knobs]' sorted_ctx
 and pe_pos batches and its row-global table cells at canon0_rg's, and K3
 for each symbol count and with deltas) and the result line. K1's launches are those of
 the three timed compresses (the main path's, the sorted row's and the PE
-row's) and of [mesh_write]'s and [mesh_legacy]'s mesh compresses, K3's
-for 8 symbols those of the two timed SE decodes.
+row's) and of [mesh_write]'s, [mesh_legacy]'s and [mesh_ranks]' mesh
+compresses, K3's for 8 symbols those of the two timed SE decodes; the
+ranks' K2 and K3 launches of [mesh_ranks] count under the instantiation
+each fixture's header and mode run.
 
 The archive digests are sha256 sums of fqsqueezer_tpu.pipeline.
 compress_file's archive of write_fastq_corpus(path, n, 100, 4_600_000,
@@ -506,6 +530,36 @@ MESH_LEGACY_FULL = (
     (None, 1, ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5", "-dp",
                "2", "-tp", "4")),
 )
+# [mesh_ranks]: the JAX package's mesh decode of route_drop_dp2tp4
+# (fqsqueezer_tpu.parallel.mesh_pipeline.decompress_file_mesh with its dp x
+# tp = 8 devices, the 8 virtual CPU devices of tests/conftest.py;
+# tests/test_torch_mesh_ranks.py::test_reference_mesh_decode_digests),
+# which replays the writer's routed s/b exchange as the port's ranks do
+MESH_RANKS_DROP = ("b494fecb39686908ebf70de3646ce3521965c761018a183a2dd32bad"
+                   "1d71e33d")
+# the CPU fixtures of testdata/mesh (tests/test_torch_mesh.py's SPECS and
+# mesh_params at "cpu", copied here: the card has no JAX): (name, kind,
+# (reads or pairs, read length, seed), dp, tp, order, -qm, -im); inputs
+# from _make_fastq and _make_pe_pair; snap_dp2tp1 at a 64 KiB group budget
+# with its snapshots
+MESH_CPU_FIXTURES = (
+    ("se_dp4tp2", "se", (192, 72, 13), 4, 2, "o", "lossless", "lossless"),
+    ("pe_dp2tp1", "pe", (96, 64, 17), 2, 1, "o", "none", "none"),
+    ("sorted_dp2tp1", "se", (96, 72, 19), 2, 1, "s", "illumina_8", "none"),
+    ("snap_dp2tp1", "se", (128, 72, 29), 2, 1, "o", "illumina_8",
+     "lossless"),
+)
+MESH_SNAP_GROUP_MEM = 64 << 10
+# the 100k corpus on 2 ranks sharing the card, against the one-process
+# writer's archive of the same input; and where torch sees 2 cards or more,
+# on min(cards, 4) ranks over NCCL, one card each, timed beside one process
+MESH_RANKS_SHARED = ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                     "-dp", "2", "-tp", "2")
+MESH_RANKS_CARDS = ("-s", "-om", "o", "-qm", "o", "-im", "o", "-gs", "5",
+                    "-dp", "4", "-tp", "2")
+# the CLI's one-process route for the earlier mesh phases: on a machine
+# with dp cards or more the CLI's default runs a mesh on ranks
+ONE_CARD = ("--device", "cuda:0")
 # (N, r_pl, L, grown tables, short word stream) of the K2 checks on encoded
 # random batches
 K2_SHAPES = ((8, 2, 104, False, False), (8, 2, 40, False, True),
@@ -1456,7 +1510,8 @@ def phase_mesh():
         # one decode, its first call's costs included (the fixtures are
         # small: the time is no throughput figure)
         _reset_launches()
-        rc, dt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
+        rc, dt = timed(lambda: cli.main(["d", *ONE_CARD, "-v", "0",
+                                         *out_args, arc]))
         k3, k2 = _launch_counts()
         p, batches, rows, k3_want, reads = _mesh_rows(arc)
         shas = [_sha256(o) for o in outs]
@@ -1626,12 +1681,13 @@ def phase_mesh_write():
         outs = [f"{arc}.{k}.fastq" for k in (1, 2)][:len(srcs)]
         out_args = ["-out", outs[0]] + (["-out2", outs[1]] if pe else [])
         _reset_launches()
-        rc, c_dt = timed(lambda: cli.main(["e", *flags, "-v", "0", "-out",
-                                           arc, *srcs]))
+        rc, c_dt = timed(lambda: cli.main(["e", *ONE_CARD, *flags, "-v",
+                                           "0", "-out", arc, *srcs]))
         launches = rans.K1_LAUNCHES
         k1 += launches
         _reset_launches()
-        rc2, d_dt = timed(lambda: cli.main(["d", "-v", "0", *out_args, arc]))
+        rc2, d_dt = timed(lambda: cli.main(["d", *ONE_CARD, "-v", "0",
+                                            *out_args, arc]))
         k3, k2 = _launch_counts()
         p, batches, rows, k3_want, reads = _mesh_rows(arc)
         groups = _n_groups(arc, p.n_lanes)
@@ -1806,7 +1862,7 @@ def phase_mesh_legacy():
                                         if len(outs) == 2 else [])
         _reset_launches()
         try:
-            rc = cli.main(["d", "-v", "0", *out_args, arc])
+            rc = cli.main(["d", *ONE_CARD, "-v", "0", *out_args, arc])
         except SystemExit as e:
             rc = e.code
         k3, k2 = _launch_counts()
@@ -1858,8 +1914,8 @@ def phase_mesh_legacy():
         groups = _n_groups(arc, p.n_lanes)
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        rc, d_dt = timed(lambda: cli.main(["d", "-v", "0", "-out", out,
-                                           arc]))
+        rc, d_dt = timed(lambda: cli.main(["d", *ONE_CARD, "-v", "0",
+                                           "-out", out, arc]))
         peak_d = torch.cuda.max_memory_allocated() / 2 ** 30
         k3, k2 = _launch_counts()
         _, batches, rows, k3_want, reads = _mesh_rows(arc)
@@ -1873,7 +1929,7 @@ def phase_mesh_legacy():
                                f"{rows} shard rows, K3 {k3} (want "
                                f"{k3_want})")
         _, k2_ms, k3_ms = _kernel_ms(lambda: cli.main(
-            ["d", "-v", "0", "-out", out, arc]))
+            ["d", *ONE_CARD, "-v", "0", "-out", out, arc]))
         print(f"[mesh_legacy] 100k `e {' '.join(flags)}` under "
               f"{gen or 'today'}'s header, mesh_route_sb {route} "
               f"({p.n_lanes} lanes a shard, {reads} reads in {batches} "
@@ -1908,6 +1964,441 @@ def phase_mesh_legacy():
     torch.cuda.synchronize()
     print(f"[mesh_legacy] the phase took {time.time() - t0:.1f} s")
     return k1
+
+
+def _make_fastq(path, n_reads, read_len, seed=0, genome_kb=20):
+    """tests/test_pipeline.py's make_fastq, copied here (the card has no
+    JAX): reads sampled from a small random genome, the SE input of the
+    testdata/mesh CPU fixtures."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_kb * 1000)
+    lines = []
+    for i in range(n_reads):
+        hdr = f"@SRR0.{i + 1} {i + 1} length={read_len}"
+        start = rng.integers(0, len(genome) - read_len)
+        seq = genome[start:start + read_len].copy()
+        nerr = rng.poisson(0.5)
+        for _ in range(nerr):
+            seq[rng.integers(0, read_len)] = rng.integers(0, 4)
+        if rng.random() < 0.05:
+            seq[rng.integers(0, read_len)] = 4
+        s = "".join("ACGTN"[b] for b in seq)
+        q = "".join(chr(33 + int(c)) for c in
+                    np.clip(rng.normal(35, 4, read_len), 0, 70).astype(int))
+        lines += [hdr, s, "+", q]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def _make_pe_pair(d, n_pairs, read_len, seed, genome_kb=30):
+    """tests/test_pe.py's make_pe_pair, copied here: mates from opposite
+    ends of fragments of a random genome, in d/r1.fastq and d/r2.fastq."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_kb * 1000)
+    f1, f2 = [], []
+    for i in range(n_pairs):
+        frag = rng.integers(0, len(genome) - 300)
+        r1 = genome[frag:frag + read_len]
+        r2 = (3 - genome[frag + 200:frag + 200 + read_len])[::-1]
+        q = "I" * read_len
+        f1 += [f"@PAIR.{i + 1} {i + 1}/1", "".join("ACGT"[b] for b in r1),
+               "+", q]
+        f2 += [f"@PAIR.{i + 1} {i + 1}/2", "".join("ACGT"[b] for b in r2),
+               "+", q]
+    os.makedirs(d, exist_ok=True)
+    paths = (os.path.join(d, "r1.fastq"), os.path.join(d, "r2.fastq"))
+    for path, lines in zip(paths, (f1, f2)):
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return paths
+
+
+def _mesh_cpu_params(kind, order, qm, im):
+    """tests/test_torch_mesh.py's mesh_params at "cpu": -gs 1 k-mers, 16
+    lanes, 128-read batches, 2^12-bucket s/b tables, SIV cap 7."""
+    from fqsqueezer_tpu_torch.params import (DnaMode, IdMode, Params,
+                                             QualityMode)
+
+    p = Params()
+    p.genome_size = 1
+    p.adjust_kmer_sizes()
+    p.dna_mode = {("se", "o"): DnaMode.SE_ORIGINAL,
+                  ("se", "s"): DnaMode.SE_SORTED,
+                  ("pe", "o"): DnaMode.PE_ORIGINAL}[kind, order]
+    p.quality_mode = QualityMode(qm)
+    p.id_mode = IdMode(im)
+    p.n_lanes, p.verbosity, p.max_batch_reads = 16, 0, 128
+    p.local_log2_cells = 16
+    p.smer_log2_buckets = p.bmer_log2_buckets = 12
+    p.dna_siv_cap = 7
+    return p
+
+
+def _sums(d):
+    out = {}
+    with open(os.path.join(d, "SHA256SUMS")) as f:
+        for line in f:
+            sha, name = line.split()
+            out[name] = sha
+    return out
+
+
+def _mesh_rank_fixtures(d):
+    """Every fixture of testdata/mesh and testdata/mesh_legacy as run_ranks
+    jobs, their inputs regenerated into directory d: a dict a fixture,
+    with its dp, the write job (the archive at "arc"), the decode job of
+    the committed archive ("ref") into "outs", the digests those must
+    have ("want": the JAX decoders'; route_drop_dp2tp4's the JAX mesh
+    decode's), and the kernel instantiations its decode runs, by their
+    names in main's kernels line ("k2", "k3"). snap_dp2tp1 writes its
+    snapshots, and its entry has the resume from the committed group-1
+    snapshot as a second decode job."""
+    from fqsqueezer_tpu_torch.params import Params
+
+    os.makedirs(d, exist_ok=True)
+    mesh_sums, legacy_sums = _sums(MESH_DIR), _sums(MESH_LEGACY_DIR)
+    out = []
+
+    def entry(name, ref_dir, kind, paths, p, dp, tp, want, k2, k3, **kw):
+        arc = os.path.join(d, f"{name}.fqst")
+        common = dict(p=p, out_path=arc, dp=dp, tp=tp, **kw)
+        write = (("compress_pe", dict(common, in1=paths[0], in2=paths[1]))
+                 if kind == "pe" else
+                 ("compress", dict(common, in_path=paths[0])))
+        ref = os.path.join(ref_dir, f"{name}.fqst")
+        outs = [os.path.join(d, f"{name}.dec_{k}.fastq")
+                for k in (1, 2)][:len(want)]
+        decode = ("decompress", dict(zip(("out_path", "out_path2"), outs),
+                                     p_cli=Params(), in_path=ref))
+        out.append(dict(name=name, dp=dp, write=write, decode=decode,
+                        arc=arc, ref=ref, outs=outs, want=want, k2=k2,
+                        k3=k3, p=p))
+        return out[-1]
+
+    def names(name, kind):
+        return ([f"{name}_1.fastq", f"{name}_2.fastq"] if kind == "pe"
+                else [f"{name}.fastq"])
+
+    k3_of = {"lossless": 96, "illumina_8": 8, "none": None}
+    for name, kind, (n, L, seed), dp, tp, order, qm, im in MESH_CPU_FIXTURES:
+        if kind == "pe":
+            paths = _make_pe_pair(os.path.join(d, name), n, L, seed)
+        else:
+            paths = [os.path.join(d, f"{name}.fastq")]
+            _make_fastq(paths[0], n, L, seed)
+        kw = {}
+        if name == "snap_dp2tp1":
+            kw = dict(group_mem_bytes=MESH_SNAP_GROUP_MEM,
+                      snapshot_prefix=os.path.join(d, name))
+        e = entry(name, MESH_DIR, kind, paths,
+                  _mesh_cpu_params(kind, order, qm, im), dp, tp,
+                  [mesh_sums[x] for x in names(name, kind)],
+                  {"pe": "pe", "s": "sorted"}.get(
+                      kind if kind == "pe" else order, "main"),
+                  k3_of[qm], **kw)
+        if name == "snap_dp2tp1":
+            out_g1 = os.path.join(d, f"{name}.g1.fastq")
+            e["resume"] = ("decompress", dict(
+                e["decode"][1], out_path=out_g1, start_group=1,
+                snapshot=os.path.join(MESH_DIR, f"{name}.g00001.npz")))
+            e["resume_out"] = out_g1
+            e["resume_want"] = mesh_sums[f"{name}.g1.fastq"]
+    for (name, kind, n, dp, tp, qm, im, budget), (_, want) in zip(
+            MESH_WRITE_FIXTURES, MESH_FIXTURES):
+        paths = list(_pe_corpus(n)) if kind == "pe" else [_corpus(n)[0]]
+        entry(name, MESH_DIR, kind, paths, _mesh_fixture_params(kind, qm, im),
+              dp, tp, list(want), "pe" if kind == "pe" else "main",
+              k3_of[qm], group_mem_bytes=budget)
+    for (name, gen, kind, order, qm, im, corpus, dp, tp, budget,
+         route) in MESH_LEGACY_FIXTURES:
+        paths = _mesh_legacy_inputs(name, kind, corpus)
+        kw = {} if budget is None else {"group_mem_bytes": budget}
+        want = ([MESH_RANKS_DROP] if name == "route_drop_dp2tp4" else
+                [legacy_sums[x] for x in names(name, kind)])
+        k2 = "main" if gen is None else gen + (" sorted" if order == "s"
+                                               else "")
+        k3 = "H1" if gen == "H1" else k3_of[qm]
+        entry(name, MESH_LEGACY_DIR, kind, paths,
+              _mesh_legacy_params(gen, kind, order, qm, im, route), dp, tp,
+              want, k2, k3, **kw)
+    return out
+
+
+def _gather_job(world):
+    """run_ranks' gather job on known arrays, and what it must give: every
+    leaf the ranks' leaves concatenated in rank order, the ranks' word
+    buffers (of different lengths, one empty) too."""
+    import numpy as np
+
+    rng = np.random.default_rng(world)
+    trees = [[rng.integers(-2 ** 40, 2 ** 40, (3, 5)),
+              rng.random((3, 2)) < 0.5,
+              rng.integers(0, 2 ** 31, (2,)).astype(np.int32)]
+             for _ in range(world)]
+    words = [rng.integers(0, 1 << 16, 5 * r).astype(np.int32)
+             for r in range(world)]
+    want = {"tree": [np.concatenate([t[i] for t in trees])
+                     for i in range(3)],
+            "words": np.concatenate(words)}
+    return ("gather", dict(trees=trees, words=words)), want
+
+
+def _run_rank_fixtures(entries, world, backend, device, extra=()):
+    """Write and decode `entries` (_mesh_rank_fixtures) on `world` ranks,
+    with a gather job first and `extra` jobs last, all in one launch; hold
+    every archive to its committed bytes (snap_dp2tp1's snapshot to the
+    committed one, array for array), every decode to its digests, K1 to
+    one launch a group flush on every rank, K2 to one launch a read row of
+    each shard and K3 to one a shard and batch with a quality stream
+    (summed over the ranks). Returns (every rank's records of `extra`, the
+    launch's wall, K1's launches, K2's and K3's launches by kernel
+    instantiation (_mesh_rank_fixtures' k2 and k3 names))."""
+    import numpy as np
+
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+
+    gather, g_want = _gather_job(world)
+    jobs = [gather]
+    for e in entries:
+        jobs += [e["write"], e["decode"]] + ([e["resume"]] if "resume" in e
+                                             else [])
+    jobs += list(extra)
+    t0 = time.time()
+    recs = mesh_pipeline.run_ranks(jobs, world, backend, device,
+                                   timeout=400)
+    wall = time.time() - t0
+    for rec in recs:
+        got = rec[0]["result"]
+        if not (all(np.array_equal(a, b) and a.dtype == b.dtype
+                    for a, b in zip(got["tree"], g_want["tree"]))
+                and np.array_equal(got["words"], g_want["words"])):
+            raise RuntimeError(f"mesh_ranks: the {backend} gather of "
+                               f"{world} ranks is not the ranks' tensors "
+                               f"concatenated in rank order")
+    k1, k2, k3 = 0, {}, {}
+    at = 1
+    tag = f"{backend}, {world} rank(s)"
+    for e in entries:
+        w_recs = [rec[at] for rec in recs]
+        d_recs = [rec[at + 1] for rec in recs]
+        at += 2 + ("resume" in e)
+        p, batches, rows, k3_want, reads = _mesh_rows(e["ref"])
+        groups = _n_groups(e["ref"], p.n_lanes)
+        sha = _sha256(e["arc"])
+        if sha != _sha256(e["ref"]):
+            raise RuntimeError(f"mesh_ranks {e['name']} ({tag}): archive "
+                               f"sha256 {sha} != the committed file's")
+        got = [_sha256(o) for o in e["outs"]]
+        if got != e["want"]:
+            raise RuntimeError(f"mesh_ranks {e['name']} ({tag}): decode "
+                               f"sha256 {got} != {e['want']}")
+        w_k1 = [r["launches"]["K1"] for r in w_recs]
+        d_k2 = sum(r["launches"]["K2"] for r in d_recs)
+        d_k3 = sum(r["launches"]["K3"] for r in d_recs)
+        if w_k1 != [groups] * world or d_k2 != rows or d_k3 != k3_want:
+            raise RuntimeError(f"mesh_ranks {e['name']} ({tag}): K1 "
+                               f"launched {w_k1} times a rank for {groups} "
+                               f"groups, K2 {d_k2} for {rows} shard rows, "
+                               f"K3 {d_k3} (want {k3_want})")
+        k1 += sum(w_k1)
+        k2[e["k2"]] = k2.get(e["k2"], 0) + d_k2
+        if e["k3"] is not None:
+            k3[e["k3"]] = k3.get(e["k3"], 0) + d_k3
+        more = ""
+        if "resume" in e:
+            snap = os.path.join(MESH_DIR, f"{e['name']}.g00001.npz")
+            with np.load(snap) as want, np.load(
+                    e["write"][1]["snapshot_prefix"] + ".g00001.npz") as z:
+                if sorted(z.files) != sorted(want.files) or not all(
+                        z[k].dtype == want[k].dtype
+                        and np.array_equal(z[k], want[k])
+                        for k in want.files):
+                    raise RuntimeError(f"mesh_ranks {e['name']} ({tag}): "
+                                       f"the group-1 snapshot differs "
+                                       f"from the committed one")
+            if _sha256(e["resume_out"]) != e["resume_want"]:
+                raise RuntimeError(f"mesh_ranks {e['name']} ({tag}): the "
+                                   f"decode from the group-1 snapshot "
+                                   f"differs from the JAX decoder's")
+            more = ("; group-1 snapshot == the committed one, and the "
+                    "decode from it == the JAX decoder's tail")
+        print(f"[mesh_ranks] {e['name']} ({tag}, {e['dp']} shards, "
+              f"{reads} reads in {batches} batches): archive == the JAX "
+              f"mesh writer's, K1 {w_k1} a rank for {groups} groups; decode "
+              f"== {'the JAX mesh decode' if e['name'] == 'route_drop_dp2tp4' else 'the JAX decoder'}'s, "
+              f"K2 {d_k2} (dp x shard rows), K3 {d_k3}{more}")
+    return [rec[at:] for rec in recs], wall, k1, k2, k3
+
+
+def _card():
+    """The card's `nvidia-smi --query-gpu=name,power.limit` line."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
+        "nvidia-smi: " + smi.stderr.strip())
+
+
+def _one_process_mesh(flags, src, arc, out, reps):
+    """compress_file_mesh and decompress_file_mesh_seq of src at the mesh
+    of `flags` on one process on the card, `reps` times each (the last
+    timed): (compress seconds, decode seconds)."""
+    from fqsqueezer_tpu_torch import cli
+    from fqsqueezer_tpu_torch.params import Params
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+    from fqsqueezer_tpu_torch.tools.bench_gpu import timed
+
+    dp, tp = (int(flags[flags.index(f) + 1]) for f in ("-dp", "-tp"))
+    for _ in range(reps):
+        p = cli.parse_args(["e", *flags, "-v", "0", src])
+        _, c_dt = timed(lambda: mesh_pipeline.compress_file_mesh(
+            p, src, arc, dp=dp, tp=tp))
+    for _ in range(reps):
+        _, d_dt = timed(lambda: mesh_pipeline.decompress_file_mesh_seq(
+            Params(), arc, out))
+    return c_dt, d_dt
+
+
+def _full_jobs(flags, src, arc, out, reps):
+    """run_ranks' jobs: the mesh compress of src at `flags`, then its
+    decode, `reps` times each (the last the timed one)."""
+    from fqsqueezer_tpu_torch import cli
+    from fqsqueezer_tpu_torch.params import Params
+
+    dp, tp = (int(flags[flags.index(f) + 1]) for f in ("-dp", "-tp"))
+    return ([("compress", dict(p=cli.parse_args(["e", *flags, "-v", "0",
+                                                  src]),
+                               in_path=src, out_path=arc, dp=dp, tp=tp))]
+            * reps + [("decompress", dict(p_cli=Params(), in_path=arc,
+                                          out_path=out))] * reps)
+
+
+def _rank_walls(recs, k):
+    """The slowest rank's wall of job k."""
+    return max(rec[k]["seconds"] for rec in recs)
+
+
+def phase_mesh_ranks():
+    """The dp x tp mesh on several processes, one rank each
+    (mesh_pipeline.run_ranks): (a) NCCL at world 1 on the card: every
+    testdata/mesh and testdata/mesh_legacy fixture written (== the
+    committed archive, snap_dp2tp1's snapshot too) and the committed
+    archives decoded (== the JAX decoders' digests; route_drop_dp2tp4's
+    == the JAX mesh decode's, MESH_RANKS_DROP), K1 once a group flush, K2
+    once a shard row, K3 once a shard and batch; (b) gloo ranks sharing
+    the one card, R = dp (2 and 4): the same for each fixture of that dp,
+    and at R = 2 the 100k corpus at MESH_RANKS_SHARED compressed (== the
+    one-process writer's archive of it in this run) and decoded
+    (BYTE-EXACT); their walls are no speed figure; (c) where torch sees 2
+    cards or more, NCCL across min(cards, 4) of them at MESH_RANKS_CARDS
+    on the 100k corpus, compress and decode (warm-up, then timed) beside
+    the one-process path's, the archives equal and the decode BYTE-EXACT.
+    Returns K1's launches and K2's and K3's by kernel instantiation, every
+    rank's summed."""
+    import torch
+
+    from fqsqueezer_tpu_torch import cli
+    from fqsqueezer_tpu_torch.parallel import mesh_pipeline
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_cards = torch.cuda.device_count()
+    k1, k2, k3 = 0, {}, {}
+
+    def add(run):
+        nonlocal k1
+        k1 += run[2]
+        for tot, part in ((k2, run[3]), (k3, run[4])):
+            for k, n in part.items():
+                tot[k] = tot.get(k, 0) + n
+
+    d = os.path.join(WORK, "mesh_ranks")
+    entries = _mesh_rank_fixtures(d)
+    run = _run_rank_fixtures(entries, 1, "nccl", None)
+    add(run)
+    print(f"[mesh_ranks] NCCL at world 1 (the card): {len(entries)} "
+          f"fixtures written and decoded in one launch of {run[1]:.1f} s")
+
+    src = _corpus(FULL_READS)[0]
+    arc_one = os.path.join(WORK, "mesh_ranks_one.fqst")
+    arc, out = (os.path.join(WORK, f"mesh_ranks_shared.{x}")
+                for x in ("fqst", "fastq"))
+    for world in (2, 4):
+        mine = [e for e in entries if e["dp"] == world]
+        extra = (_full_jobs(MESH_RANKS_SHARED, src, arc, out, 1)
+                 if world == 2 else ())
+        run = _run_rank_fixtures(mine, world, "gloo", "cuda:0", extra)
+        add(run)
+        print(f"[mesh_ranks] gloo, {world} ranks sharing the one card: "
+              f"{len(mine)} fixtures in one launch of {run[1]:.1f} s (ranks "
+              f"sharing one card: not a speed figure)")
+        if world != 2:
+            continue
+        recs = run[0]
+        c_one, d_one = _one_process_mesh(MESH_RANKS_SHARED, src, arc_one,
+                                         arc_one + ".fastq", 1)
+        if _sha256(arc) != _sha256(arc_one):
+            raise RuntimeError("mesh_ranks: the 100k archive of 2 ranks "
+                               "differs from the one-process writer's")
+        if _sha256(out) != _sha256(src):
+            raise RuntimeError("mesh_ranks: the 100k decode of 2 ranks "
+                               "differs from the input")
+        for rec in recs:
+            run_k = (rec[0]["launches"], rec[1]["launches"])
+            k1 += run_k[0]["K1"]
+            k2["main"] = k2.get("main", 0) + run_k[1]["K2"]
+            k3[96] = k3.get(96, 0) + run_k[1]["K3"]
+        print(f"[mesh_ranks] 100k `e {' '.join(MESH_RANKS_SHARED)}` on 2 "
+              f"gloo ranks sharing the one card: archive == the "
+              f"one-process writer's, decode BYTE-EXACT; compress "
+              f"{_rank_walls(recs, 0):.3f} s, decode "
+              f"{_rank_walls(recs, 1):.3f} s (ranks sharing one card: not "
+              f"a speed figure; one process on the card: "
+              f"{c_one:.3f} s and {d_one:.3f} s)")
+
+    if n_cards >= 2:
+        world = 4 if n_cards >= 4 else 2
+        arc, out = (os.path.join(WORK, f"mesh_ranks_cards.{x}")
+                    for x in ("fqst", "fastq"))
+        one_arc, one_out = (os.path.join(WORK, f"mesh_ranks_cards_one.{x}")
+                            for x in ("fqst", "fastq"))
+        recs = mesh_pipeline.run_ranks(
+            _full_jobs(MESH_RANKS_CARDS, src, arc, out, 2), world, "nccl",
+            timeout=300)
+        c_one, d_one = _one_process_mesh(MESH_RANKS_CARDS, src, one_arc,
+                                         one_out, 2)
+        if _sha256(arc) != _sha256(one_arc) or _sha256(out) != _sha256(src):
+            raise RuntimeError(f"mesh_ranks: NCCL on {world} cards: the "
+                               f"archive differs from the one-process "
+                               f"writer's, or the decode from the input")
+        for rec in recs:
+            k1 += sum(r["launches"]["K1"] for r in rec[:2])
+            k2["main"] = k2.get("main", 0) + sum(r["launches"]["K2"]
+                                                 for r in rec[2:])
+            k3[96] = k3.get(96, 0) + sum(r["launches"]["K3"]
+                                         for r in rec[2:])
+        c_dt, d_dt = _rank_walls(recs, 1), _rank_walls(recs, 3)
+        print(f"[mesh_ranks] 100k `e {' '.join(MESH_RANKS_CARDS)}` over "
+              f"NCCL on {world} cards ({_card()} each): compress "
+              f"{FULL_READS / c_dt:.1f} reads/s ({c_dt:.3f} s), decode "
+              f"{FULL_READS / d_dt:.1f} reads/s ({d_dt:.3f} s); one "
+              f"process on one card: compress {FULL_READS / c_one:.1f} "
+              f"reads/s ({c_one:.3f} s), decode {FULL_READS / d_one:.1f} "
+              f"reads/s ({d_one:.3f} s); archives equal, decode BYTE-EXACT "
+              f"(the slowest rank's wall of the second run, spawn "
+              f"excluded)")
+    else:
+        print(f"[mesh_ranks] torch sees {n_cards} card: NCCL ran at world 1 "
+              f"and the multi-rank runs were gloo ranks sharing the card; "
+              f"NCCL across cards needs a machine with 2 or more")
+    print(f"[mesh_ranks] the phase took {time.time() - t0:.1f} s")
+    return k1, k2, k3
 
 
 def _table_kind(dcfg):
@@ -2460,8 +2951,9 @@ def _knob_fixture(name, flags, knobs, corpus, mesh):
     outs = [os.path.join(d, f"{name}.dec_{k}.fastq")
             for k in range(1, len(files) + 1)]
     _reset_launches()
-    rc = cli.main(["d", "-v", "0", "-out", outs[0], *(
-        ["-out2", outs[1]] if len(outs) > 1 else []), arc])
+    rc = cli.main(["d", *(ONE_CARD if mesh else ()), "-v", "0", "-out",
+                   outs[0], *(["-out2", outs[1]] if len(outs) > 1 else []),
+                   arc])
     if rc != 0:
         raise RuntimeError(f"[knobs] {name}: the CLI's d returned {rc}")
     return arc, outs, k1, dna.K2_LAUNCHES, dict(dna.K2_POS_LAUNCHES)
@@ -2792,6 +3284,8 @@ def main() -> int:
     phase_mesh()
     mesh_k1 = phase_mesh_write()
     mesh_k1 += phase_mesh_legacy()
+    ranks_k1, ranks_k2, ranks_k3 = phase_mesh_ranks()
+    mesh_k1 += ranks_k1
     legacy_k2, legacy_k3 = phase_legacy()
     k3 = phase_k3()
     k2 = phase_k2()
@@ -2799,6 +3293,15 @@ def main() -> int:
     knobs_k2, knobs_launches = phase_knobs()
     k3_launches[8], k2_launches = phase_decode()
     k3_launches[8] += sorted_k3
+    # the ranks' decodes, by the instantiation each fixture's header runs
+    k2_launches += ranks_k2.pop("main", 0)
+    sorted_k2 += ranks_k2.pop("sorted", 0)
+    pe_k2 += ranks_k2.pop("pe", 0)
+    for key, n in ranks_k2.items():
+        legacy_k2[key] = legacy_k2.get(key, 0) + n
+    for key, n in ranks_k3.items():
+        into = k3_launches if isinstance(key, int) else legacy_k3
+        into[key] = into.get(key, 0) + n
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "fqsqueezer_tpu"))
     if foreign:

@@ -14,11 +14,12 @@ Ported so far: single-end and paired-end compression and decompression
 both read orders and every quality and id mode, with three hand-written
 CUDA kernels: the rANS encode walks of a group flush (csrc/rans_encode.cu),
 the DNA decode scan a read row (csrc/dna_decode.cu) and the quality decode
-scan (csrc/qual_decode.cu); group snapshots and resume (checkpoint.py);
-dp x tp mesh archives written and decoded on one device
-(parallel.mesh_pipeline, cli `e -dp/-tp`); the single-step encoders
-(pipeline._encode_batch, the streams' *_encode_batch,
-parallel.sharded.sharded_encode). Still to come: legacy archive headers
-and the mesh across several cards (see ROADMAP.md).
+scan (csrc/qual_decode.cu); every header generation a JAX writer stores;
+group snapshots and resume (checkpoint.py); dp x tp mesh archives written
+and decoded on one process or on ranks, one a card over NCCL
+(parallel.mesh_pipeline, parallel.comm, cli `e -dp/-tp`); the
+single-step encoders (pipeline._encode_batch, the streams'
+*_encode_batch, parallel.sharded.sharded_encode). Still to come: tp
+across cards (see ROADMAP.md).
 """
 __version__ = "0.1.0"

@@ -36,11 +36,19 @@ defaults, -s -om s -qm 8 -im i. As in the reference CLI, an input above
 (original order, or SE sorted order with -im n); sorted order with ids,
 and PE sorted order, load the whole input. `e -dp N -tp M` writes an
 archive of a dp x tp mesh, as the reference CLI's -dp/-tp (SE and PE,
-the whole input read, never streamed), and `d` of one decodes it, both
-on one device (parallel.mesh_pipeline); a mesh the reference cannot
-shard, and a file that is not an archive, exit 1 with one line.
-The work runs on the first CUDA card; a machine without a visible card
-exits 1 with one line unless `--device cpu` asks for the CPU.
+the whole input read, never streamed), and `d` of one decodes it
+(parallel.mesh_pipeline). Without --device, on a machine whose torch sees
+dp cards or more, both run dp ranks, one a card, over NCCL (rank 0
+writes the output; the decode is the reference's mesh decode, which
+replays the writer's routed s/b exchange); otherwise one process runs the
+dp shards in turn (`--device cpu` or `cuda:N` asks for that), and its
+decode is the reference's with fewer devices than the mesh. The
+reference's rule has the same shape: its mesh where dp x tp devices
+exist; the port counts cards against dp alone, since tp stays inside a
+card. A mesh the reference cannot shard, a failed rank, and a file that
+is not an archive exit 1 with one line. The work runs on the first CUDA
+card; a machine without a visible card exits 1 with one line unless
+`--device cpu` asks for the CPU.
 """
 from __future__ import annotations
 
@@ -194,9 +202,9 @@ def stream_chunk_bytes(p: Params) -> int:
     return STREAM_CHUNK_BYTES if streams and total > STREAM_THRESHOLD else 0
 
 
-def _mesh_archive(p: Params, path: str) -> bool:
-    """Whether the archive's header names a dp x tp mesh (the reference
-    CLI's route to mesh_pipeline.decompress_file_mesh)."""
+def _mesh_dp(p: Params, path: str) -> int:
+    """The dp of the archive's mesh, 0 where its header names none (the
+    reference CLI's route to mesh_pipeline.decompress_file_mesh)."""
     from .archive import ArchiveReader
 
     rd = ArchiveReader(path)
@@ -204,13 +212,29 @@ def _mesh_archive(p: Params, path: str) -> bool:
         hdr = Params.load_params(rd.header_blob, base=p)
     finally:
         rd.close()
-    return hdr.mesh_dp > 1 or hdr.mesh_tp > 1
+    return hdr.mesh_dp if hdr.mesh_dp > 1 or hdr.mesh_tp > 1 else 0
 
 
-def _compress(p: Params, device) -> dict:
+def mesh_ranks(device: str, dp: int) -> int:
+    """How many ranks run a dp mesh: dp, one a card over NCCL, where the
+    device is the default `cuda` and torch sees dp cards or more; else 0,
+    one process running the shards in turn."""
+    if device != "cuda" or not torch.cuda.is_available():
+        return 0
+    return dp if torch.cuda.device_count() >= dp else 0
+
+
+def _mesh_route(p: Params, ranks: int, dp: int) -> None:
+    if p.verbosity >= 1:
+        print(f"mesh: {ranks} ranks on {ranks} cards (nccl)" if ranks else
+              f"mesh: 1 process, {dp} shards in turn")
+
+
+def _compress(p: Params, device, ranks: int = 0) -> dict:
     """`e`: the reference CLI's routes — a mesh (-dp/-tp) to
-    parallel.mesh_pipeline, PE to pipeline.compress_pe, SE to
-    pipeline.compress_file, streamed where stream_chunk_bytes says."""
+    parallel.mesh_pipeline (on `ranks` ranks, one a card, or on one
+    process), PE to pipeline.compress_pe, SE to pipeline.compress_file,
+    streamed where stream_chunk_bytes says."""
     from . import pipeline
 
     files = p.file_names
@@ -218,10 +242,26 @@ def _compress(p: Params, device) -> dict:
     if p.mesh_dp > 1 or p.mesh_tp > 1:
         from .parallel import mesh_pipeline
 
-        write = (mesh_pipeline.compress_pe_mesh if is_pe
-                 else mesh_pipeline.compress_file_mesh)
-        stats = write(p, *files[:1 + is_pe], p.out_path, dp=p.mesh_dp,
-                      tp=p.mesh_tp, device=device)
+        _mesh_route(p, ranks, p.mesh_dp)
+        if ranks:
+            from .parallel import sharded
+
+            # a mesh the tables cannot take fails here, as on one process
+            sharded.check_mesh(pipeline.make_configs(p)[0], p.mesh_dp,
+                               p.mesh_tp)
+            kw = dict(p=p, out_path=p.out_path, dp=p.mesh_dp, tp=p.mesh_tp)
+            if is_pe:
+                kw.update(in1=files[0], in2=files[1])
+            else:
+                kw.update(in_path=files[0])
+            stats = mesh_pipeline.run_ranks(
+                [("compress_pe" if is_pe else "compress", kw)],
+                ranks)[0][0]["result"]
+        else:
+            write = (mesh_pipeline.compress_pe_mesh if is_pe
+                     else mesh_pipeline.compress_file_mesh)
+            stats = write(p, *files[:1 + is_pe], p.out_path, dp=p.mesh_dp,
+                          tp=p.mesh_tp, device=device)
         stats.setdefault("ratio", stats["in_bytes"] / max(
             1, stats["out_bytes"]))
         return stats
@@ -234,9 +274,31 @@ def _compress(p: Params, device) -> dict:
         stream_chunk_bytes=stream_chunk_bytes(p))
 
 
+def _decompress(p: Params, device, device_arg: str) -> dict:
+    """`d`: a mesh archive to parallel.mesh_pipeline (on ranks, one a
+    card, where mesh_ranks says so, else on one process), any other to
+    pipeline.decompress_file."""
+    from . import pipeline
+
+    dp = _mesh_dp(p, p.file_names[0])
+    if not dp:
+        return pipeline.decompress_file(p, p.file_names[0], p.out_path,
+                                        p.out_path2, device=device)
+    from .parallel import mesh_pipeline
+
+    ranks = mesh_ranks(device_arg, dp)
+    _mesh_route(p, ranks, dp)
+    if ranks:
+        return mesh_pipeline.run_ranks([("decompress", dict(
+            p_cli=p, in_path=p.file_names[0], out_path=p.out_path,
+            out_path2=p.out_path2))], ranks)[0][0]["result"]
+    return mesh_pipeline.decompress_file_mesh(
+        p, p.file_names[0], p.out_path, p.out_path2, device=device)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    device, argv = take_device(argv)
+    device_arg, argv = take_device(argv)
     p = parse_args(argv)
     compress = p.work_mode == WorkMode.COMPRESS
     if not p.file_names:
@@ -244,7 +306,7 @@ def main(argv=None) -> int:
     from . import pipeline
 
     try:
-        device = pipeline.resolve_device(device)
+        device = pipeline.resolve_device(device_arg)
     except RuntimeError as e:
         raise SystemExit(f"error: {e}")
     if p.verbosity >= 1:
@@ -256,24 +318,22 @@ def main(argv=None) -> int:
         if (p.dna_mode in (DnaMode.PE_ORIGINAL, DnaMode.PE_SORTED)
                 and len(p.file_names) < 2):
             raise SystemExit("paired-end mode needs two input files")
+        from .parallel.comm import RankError
+
         try:
-            stats = _compress(p, device)
-        except ValueError as e:
+            stats = _compress(p, device, mesh_ranks(device_arg, p.mesh_dp))
+        except (ValueError, RankError) as e:
             raise SystemExit(f"error: {e}")
         if p.verbosity >= 1:
             print(f"reads: {stats['n_reads']}  in: {stats['in_bytes']}  "
                   f"out: {stats['out_bytes']}  ratio: {stats['ratio']:.3f}  "
                   f"bits/base: {stats['bits_per_base']:.4f}")
     else:
-        try:
-            decompress = pipeline.decompress_file
-            if _mesh_archive(p, p.file_names[0]):
-                from .parallel import mesh_pipeline
+        from .parallel.comm import RankError
 
-                decompress = mesh_pipeline.decompress_file_mesh
-            stats = decompress(p, p.file_names[0], p.out_path, p.out_path2,
-                               device=device)
-        except (OSError, EOFError, ValueError) as e:
+        try:
+            stats = _decompress(p, device, device_arg)
+        except (OSError, EOFError, ValueError, RankError) as e:
             raise SystemExit(f"error: {e}")
         if p.verbosity >= 1:
             print(f"reads: {stats['n_reads']}")

@@ -528,7 +528,8 @@ def test_port_sources_import_nothing_of_jax_or_the_reference_package():
     assert len(files) > 20
     rel = {os.path.relpath(f, REPO) for f in files}
     assert {"fqsqueezer_tpu_torch/checkpoint.py",
-            "fqsqueezer_tpu_torch/parallel/mesh_pipeline.py"} <= rel
+            "fqsqueezer_tpu_torch/parallel/mesh_pipeline.py",
+            "fqsqueezer_tpu_torch/parallel/comm.py"} <= rel
     bad = []
     for path in files:
         with open(path) as f:
