@@ -1022,6 +1022,10 @@ def phase_full():
     return launches
 
 
+# K4 and K5 launches of the decodes whose counts _check_scans held
+SCAN_LAUNCHES = {"K4": 0, "K5": 0}
+
+
 def _launch_counts():
     """(K3, K2) launches since the last _reset_launches."""
     from fqsqueezer_tpu_torch.streams import dna, quality
@@ -1031,15 +1035,42 @@ def _launch_counts():
 
 def _reset_launches():
     from fqsqueezer_tpu_torch.ops import rans
-    from fqsqueezer_tpu_torch.streams import dna, quality
+    from fqsqueezer_tpu_torch.streams import dna, ids, meta, quality
 
     rans.K1_LAUNCHES = quality.K3_LAUNCHES = dna.K2_LAUNCHES = 0
+    ids.K4_LAUNCHES = meta.K5_LAUNCHES = 0
     dna.K2_POS_LAUNCHES = dict.fromkeys(dna.K2_POS, 0)
+
+
+def _check_scans(arc, what, k4=None, k5=None):
+    """K5 once a batch (of each dp shard on a mesh) and K4 as often where
+    the archive has ids and never without, in the decode just run (the
+    counts since the last _reset_launches, or k4 and k5 where given: the
+    ranks' sums). Every batch runs one scan of each, so the counts also
+    show that no batch ran a plain scan. Adds them to SCAN_LAUNCHES;
+    returns (K4, K5)."""
+    from fqsqueezer_tpu_torch import pipeline
+    from fqsqueezer_tpu_torch.streams import ids, meta
+
+    p, batches, *_ = _mesh_rows(arc)
+    k5_want = p.mesh_dp * batches
+    k4_want = k5_want if pipeline.make_configs(p)[3] is not None else 0
+    got = (ids.K4_LAUNCHES if k4 is None else k4,
+           meta.K5_LAUNCHES if k5 is None else k5)
+    if got != (k4_want, k5_want):
+        raise RuntimeError(f"{what}: K4 launched {got[0]} times (want "
+                           f"{k4_want}), K5 {got[1]} (want {k5_want}) for "
+                           f"{batches} batches of {p.mesh_dp} shard(s)")
+    SCAN_LAUNCHES["K4"] += got[0]
+    SCAN_LAUNCHES["K5"] += got[1]
+    return got
 
 
 def _check_decode_launches(arc, has_quality, what):
     """K3 once a batch with a quality stream and never without one, K2 once
-    a read row, in the decode just run; returns (K3, K2) launches."""
+    a read row, K4 and K5 as _check_scans says, in the decode just run;
+    returns (K3, K2) launches."""
+    _check_scans(arc, what)
     k3, k2 = _launch_counts()
     batches, rows = _batches_and_rows(arc)
     if k3 != (batches if has_quality else 0) or k2 != rows:
@@ -1523,6 +1554,7 @@ def phase_mesh():
             raise RuntimeError(f"mesh {name}: K2 launched {k2} times for "
                                f"{rows} shard rows, K3 {k3} (want "
                                f"{k3_want})")
+        _check_scans(arc, f"mesh {name}")
         dcfg = pipeline.make_configs(p)[0]
         st = pipeline.state_create(dcfg, None, None, "cuda").dna
         clone_ms = _ms(lambda: (st.s_tc.clone(), st.b_tc.clone()), 20)
@@ -1696,6 +1728,7 @@ def phase_mesh_write():
             raise RuntimeError(f"mesh_write `{' '.join(flags)}`: e returned "
                                f"{rc}, d {rc2}, or the decode differs from "
                                f"the input")
+        _check_scans(arc, f"mesh_write `{' '.join(flags)}`")
         if launches != groups or k2 != rows or k3 != k3_want:
             raise RuntimeError(f"mesh_write `{' '.join(flags)}`: K1 launched "
                                f"{launches} times for {groups} groups, K2 "
@@ -1882,6 +1915,7 @@ def phase_mesh_legacy():
                                    f"returned {rc}, sha256 {got} != the "
                                    f"reference's")
             how = "d sha256 == the reference's sequential decode"
+            _check_scans(arc, f"mesh_legacy {name}")
         if k2 != rows or k3 != k3_want:
             raise RuntimeError(f"mesh_legacy {name}: K2 launched {k2} times "
                                f"for {rows} shard rows, K3 {k3} (want "
@@ -1923,6 +1957,7 @@ def phase_mesh_legacy():
             raise RuntimeError(f"mesh_legacy `{' '.join(flags)}` under "
                                f"{gen or 'today'}: d returned {rc}, or the "
                                f"decode differs from the input")
+        _check_scans(arc, f"mesh_legacy {tag}")
         if launches != groups or k2 != rows or k3 != k3_want:
             raise RuntimeError(f"mesh_legacy {tag}: K1 launched {launches} "
                                f"times for {groups} groups, K2 {k2} for "
@@ -2204,6 +2239,9 @@ def _run_rank_fixtures(entries, world, backend, device, extra=()):
                                f"launched {w_k1} times a rank for {groups} "
                                f"groups, K2 {d_k2} for {rows} shard rows, "
                                f"K3 {d_k3} (want {k3_want})")
+        _check_scans(e["ref"], f"mesh_ranks {e['name']} ({tag})",
+                     *(sum(r["launches"][k] for r in d_recs)
+                       for k in ("K4", "K5")))
         k1 += sum(w_k1)
         k2[e["k2"]] = k2.get(e["k2"], 0) + d_k2
         if e["k3"] is not None:
@@ -2424,14 +2462,17 @@ def phase_verify():
     if rc != 0 or sha != want:
         raise RuntimeError(f"verify: the CLI's e returned {rc}, archive "
                            f"sha256 {sha} != reference {want}")
+    _reset_launches()
     rc = cli.main(["d", "-v", "0", "-out", out, arc])
     with open(src, "rb") as f, open(out, "rb") as g:
         same = f.read() == g.read()
     if rc != 0 or not same:
         raise RuntimeError(f"verify: the CLI's d returned {rc}; decode "
                            f"equals the input: {same}")
+    k4, k5 = _check_scans(arc, "verify")
     print(f"[verify] 3000 reads `{' '.join(flags)}` through the CLI: "
-          f"archive sha256 == reference, decode BYTE-EXACT")
+          f"archive sha256 == reference, decode BYTE-EXACT; K4 launches "
+          f"{k4}, K5 {k5}")
 
 
 def _legacy_params(gen, flags, files):
@@ -2716,6 +2757,100 @@ def phase_k3():
             n_sym, mode, _legacy_paths(gen, n, flags)[1], deltas=True)
     _k3_deltas_random()
     return out
+
+
+def _scan_batch(arc, which):
+    """(meta scan args, id scan args or None) of an archive's batch number
+    `which` in archive order, or of its last batch (which = -1), with the
+    models and lane states the batches before left
+    (k4_compare.scan_batches)."""
+    from fqsqueezer_tpu_torch.tools.k4_compare import scan_batches
+
+    got = None
+    batches = scan_batches(arc)
+    for k, b in enumerate(batches):
+        got = b
+        if k == which:
+            break
+    batches.close()
+    return got
+
+
+def _scan_record(rec):
+    """A kernels-line entry's numbers from k4_compare.measure's record."""
+    return {"max_abs_err": 0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "chain_floor_ms": rec["chain_ms"],
+            "call_ms": rec["call_ms"]}
+
+
+def phase_k4():
+    """K4 (the id decode scan) == its plain version on the card, exactly
+    (the grid, final states and words consumed), on K4's batches: the
+    second batch of the 100k -qm o -im o archive (2048 lanes) and of the
+    100k -qm n -im o one (1024 lanes), the second batch of [legacy]'s 20k
+    H0 archive (id codec v1), the last batch of the 100k -qm o -im o
+    archive (padding rows: n_valid < R) and an encoded random batch (F =
+    12, M = 300, zero rows, padding); each timed with its plain version,
+    chain floor and bound. Returns the first batch's numbers."""
+    from fqsqueezer_tpu_torch.streams import ids
+    from fqsqueezer_tpu_torch.tools import k4_compare as k4
+    from fqsqueezer_tpu_torch.utils.id_batches import id_scan_inputs
+
+    gen, n, flags, _, _ = LEGACY[0]
+    qmo = os.path.join(WORK, f"qmo_imo_{FULL_READS}.fqst")
+    cases = [
+        ("the 100k -qm o -im o archive's second batch", qmo, 1),
+        ("the 100k -qm n -im o archive's second batch",
+         os.path.join(WORK, f"qmn_imo_{FULL_READS}.fqst"), 1),
+        ("the 20k H0 archive's second batch (id codec v1)",
+         _legacy_paths(gen, n, flags)[1], 1),
+        ("the 100k -qm o -im o archive's last batch (padding rows)", qmo,
+         -1)]
+    out = None
+    for what, arc, which in cases:
+        args = k4.id_args_of(_scan_batch(arc, which)[1])
+        cfg, _, R, _, _, n_valid = args
+        if ("v1" in what) != (cfg.codec_v == 1) or (
+                "padding" in what and not n_valid < R):
+            raise RuntimeError(f"[k4] {what}: id codec v{cfg.codec_v}, "
+                               f"n_valid {n_valid} of {R} reads")
+        rec = k4.measure(f"[k4] K4 on {what}, exact", ids.id_decode_scan,
+                         ids.id_decode_scan_plain, k4.k4_bound_ms, args)
+        out = out or rec
+    args = id_scan_inputs(19, 2048, 2, 12, 300, n_pad=300, device="cuda")
+    k4.measure("[k4] K4 on a random batch (F = 12, M = 300, zero rows, "
+               "300 padding rows), exact", ids.id_decode_scan,
+               ids.id_decode_scan_plain, k4.k4_bound_ms, args)
+    return _scan_record(out)
+
+
+def phase_k5():
+    """K5 (the meta decode scan) == its plain version on the card, exactly,
+    on the second batch of the primary row's 100k archive (2 slots, 2048
+    lanes), of the sorted row's (3 slots with the LCP, 1024 lanes) and of
+    the PE row's (1024 lanes); each timed with its plain version, chain
+    floor and bound. Returns the primary batch's numbers."""
+    from fqsqueezer_tpu_torch.streams import meta
+    from fqsqueezer_tpu_torch.tools import k4_compare as k4
+
+    out = None
+    for what, arc, W in (
+            ("the primary row's", _corpus(FULL_READS)[1], 2),
+            ("the sorted row's", os.path.join(WORK,
+                                              f"sorted_{FULL_READS}.fqst"),
+             3),
+            ("the PE row's", os.path.join(WORK, f"pe_{PE_100K[0]}.fqst"),
+             2)):
+        args = _scan_batch(arc, 1)[0]
+        if args[0].n_per_read != W:
+            raise RuntimeError(f"[k5] {what} batch has "
+                               f"{args[0].n_per_read} slots a read")
+        rec = k4.measure(f"[k5] K5 on {what} second batch, exact",
+                         meta.meta_decode_scan, meta.meta_decode_scan_plain,
+                         k4.k5_bound_ms, args)
+        out = out or rec
+    return _scan_record(out)
 
 
 def _k3_deltas_random():
@@ -3195,13 +3330,13 @@ def _decompress(n_reads):
     _, arc = _corpus(n_reads)
     out = os.path.join(WORK, f"bench_{n_reads}.dec.fastq")
     torch.cuda.synchronize()
-    quality.K3_LAUNCHES = 0
-    dna.K2_LAUNCHES = 0
+    _reset_launches()
     t0 = time.time()
     stats = pipeline.decompress_file(Params(), arc, out)
     torch.cuda.synchronize()
     dt = time.time() - t0
     batches, rows = _batches_and_rows(arc)
+    _check_scans(arc, f"decode {n_reads}")
     return (_sha256(out), dt, quality.K3_LAUNCHES, batches, dna.K2_LAUNCHES,
             rows, stats["n_reads"])
 
@@ -3216,8 +3351,7 @@ def phase_decode():
 
     _, arc = _corpus(DIGEST_READS)
     out = os.path.join(WORK, f"bench_{DIGEST_READS}.dec.fastq")
-    quality.K3_LAUNCHES = 0
-    dna.K2_LAUNCHES = 0
+    _reset_launches()
     t0 = time.time()
     rc = cli.main(["d", "-v", "1", "-out", out, arc])
     torch.cuda.synchronize()
@@ -3227,6 +3361,7 @@ def phase_decode():
     batches, rows = _batches_and_rows(arc)
     if rc != 0:
         raise RuntimeError(f"the CLI's d returned {rc}")
+    _check_scans(arc, f"decode {DIGEST_READS}")
     sha = _sha256(out)
     if sha != DIGEST_D20K:
         raise RuntimeError(f"decoded 20k FASTQ sha256 {sha} != reference "
@@ -3288,6 +3423,8 @@ def main() -> int:
     mesh_k1 += ranks_k1
     legacy_k2, legacy_k3 = phase_legacy()
     k3 = phase_k3()
+    k4 = phase_k4()
+    k5 = phase_k5()
     k2 = phase_k2()
     k2.update(phase_k2_legacy())
     knobs_k2, knobs_launches = phase_knobs()
@@ -3373,7 +3510,15 @@ def main() -> int:
         "replaces": "fqsqueezer_tpu/streams/quality.py:171",
         "launches": legacy_k3[key], **k3[f"{n_sym} deltas"]}
         for n_sym, mode, key in ((96, "lossless", "H1"),
-                                 (8, "illumina_8", "H1 sorted"))]}))
+                                 (8, "illumina_8", "H1 sorted"))] + [{
+        "name": "id_decode_scan (K4)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/slot_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/ids.py:630",
+        "launches": SCAN_LAUNCHES["K4"], **k4}, {
+        "name": "meta_decode_scan (K5)", "route": "cuda",
+        "source": "fqsqueezer_tpu_torch/csrc/slot_decode.cu",
+        "replaces": "fqsqueezer_tpu/streams/meta.py:95",
+        "launches": SCAN_LAUNCHES["K5"], **k5}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

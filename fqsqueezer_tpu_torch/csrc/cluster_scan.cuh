@@ -1,5 +1,6 @@
-// The exclusive scan that the decode scans K2 (dna_decode.cu) and K3
-// (qual_decode.cu) run at every step, and their one-cluster launch.
+// The exclusive scan that the decode scans K2 (dna_decode.cu), K3
+// (qual_decode.cu), K4 and K5 (slot_decode.cu) run at every step, and their
+// one-cluster launch.
 //
 // All N lanes of a decode share ONE word stream: at each step the lanes
 // whose state fell below 2^16 take consecutive words of it in lane order,
@@ -69,21 +70,29 @@ __device__ __forceinline__ TakeScan cluster_take_scan(
 }
 
 // Launches `kernel` on `stream` as ONE cluster of n_blocks blocks of
-// `threads` threads; a cluster of more than 8 blocks is non-portable (the
-// H100 takes 16) and asks for it first. Returns the launch's cudaError.
+// `threads` threads, each with `smem` bytes of dynamic shared memory; a
+// cluster of more than 8 blocks is non-portable (the H100 takes 16) and
+// asks for it first, and so does more than 48 KB of dynamic shared memory
+// a block. Returns the launch's cudaError.
 template <typename... KParams, typename... Values>
-cudaError_t launch_one_cluster(void (*kernel)(KParams...), int n_blocks,
-                               int threads, cudaStream_t stream,
-                               Values... args) {
+cudaError_t launch_one_cluster_smem(void (*kernel)(KParams...), int n_blocks,
+                                    int threads, size_t smem,
+                                    cudaStream_t stream, Values... args) {
   if (n_blocks > kPortableCluster) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
   }
+  if (smem > (size_t{48} << 10)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_blocks, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -95,6 +104,15 @@ cudaError_t launch_one_cluster(void (*kernel)(KParams...), int n_blocks,
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// launch_one_cluster_smem with no dynamic shared memory.
+template <typename... KParams, typename... Values>
+cudaError_t launch_one_cluster(void (*kernel)(KParams...), int n_blocks,
+                               int threads, cudaStream_t stream,
+                               Values... args) {
+  return launch_one_cluster_smem(kernel, n_blocks, threads, 0, stream,
+                                 args...);
 }
 
 }  // namespace fqtz

@@ -83,6 +83,13 @@ _ARGTYPES = {
     # (args, n_args, stream): args a host int64 array in the order of
     # streams/dna.py's K2_ARGS (struct Args in csrc/dna_decode.cu)
     "fqtz_dna_decode_row": [_P, _I, _P],
+    # (table, slots, W, r_pl, words, n_words, init, N, sb, n_valid, M, out,
+    # fin, ptr_out, stream)
+    "fqtz_id_decode": [_P, _P, _I, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+                       _P, _P],
+    # (table, W, r_pl, words, n_words, init, N, sb, out, fin, ptr_out,
+    # stream)
+    "fqtz_meta_decode": [_P, _I, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P],
 }
 
 

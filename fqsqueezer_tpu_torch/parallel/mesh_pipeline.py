@@ -551,7 +551,7 @@ def run_ranks(jobs, world: int, backend: str = "nccl", device=None,
 
     Returns a list a rank, in rank order, of one record a job: "result"
     (what the call returned; tensors as numpy), "seconds" (its wall on
-    that rank) and "launches" (the K1, K2 and K3 launches it made there).
+    that rank) and "launches" (the K1-K5 launches it made there).
     A job that fails on any rank ends every rank: comm.RankError, one
     line."""
     for kind, _ in jobs:
@@ -611,7 +611,8 @@ _JOBS = {
 
 def _launches() -> dict:
     return {"K1": rans.K1_LAUNCHES, "K2": dna.K2_LAUNCHES,
-            "K3": quality.K3_LAUNCHES}
+            "K3": quality.K3_LAUNCHES, "K4": ids.K4_LAUNCHES,
+            "K5": meta.K5_LAUNCHES}
 
 
 def _rank_jobs(comm, jobs) -> list:

@@ -52,3 +52,19 @@ def from_row_blocks(y: torch.Tensor) -> torch.Tensor:
 def pad_reads(n: int, n_lanes: int) -> int:
     """Smallest multiple of n_lanes >= n."""
     return -(-n // n_lanes) * n_lanes
+
+
+def check_kernel_tensors(kernel: str, want, dev) -> None:
+    """Raise ValueError unless every (name, tensor, dtype, shape) of `want`
+    is a contiguous tensor of that dtype on `dev` and of that shape (shape
+    None: any 1-d length): the checks a decode kernel's wrapper makes
+    before it builds or launches."""
+    for name, t, dt, shape in want:
+        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
+                or t.dim() != (1 if shape is None else len(shape))
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"{kernel}: {name} must be a contiguous {dt} "
+                             f"tensor on {dev}" + ("" if shape is None else
+                                                   f" of shape {shape}")
+                             + f", got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")

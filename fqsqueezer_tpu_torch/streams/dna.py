@@ -1478,15 +1478,7 @@ def _check_k2(cfg, state, length, words, x, ptr, regs, L, lcp, src, be,
         want += (("ls", loc[0], torch.int64, (cells, lw)),
                  ("lb", loc[1], torch.int64, (cells, lw)),
                  ("lm", loc[2], torch.int32, lm_shape))
-    for name, t, dt, shape in want:
-        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
-                or (shape is None and t.dim() != 1)
-                or (shape is not None and tuple(t.shape) != shape)):
-            raise ValueError(f"K2: {name} must be a contiguous {dt} tensor "
-                             f"on {dev}" + ("" if shape is None else
-                                            f" of shape {shape}")
-                             + f", got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+    common.check_kernel_tensors("K2", want, dev)
     for name, rows, log2_base in (("s", s_rows, cfg.smer_log2_buckets),
                                   ("b", b_rows, cfg.bmer_log2_buckets)):
         lr = rows.bit_length() - 1

@@ -7,7 +7,9 @@ line for line. The device half codes a fixed-layout symbol grid per read
 ([flag | F delta syms | 4F magnitude bytes | 2 length bytes | M raw
 bytes], unused slots masked rANS no-ops) under static contexts: modeling
 is one vectorized pass, and decode is a scan of one step a symbol slot
-(r_pl * w_all steps a batch), torch ops on any device. Both codec
+(r_pl * w_all steps a batch): on CUDA tensors kernel K4
+(csrc/slot_decode.cu), one launch a batch; on CPU tensors
+id_decode_scan_plain, the same scan as torch ops. Both codec
 versions: v2 (the per-context ALPHA masks and the n_valid padding rule)
 and the legacy v1 (ALPHA on all 256 symbols of every context, and padding
 reads coded like real ones).
@@ -15,6 +17,7 @@ reads coded like real ones).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -542,7 +545,7 @@ def zero_id_batch(R: int):
 
 
 # ---------------------------------------------------------------------------
-# device modeling / decoding (torch ops on any device)
+# device modeling (torch ops on any device)
 # ---------------------------------------------------------------------------
 
 def id_state_create(device=None) -> torch.Tensor:
@@ -636,19 +639,50 @@ def id_encode_batch(cfg: IdConfig, model: torch.Tensor, flag, dsym, dmag,
     return words, n_words, states, new_model
 
 
-def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
-                    words: torch.Tensor, init_states: torch.Tensor,
-                    n_valid=None):
-    """Decode the symbol grid of R reads. Returns (flag [R] u8, dsym [R, F]
-    u8, dmag [R, F, 4] u8, emat [R, M] u8, elens [R] int64, new_model,
-    final_states [N] int64, words consumed 0-d int64) — the reference's
-    id_decode_batch (n_valid as in id_modeling). Host detokenization
-    (decode_ids_host) turns the planes back into id bytes.
+# ---------------------------------------------------------------------------
+# decode scan: kernel K4 and its plain version
+# ---------------------------------------------------------------------------
 
-    The scan takes one step a symbol slot: slot i of every lane's read row
-    at once. A slot's context is the same for every lane, so its cdf is one
-    row of _ctx_cdfs, and which lanes are active follows from the flag,
-    delta symbols and length the row's earlier slots decoded."""
+# Launches of K4 (the CUDA id decode scan) in this process; the plain scan
+# never counts.
+K4_LAUNCHES = 0
+K4_MAX_LANES = 2048   # one cluster holds every lane (kMaxLanes in the source)
+# the slot kinds of K4's rule (kFlag..kByte in csrc/slot_decode.cu)
+SLOT_FLAG, SLOT_DELTA, SLOT_MAG, SLOT_LEN0, SLOT_LEN1, SLOT_BYTE = range(6)
+
+
+def _slot_kinds(cfg: IdConfig) -> list:
+    """(kind, arg) of each of the w_all symbol slots of a read: which
+    carries decide whether a lane codes it (delta: the field; magnitude:
+    field * MAGS + byte; raw byte: its column)."""
+    F, M = cfg.n_fields, cfg.max_id_len
+    return ([(SLOT_FLAG, 0)] + [(SLOT_DELTA, f) for f in range(F)]
+            + [(SLOT_MAG, f * MAGS + j) for f in range(F)
+               for j in range(MAGS)]
+            + [(SLOT_LEN0, 0), (SLOT_LEN1, 0)]
+            + [(SLOT_BYTE, c) for c in range(M)])
+
+
+@functools.lru_cache(maxsize=16)
+def k4_slots(cfg: IdConfig, device=None) -> torch.Tensor:
+    """int32 [w_all]: K4's slot words, context | kind << 8 | arg << 12;
+    made once a configuration and device (a copy to the card a batch
+    would cost the call more than K5's whole scan)."""
+    return torch.tensor([ctx | kind << 8 | arg << 12 for ctx, (kind, arg) in
+                         zip(_slot_ctx(cfg), _slot_kinds(cfg))],
+                        dtype=torch.int32, device=device)
+
+
+def id_decode_scan_plain(cfg: IdConfig, cdfs: torch.Tensor, R: int,
+                         words: torch.Tensor, init_states: torch.Tensor,
+                         n_valid=None):
+    """K4's plain torch version, on any device: the reference's
+    id_decode_batch scan, one step a symbol slot — slot i of every lane's
+    read row at once. A slot's context is the same for every lane, so its
+    cdf is one row of cdfs (_ctx_cdfs), and which lanes are active follows
+    from the flag, delta symbols and length the row's earlier slots
+    decoded. Returns (grid [R, w_all] uint8, final states [N] int64, words
+    consumed 0-d int64)."""
     N = cfg.n_lanes
     F, M = cfg.n_fields, cfg.max_id_len
     r_pl = R // N
@@ -659,7 +693,6 @@ def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
     i_len1 = i_len0 + 1
     i_byte0 = i_len1 + 1
     slot_ctx = _slot_ctx(cfg)
-    cdfs = _ctx_cdfs(cfg, model)
     nb_lut = torch.from_numpy(_NB_LUT).to(dev)
     lane = torch.arange(N, device=dev)
     valid = (None if n_valid is None or cfg.codec_v < 2 else
@@ -704,15 +737,107 @@ def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
         elif i == i_len1:
             len_c = torch.clamp(len_c | (sym << 8), max=M)
         ys[t] = sym
-    grid = common.from_grid(ys, N, W)                            # [R, W]
+    return common.from_grid(ys, N, W).to(torch.uint8), x, ptr
 
+
+def _check_k4(cfg, cdfs, R, words, init_states):
+    N = cfg.n_lanes
+    dev = cdfs.device
+    if not 1 <= N <= K4_MAX_LANES:
+        raise ValueError(f"K4: {N} lanes, one cluster takes "
+                         f"1..{K4_MAX_LANES}")
+    want = (("cdfs", cdfs, torch.int32, (N_CTX, N_SYM + 1)),
+            ("words", words, torch.int32, None),
+            ("init_states", init_states, torch.int64, (N,)))
+    common.check_kernel_tensors("K4", want, dev)
+    if R < 0 or R % N or words.numel() < 1 or R * cfg.w_all >= 1 << 31:
+        raise ValueError(f"K4: {R} reads over {N} lanes, {words.numel()} "
+                         f"words, {cfg.w_all} slots a read")
+    if not 1 <= cfg.scale_bits <= 16:
+        raise ValueError(f"K4: scale_bits {cfg.scale_bits} outside [1, 16]")
+    if not 0 <= cfg.n_fields <= F_CAP or not 0 <= cfg.max_id_len < 1 << 20:
+        raise ValueError(f"K4: {cfg.n_fields} fields (at most {F_CAP}) or "
+                         f"max_id_len {cfg.max_id_len} outside [0, 2^20)")
+
+
+def _id_decode_scan_cuda(cfg, cdfs, R, words, init_states, n_valid):
+    """One K4 launch for the whole batch. Checks everything before it
+    builds or launches."""
+    global K4_LAUNCHES
+    _check_k4(cfg, cdfs, R, words, init_states)
+    from ..ops import _build
+
+    dev = cdfs.device
+    N = cfg.n_lanes
+    nv = R if n_valid is None or cfg.codec_v < 2 else max(
+        0, min(int(n_valid), R))
+    slots = k4_slots(cfg, dev)
+    grid = torch.empty((R, cfg.w_all), dtype=torch.uint8, device=dev)
+    fin = torch.empty((N,), dtype=torch.int64, device=dev)
+    ptr = torch.empty((1,), dtype=torch.int64, device=dev)
+    lib = _build.kernels()
+    with torch.cuda.device(dev):
+        rc = lib.fqtz_id_decode(
+            cdfs.data_ptr(), slots.data_ptr(), cfg.w_all, R // N,
+            words.data_ptr(), words.numel(), init_states.data_ptr(), N,
+            cfg.scale_bits, nv, cfg.max_id_len, grid.data_ptr(),
+            fin.data_ptr(), ptr.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"K4 launch failed: cudaError {rc}")
+    K4_LAUNCHES += 1
+    return grid, fin, ptr[0]
+
+
+def id_decode_scan(cfg: IdConfig, cdfs: torch.Tensor, R: int,
+                   words: torch.Tensor, init_states: torch.Tensor,
+                   n_valid=None):
+    """The id decode scan of one batch: on a CUDA table kernel K4 (a
+    failed build or launch raises; nothing falls back to the plain scan),
+    on a CPU table the plain scan. cdfs: int32 [N_CTX, 257], every
+    context's cdf row of the frozen model (_ctx_cdfs); words: int32 [n]
+    u16 values; init_states: int64 [N]; n_valid as in id_modeling. Returns
+    (grid [R, w_all] uint8, final states [N] int64, words consumed 0-d
+    int64)."""
+    kind = cdfs.device.type
+    if kind == "cuda":
+        return _id_decode_scan_cuda(cfg, cdfs, R, words, init_states,
+                                    n_valid)
+    if kind == "cpu":
+        return id_decode_scan_plain(cfg, cdfs, R, words, init_states,
+                                    n_valid)
+    raise ValueError(f"id_decode_scan: no scan for device {cdfs.device}")
+
+
+def planes_of_grid(cfg: IdConfig, grid: torch.Tensor):
+    """The decoded [R, w_all] symbol grid as the host planes: (flag [R] u8,
+    dsym [R, F] u8, dmag [R, F, 4] u8, emat [R, M] u8, elens [R] int64,
+    the two length bytes joined and clamped to M)."""
+    F, M = cfg.n_fields, cfg.max_id_len
+    R = grid.shape[0]
+    i_len0 = 1 + F * (1 + MAGS)
+    grid = grid.to(torch.int64)
     u8 = torch.uint8
-    flag = grid[:, 0].to(u8)
-    dsym = grid[:, 1:1 + F].to(u8)
-    dmag = grid[:, 1 + F:i_len0].reshape(R, F, MAGS).to(u8)
-    elens = torch.clamp(grid[:, i_len0] | (grid[:, i_len1] << 8), max=M)
-    emat = grid[:, i_byte0:].to(u8)
+    elens = torch.clamp(grid[:, i_len0] | (grid[:, i_len0 + 1] << 8), max=M)
+    return (grid[:, 0].to(u8), grid[:, 1:1 + F].to(u8),
+            grid[:, 1 + F:i_len0].reshape(R, F, MAGS).to(u8),
+            grid[:, i_len0 + 2:].to(u8), elens)
 
+
+def id_decode_batch(cfg: IdConfig, model: torch.Tensor, R: int,
+                    words: torch.Tensor, init_states: torch.Tensor,
+                    n_valid=None):
+    """Decode the symbol grid of R reads. Returns (flag [R] u8, dsym [R, F]
+    u8, dmag [R, F, 4] u8, emat [R, M] u8, elens [R] int64, new_model,
+    final_states [N] int64, words consumed 0-d int64) — the reference's
+    id_decode_batch (n_valid as in id_modeling). Host detokenization
+    (decode_ids_host) turns the planes back into id bytes. The scan is
+    id_decode_scan (K4 on the card) over the batch's cdf table, built once
+    here."""
+    grid, x, ptr = id_decode_scan(
+        cfg, _ctx_cdfs(cfg, model).to(torch.int32).contiguous(), R,
+        words.to(torch.int32).contiguous(), init_states, n_valid)
+    flag, dsym, dmag, emat, elens = planes_of_grid(cfg, grid)
     ctx, syms, _, _, active = id_modeling(cfg, model, flag, dsym, dmag,
                                           emat, elens, n_valid)
     new_model = models.model_update(

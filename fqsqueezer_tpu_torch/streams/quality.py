@@ -246,15 +246,7 @@ def _check_k3(cfg, model, lengths, words, init_states, L):
             ("lengths", lengths, torch.int32, None),
             ("words", words, torch.int32, None),
             ("init_states", init_states, torch.int64, (N,)))
-    for name, t, dt, shape in want:
-        if (t.dtype != dt or t.device != dev or not t.is_contiguous()
-                or t.dim() != (1 if shape is None else len(shape))
-                or (shape is not None and tuple(t.shape) != shape)):
-            raise ValueError(f"K3: {name} must be a contiguous {dt} tensor "
-                             f"on {dev}" + ("" if shape is None else
-                                            f" of shape {shape}")
-                             + f", got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+    common.check_kernel_tensors("K3", want, dev)
     if model.data_ptr() % 16:
         raise ValueError("K3: the model's rows must be 16-byte aligned")
     R = lengths.shape[0]

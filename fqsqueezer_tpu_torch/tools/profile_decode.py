@@ -5,7 +5,8 @@
 
 Compresses the bench corpus (chip_smoke.py's: 100 bp reads of a 4.6 Mbp
 genome, seed 42, the bench primary row's Params with the read order,
-quality and id modes given: `-om o -qm 8 -im n` by default; with --pe the
+quality and id modes given: `-om o -qm 8 -im n` by default, `--om s --qm 8
+--im i` the CLI's defaults (instrument ids); with --pe the
 bench's PE corpus, reads / 2 pairs of write_pe_corpus, as -p: `--pe --qm
 n` is the bench's PE row), then decompresses it
 warm: once without timers, once with a `torch.cuda.synchronize()` timer
@@ -18,8 +19,8 @@ symbols and the anchor after each read1 row — has its own row). Then one
 full batch (4096 reads) is decoded again under
 `torch.profiler` with CUDA activity: its wall, the device time of its
 kernels, the device's busy and idle shares, and the kernels launched a
-DNA decode position. With ids, that batch's id scan alone as well, and
-its bound: the least time the card could take for the scan's work (the
+DNA decode position. With ids, that batch's id scan alone as well
+(id_decode_scan: kernel K4) and its bound (k4_compare.k4_bound_ms: the
 cdf rows its slots read, the words it consumes, the states in and out,
 the symbols out, over 3.35 TB/s; a binary search of the row and the
 state update an active lane-slot over 67 Tops/s; the larger). Prints the
@@ -40,27 +41,25 @@ from ..io import fastq
 from ..ops import tables
 from ..params import Params
 from ..streams import dna, ids, meta, quality
+from . import k4_compare
 from ..utils.corpus import write_fastq_corpus, write_pe_corpus
 
 # the bench primary row, as chip_smoke.py gives it to the CLI, without its
 # read order, quality and id modes
 BENCH_ROW = ("-s", "-gs", "5", "-v", "0")
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
-INT_OPS_PER_S = 67e12      # published non-tensor 32-bit rate
-# an active lane-slot of the id scan besides its binary search: the
-# boundary divides, the state update and renormalisation, the word's
-# share of the scan (K3's count, chip_smoke.K3_OPS_PER_POS)
-ID_OPS_PER_SLOT = 16
 
 # dna_decode_row is K2 on the card: the row's scan and its s/b table
 # update; _apply_sb_updates and k2_update (the torch update) stay listed to
-# show that the card's decode calls them no more
+# show that the card's decode calls them no more; meta_decode_scan and
+# id_decode_scan are K5 and K4
 TIMED = ((pipeline, "_decode_batch"), (meta, "meta_decode_batch"),
+         (meta, "meta_decode_scan"),
          (dna, "dna_decode_batch"), (dna, "dna_decode_row"),
          (dna, "_pe_row_end"),
          (dna, "_apply_sb_updates"), (tables, "k2_update"),
          (dna, "dna_collect_updates"), (quality, "qual_decode_batch"),
          (quality, "qual_decode_scan"), (ids, "id_decode_batch"),
+         (ids, "id_decode_scan"),
          (ids, "decode_ids_host"), (pipeline, "payload_crc"),
          (fastq.FastqWriter, "write_batch"),
          (pipeline, "fill_stats_device"), (pipeline, "grow_tables"))
@@ -101,30 +100,6 @@ def _profiled(fn):
             sum(e.count for e in prof.key_averages()))
 
 
-def id_scan_bound_ms(icfg, model, R, n_valid, out):
-    """(ms, 'bytes' | 'operations') of one id_decode_batch call whose
-    result is `out`: bytes — each distinct cdf row its slots read once
-    ((n_sym + 1) int32), the words it consumed (4 B), the states in and
-    out (8 B), the R * w_all symbols out (1 B); operations — for each
-    active lane-slot a binary search of the row (2 (ceil(log2 n_sym) + 1))
-    and ID_OPS_PER_SLOT."""
-    flag, dsym, dmag, emat, elens, _, _, ptr = out
-    *_, active = ids.id_modeling(icfg, model, flag, dsym, dmag, emat, elens,
-                                 n_valid)
-    cdfs = ids._ctx_cdfs(icfg, model)
-    rows = len(set(ids._slot_ctx(icfg)))
-    N = icfg.n_lanes
-    nbytes = (rows * cdfs.shape[1] * 4 + int(ptr) * 4 + 2 * N * 8
-              + R * icfg.w_all)
-    n_sym = cdfs.shape[1] - 1
-    ops = int(active.sum()) * (2 * ((n_sym - 1).bit_length() + 1)
-                               + ID_OPS_PER_SLOT)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / INT_OPS_PER_S * 1e3
-    return (max(by_bytes, by_ops),
-            "bytes" if by_bytes >= by_ops else "operations")
-
-
 def _profile_one_batch(arc, out, out2):
     """Decode the archive with the profiler on around its third batch (the
     first full 4096-read one), and around that batch's id scan alone when
@@ -141,11 +116,15 @@ def _profile_one_batch(arc, out, out2):
             return real(dcfg, qcfg, mcfg, icfg, R, L, *rest)
         if icfg is not None:
             state, streams, n_valid = rest
-            words, states = streams[-1]
-            res, wall, dev_s, n = _profiled(lambda: ids.id_decode_batch(
-                icfg, state.id, R, words, states, n_valid))
+            words, states = streams[2 + (qcfg is not None)]
+            args = k4_compare.id_args_of((
+                icfg, ids._ctx_cdfs(icfg, state.id).to(
+                    torch.int32).contiguous(), R,
+                words.to(torch.int32).contiguous(), states, n_valid))
+            res, wall, dev_s, n = _profiled(
+                lambda: ids.id_decode_scan(*args))
             got["ids"] = (wall, dev_s, n, R // icfg.n_lanes * icfg.w_all,
-                          *id_scan_bound_ms(icfg, state.id, R, n_valid, res))
+                          *k4_compare.k4_bound_ms(args, res))
         res, wall, dev_s, n = _profiled(
             lambda: real(dcfg, qcfg, mcfg, icfg, R, L, *rest))
         rows = (3 * (R // 2) if dcfg.pe_log2_buckets > 0 else R)
@@ -163,9 +142,12 @@ def _profile_one_batch(arc, out, out2):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=100_000)
-    ap.add_argument("--om", default="o", help="read order (o|s)")
-    ap.add_argument("--qm", default="8", help="quality mode (o|8|4|2|n)")
-    ap.add_argument("--im", default="n", help="id mode (o|i|n)")
+    ap.add_argument("--om", default="o", choices=("o", "s"),
+                    help="read order")
+    ap.add_argument("--qm", default="8", choices=("o", "8", "4", "2", "n"),
+                    help="quality mode")
+    ap.add_argument("--im", default="n", choices=("o", "i", "n"),
+                    help="id mode (i: instrument ids, the CLI's default)")
     ap.add_argument("--pe", action="store_true",
                     help="paired-end (-p): reads / 2 pairs")
     args = ap.parse_args()
@@ -226,8 +208,9 @@ def main() -> int:
           f"a position")
     if id_scan is not None:
         wall, dev_s, n, steps, bound, by = id_scan
-        print(f"that batch's id scan alone (id_decode_batch, {steps} "
-              f"steps): wall {wall:.4f} s, device busy {dev_s:.4f} s, {n} "
+        print(f"that batch's id scan alone (id_decode_scan: K4, {steps} "
+              f"steps): wall {wall * 1e3:.4f} ms, device busy "
+              f"{dev_s * 1e3:.4f} ms, {n} "
               f"device records, {n / steps:.1f} a step; bound {bound:.5f} "
               f"ms by {by}")
     return 0

@@ -1,7 +1,7 @@
-"""Kernels K1, K3 and K2 on a CUDA card: each launches, equals its plain
-torch version exactly (K2 with its row's table update and the in-batch
-local statistics, K3 with the in-batch deltas), and refuses what it does
-not take instead of falling back. Imports
+"""Kernels K1, K3, K2, K4 and K5 on a CUDA card: each launches, equals its
+plain torch version exactly (K2 with its row's table update and the
+in-batch local statistics, K3 with the in-batch deltas, K4 under both id
+codecs), and refuses what it does not take instead of falling back. Imports
 no JAX and nothing of the reference package, so it runs on a machine with a
 card and neither of them:
 
@@ -528,3 +528,152 @@ def test_k2_refuses_instead_of_falling_back():
         with pytest.raises(ValueError):
             dna.dna_decode_row(*good, *lcp_src)
     assert dna.K2_LAUNCHES == before + 2
+
+
+# --- K4 and K5: the id and meta decode scans ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 256, 1024, 2048])
+@pytest.mark.parametrize("codec_v,n_pad,short", [(2, 0, False),
+                                                 (2, 37, False),
+                                                 (1, 0, False),
+                                                 (1, 37, False),
+                                                 (2, 11, True)])
+def test_k4_equals_plain_scan(N, codec_v, n_pad, short):
+    """The grid, final states and words consumed, exactly, on encoded id
+    batches (utils/id_batches: F = 12 fields, escapes of up to M = 40 raw
+    bytes; models whose flag and delta rows are mostly zero-width steps,
+    a quarter of the rows all zero): both codecs, with padding rows (v2
+    codes nothing there, v1 codes them), and with the words cut short so
+    that reads past the end clamp."""
+    from fqsqueezer_tpu_torch.streams import ids
+    from fqsqueezer_tpu_torch.utils.id_batches import id_scan_inputs
+
+    _card()
+    cfg, table, R, words, init, nv = id_scan_inputs(
+        N + codec_v + n_pad, N, 2, 12, 40, codec_v=codec_v,
+        n_pad=min(n_pad, 2 * N - 1), device="cuda", short=short)
+    before = ids.K4_LAUNCHES
+    got = ids.id_decode_scan(cfg, table, R, words, init, nv)
+    assert ids.K4_LAUNCHES == before + 1
+    want = ids.id_decode_scan_plain(cfg, table, R, words, init, nv)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_k4_equals_plain_scan_on_long_ids():
+    """A long raw-byte tail (M = 300: lengths take both bytes) at the main
+    path's 2048 lanes."""
+    from fqsqueezer_tpu_torch.streams import ids
+    from fqsqueezer_tpu_torch.utils.id_batches import id_scan_inputs
+
+    _card()
+    cfg, table, R, words, init, nv = id_scan_inputs(3, 2048, 2, 12, 300,
+                                                    n_pad=100,
+                                                    device="cuda")
+    got = ids.id_decode_scan(cfg, table, R, words, init, nv)
+    want = ids.id_decode_scan_plain(cfg, table, R, words, init, nv)
+    torch.cuda.synchronize()
+    assert _same(got, want)
+    assert (got[0][:, 62] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,r_pl", [(8, 3), (1024, 4), (2048, 2)])
+@pytest.mark.parametrize("with_lcp", [False, True])
+def test_k5_equals_plain_scan(N, r_pl, with_lcp):
+    """W = 2 (lengths) and 3 (with the LCP): symbols, states and words
+    consumed, exactly, and short words."""
+    from fqsqueezer_tpu_torch.streams import meta
+    from fqsqueezer_tpu_torch.utils.id_batches import meta_scan_inputs
+
+    _card()
+    for short in (False, True):
+        cfg, table, R, words, init = meta_scan_inputs(
+            N + r_pl + short, N, r_pl, with_lcp, device="cuda", short=short)
+        before = meta.K5_LAUNCHES
+        got = meta.meta_decode_scan(cfg, table, R, words, init)
+        assert meta.K5_LAUNCHES == before + 1
+        want = meta.meta_decode_scan_plain(cfg, table, R, words, init)
+        torch.cuda.synchronize()
+        assert _same(got, want)
+
+
+@pytest.mark.cuda
+def test_k4_k5_refuse_instead_of_falling_back():
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.streams import ids, meta
+    from fqsqueezer_tpu_torch.utils.id_batches import (id_scan_inputs,
+                                                       meta_scan_inputs)
+
+    _card()
+    cfg, table, R, words, init, nv = id_scan_inputs(1, 8, 2, 3, 20,
+                                                    device="cuda")
+    before = ids.K4_LAUNCHES
+    for args in ((cfg, table.long(), R, words, init),      # wrong dtype
+                 (cfg, table, R, words.long(), init),
+                 (cfg, table, R, words[:0], init),          # no words
+                 (cfg, table, R, words.cpu(), init),        # wrong device
+                 (cfg, table, R - 1, words, init),          # R % N != 0
+                 (cfg, table[:-1], R, words, init),         # wrong shape
+                 (dataclasses.replace(cfg, n_lanes=4096), table, 4096,
+                  words, init.repeat(512)),
+                 (dataclasses.replace(cfg, n_fields=13), table, R, words,
+                  init)):
+        with pytest.raises(ValueError):
+            ids.id_decode_scan(*args, nv)
+    assert ids.K4_LAUNCHES == before
+    mcfg, mtable, mR, mwords, minit = meta_scan_inputs(1, 8, 2, True,
+                                                       device="cuda")
+    before = meta.K5_LAUNCHES
+    for args in ((mcfg, mtable.long(), mR, mwords, minit),
+                 (mcfg, mtable, mR, mwords[:0], minit),
+                 (mcfg, mtable, mR, mwords, minit.cpu()),
+                 (mcfg, mtable[:2].contiguous(), mR, mwords, minit),
+                 (mcfg, mtable, mR + 1, mwords, minit)):
+        with pytest.raises(ValueError):
+            meta.meta_decode_scan(*args)
+    assert meta.K5_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_decode_batches_launch_k4_and_k5_once_and_never_the_plain_scans(
+        monkeypatch):
+    """id_decode_batch and meta_decode_batch on CUDA tensors: one K4 and
+    one K5 launch, no plain scan, and the same outputs as the batches
+    decoded through the plain scans on the same card."""
+    from fqsqueezer_tpu_torch.streams import ids, meta
+    from fqsqueezer_tpu_torch.utils.id_batches import (id_scan_inputs,
+                                                       meta_scan_inputs)
+
+    _card()
+    cfg, table, R, words, init, nv = id_scan_inputs(5, 256, 2, 4, 24,
+                                                    n_pad=9, device="cuda")
+    mcfg, mtable, mR, mwords, minit = meta_scan_inputs(5, 256, 2, True,
+                                                       device="cuda")
+    # counts only on the symbols each context codes, as a real stream
+    # leaves them: the decoded delta symbols stay in 0..8
+    id_model = torch.randint(0, 30, (ids.N_CTX, ids.N_SYM),
+                             dtype=torch.int32, device="cuda") * \
+        torch.from_numpy(ids._alpha_lut_np()).cuda()
+    m_model = torch.randint(0, 30, (meta.N_CTX, meta.N_SYM),
+                            dtype=torch.int32, device="cuda")
+    plain = ids.id_decode_scan_plain, meta.meta_decode_scan_plain
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain scan ran on CUDA tensors")
+
+    monkeypatch.setattr(ids, "id_decode_scan_plain", refuse)
+    monkeypatch.setattr(meta, "meta_decode_scan_plain", refuse)
+    k4, k5 = ids.K4_LAUNCHES, meta.K5_LAUNCHES
+    got_i = ids.id_decode_batch(cfg, id_model, R, words, init, nv)
+    got_m = meta.meta_decode_batch(mcfg, m_model, mR, mwords, minit)
+    assert (ids.K4_LAUNCHES, meta.K5_LAUNCHES) == (k4 + 1, k5 + 1)
+    monkeypatch.setattr(ids, "id_decode_scan", lambda *a: plain[0](*a))
+    monkeypatch.setattr(meta, "meta_decode_scan", lambda *a: plain[1](*a))
+    want_i = ids.id_decode_batch(cfg, id_model, R, words, init, nv)
+    want_m = meta.meta_decode_batch(mcfg, m_model, mR, mwords, minit)
+    assert (ids.K4_LAUNCHES, meta.K5_LAUNCHES) == (k4 + 1, k5 + 1)
+    assert _same(got_i, want_i) and _same(got_m, want_m)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from fqsqueezer_tpu import pipeline as jp
+from fqsqueezer_tpu.ops import models as jmodels
 from fqsqueezer_tpu.ops import rans as jrans
 from fqsqueezer_tpu.params import DnaMode, IdMode, Params, QualityMode
 from fqsqueezer_tpu.streams import dna as jdna
@@ -226,6 +227,7 @@ def _decode_one_batch():
     out["jmeta"] = jax.device_get(jmeta.meta_decode_batch(
         mcfg, jnp.asarray(start["meta"]), R_DEC, *jw(0)))
     out["tmeta"] = meta.meta_decode_batch(tcfgs[2], ts.meta, R_DEC, *tw(0))
+    out["meta_in"] = (np.array(start["meta"]), *streams[0])
     jlen = jnp.asarray(out["jmeta"][0], jnp.int32)
     tlen = out["tmeta"][0]
     jcodes, jstate, jx, jptr, jextras = jdna.dna_decode_batch(
@@ -254,6 +256,110 @@ def test_meta_decode_batch(decoded):
                                   decoded["enc_state"]["meta"])
     np.testing.assert_array_equal(tx.numpy(), jx)
     assert int(tptr) == int(jptr)
+
+
+def test_k5_staged_inputs_and_plain_scan_equal_the_reference(decoded):
+    """K5's table is the reference's cdf of each meta slot's context
+    (model_cdf of contexts 0..W-1); the plain scan (meta_decode_scan_plain)
+    gives the reference decoder's length bytes, states and words consumed,
+    and so does the kernel's arithmetic emulated lane by lane on the staged
+    table."""
+    from test_torch_ids import slot_scan_emulated
+
+    cfg = decoded["tcfgs"][2]
+    model, w, st = decoded["meta_in"]
+    table = meta.meta_cdfs(cfg, torch.from_numpy(model))
+    want = jax.jit(jmodels.model_cdf, static_argnums=2)(
+        jnp.asarray(model), jnp.arange(2), SB)
+    assert table.dtype == torch.int32 and cfg.n_per_read == 2
+    np.testing.assert_array_equal(table.numpy(), np.asarray(want))
+    jl, _, _, jx, jptr = decoded["jmeta"]
+    syms, x, ptr = meta.meta_decode_scan_plain(
+        cfg, table, R_DEC, torch.from_numpy(w).to(torch.int32),
+        torch.from_numpy(st))
+    assert syms.dtype == torch.uint8 and tuple(syms.shape) == (R_DEC, 2)
+    jl = np.asarray(jl).astype(np.int64)
+    np.testing.assert_array_equal(syms.numpy(),
+                                  np.stack([jl & 0xFF, jl >> 8], axis=1))
+    np.testing.assert_array_equal(x.numpy(), jx)
+    assert int(ptr) == int(jptr)
+    emu = slot_scan_emulated(table.numpy(), None, 2, cfg.n_lanes, R_DEC, w,
+                             st, SB, R_DEC, 0, rule_ids=False)
+    np.testing.assert_array_equal(emu[0], syms.numpy())
+    np.testing.assert_array_equal(emu[1], jx)
+    assert emu[2] == int(jptr)
+
+
+@pytest.mark.parametrize("with_lcp,short", [(True, False), (False, True)])
+def test_k5_emulated_equals_plain_scan_on_encoded_batches(with_lcp, short):
+    """utils/id_batches' encoded meta batches, with the LCP's third slot and
+    with the words cut short (the reads past the end clamp): the kernel's
+    arithmetic emulated on the staged table equals the plain scan, which
+    decodes the encoded symbols where the words suffice."""
+    from test_torch_ids import slot_scan_emulated
+
+    from fqsqueezer_tpu_torch.utils.id_batches import meta_scan_inputs
+
+    cfg, table, R, words, init = meta_scan_inputs(7 + short, 8, 3, with_lcp,
+                                                  short=short)
+    W = cfg.n_per_read
+    syms, x, ptr = meta.meta_decode_scan_plain(cfg, table, R, words, init)
+    emu = slot_scan_emulated(table.numpy(), None, W, 8, R, words.numpy(),
+                             init.numpy(), SB, R, 0, rule_ids=False)
+    np.testing.assert_array_equal(emu[0], syms.numpy())
+    np.testing.assert_array_equal(emu[1], x.numpy())
+    assert emu[2] == int(ptr)
+    assert syms.shape[1] == (3 if with_lcp else 2)
+
+
+def test_check_k5_refuses_bad_shapes_before_any_build(decoded, monkeypatch):
+    """K5's wrapper checks every argument before it builds or launches
+    (on CPU tensors, which reach the wrapper only here); good ones get as
+    far as the build. On CPU tensors meta_decode_batch runs the plain scan
+    and never reaches the build; a device that is neither the CPU nor
+    CUDA is refused."""
+    import dataclasses
+
+    from fqsqueezer_tpu_torch.ops import _build
+
+    def refuse():
+        raise AssertionError("the kernel build was reached")
+
+    monkeypatch.setattr(_build, "kernels", refuse)
+    cfg = decoded["tcfgs"][2]
+    model, w, st = decoded["meta_in"]
+    table = meta.meta_cdfs(cfg, torch.from_numpy(model))
+    words = torch.from_numpy(w).to(torch.int32)
+    init = torch.from_numpy(st)
+    good = (cfg, table, R_DEC, words, init)
+
+    def bad(k, v):
+        a = list(good)
+        a[k] = v
+        return a
+
+    before = meta.K5_LAUNCHES
+    for args in (bad(2, R_DEC - 1),                        # R % N != 0
+                 bad(0, dataclasses.replace(cfg, n_lanes=4096)),
+                 bad(0, dataclasses.replace(cfg, scale_bits=17)),
+                 bad(0, dataclasses.replace(cfg, with_lcp=True)),  # W
+                 bad(3, words[:0]),                        # no words
+                 bad(3, words.long()),                     # wrong dtype
+                 bad(1, table.long()),
+                 bad(1, table[:, :-1].contiguous()),       # wrong shape
+                 bad(4, init[:-1])):
+        with pytest.raises(ValueError):
+            meta._meta_decode_scan_cuda(*args)
+    with pytest.raises(AssertionError, match="build was reached"):
+        meta._meta_decode_scan_cuda(*good)
+    got = meta.meta_decode_batch(cfg, torch.from_numpy(model), R_DEC,
+                                 torch.from_numpy(w), init)
+    for g, want in zip(got, decoded["tmeta"]):
+        assert torch.equal(g, want)
+    assert meta.K5_LAUNCHES == before
+    with pytest.raises(ValueError, match="no scan for device meta"):
+        meta.meta_decode_scan(cfg, table.to("meta"), R_DEC,
+                              words.to("meta"), init.to("meta"))
 
 
 def test_dna_decode_symbols(decoded):

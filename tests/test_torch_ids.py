@@ -187,7 +187,7 @@ def id_batch():
                                 n_valid=N_VALID)
     return {"jcfg": jcfg, "tcfg": tcfg, "idl": idl, "planes": planes,
             "model": model, "enc_model": np.asarray(enc_model), "n": n,
-            "jdec": jdec, "tdec": tdec}
+            "w": w, "st": st, "jdec": jdec, "tdec": tdec}
 
 
 def test_model_cdf_masked(id_batch):
@@ -241,28 +241,18 @@ def test_id_decode_batch(id_batch):
     assert ids_out[:N_VALID] == id_batch["idl"][:N_VALID]
 
 
-def test_id_codec_v1_is_refused():
-    """The legacy id codec (the first writer's, id_codec_v 1), once
-    refused, against the reference: make_configs maps it; on the
-    device batch of the other tests, with its padding rows tokenized like
-    real ones (host_n_valid), the reference's encode (ALPHA over all 256
-    symbols of every context, the padding coded) decodes through the
-    port's id_decode_batch to the reference decoder's planes, model,
-    states and words consumed, the padding included, and those detokenize
-    to the batch's ids."""
-    p = Params()
-    p.dna_mode = DnaMode.SE_ORIGINAL
-    p.id_mode = IdMode.LOSSLESS
-    p.id_codec_v = 1
-    assert pipeline.make_configs(p)[3].codec_v == 1
+@pytest.fixture(scope="module")
+def id_batch_v1():
+    """The batch of id_batch under the legacy id codec (the first
+    writer's, id_codec_v 1): its padding rows tokenized like real ones
+    (host_n_valid), the reference's encode (ALPHA over all 256 symbols of
+    every context, the padding coded) and the reference decoder's
+    outputs, and the port's id_decode_batch of the same words."""
     _, _, idl, _, model = _batch()
     jcfg = jids.IdConfig(max_id_len=28, n_fields=2, n_lanes=N, codec_v=1)
     tcfg = tids.IdConfig(max_id_len=28, n_fields=2, n_lanes=N, codec_v=1)
-    assert tids.host_n_valid(tcfg, N_VALID) is None
     planes = tids.encode_ids_host(idl, tids.read_lanes(R, N), 2, 28, [None],
                                   n_valid=tids.host_n_valid(tcfg, N_VALID))
-    _same_planes(planes, jids.encode_ids_host(
-        idl, jids.read_lanes(R, N), 2, 28, [None], n_valid=None))
     jm = jnp.asarray(model)
     words, n_words, states, enc_model = jids.id_encode_batch(
         jcfg, jm, *(jnp.asarray(a) for a in planes),
@@ -277,12 +267,37 @@ def test_id_codec_v1_is_refused():
     tdec = tids.id_decode_batch(tcfg, torch.from_numpy(model), R,
                                 torch.from_numpy(w), torch.from_numpy(st),
                                 n_valid=N_VALID)
+    return {"jcfg": jcfg, "tcfg": tcfg, "idl": idl, "planes": planes,
+            "model": model, "enc_model": np.asarray(enc_model), "n": n,
+            "w": w, "st": st, "jdec": jdec, "tdec": tdec}
+
+
+def test_id_codec_v1_is_refused(id_batch_v1):
+    """The legacy id codec (the first writer's, id_codec_v 1), once
+    refused, against the reference: make_configs maps it; on the
+    device batch of the other tests, with its padding rows tokenized like
+    real ones (host_n_valid), the reference's encode (ALPHA over all 256
+    symbols of every context, the padding coded) decodes through the
+    port's id_decode_batch to the reference decoder's planes, model,
+    states and words consumed, the padding included, and those detokenize
+    to the batch's ids."""
+    p = Params()
+    p.dna_mode = DnaMode.SE_ORIGINAL
+    p.id_mode = IdMode.LOSSLESS
+    p.id_codec_v = 1
+    assert pipeline.make_configs(p)[3].codec_v == 1
+    b = id_batch_v1
+    idl, planes = b["idl"], b["planes"]
+    assert tids.host_n_valid(b["tcfg"], N_VALID) is None
+    _same_planes(planes, jids.encode_ids_host(
+        idl, jids.read_lanes(R, N), 2, 28, [None], n_valid=None))
+    tdec, jdec, n = b["tdec"], b["jdec"], b["n"]
     for name, g, want in zip(("flag", "dsym", "dmag", "emat", "elens",
                               "model", "states", "ptr"), tdec, jdec):
         np.testing.assert_array_equal(g.numpy().astype(np.int64),
                                       np.asarray(want).astype(np.int64),
                                       err_msg=name)
-    np.testing.assert_array_equal(tdec[5].numpy(), np.asarray(enc_model))
+    np.testing.assert_array_equal(tdec[5].numpy(), b["enc_model"])
     assert int(tdec[7]) == n
     for g, want in zip(tdec[:5], planes):
         np.testing.assert_array_equal(g.numpy().astype(np.int64),
@@ -318,3 +333,241 @@ def _id_params():
     p.quality_mode = tparams.QualityMode.NONE
     p.id_mode = tparams.IdMode.LOSSLESS
     return p
+
+
+# --- the id decode scan: kernel K4's inputs, rule and wrapper ------------------
+
+def slot_scan_emulated(table, slot_words, W, N, R, words, init, sb, n_valid,
+                       M, rule_ids=True):
+    """csrc/slot_decode.cu's slot_decode_kernel, lane by lane in Python:
+    the slot word's kind and the carries (the flag, 4-bit delta symbols
+    clamped to 8, the length), the 8-probe binary search of the staged
+    row, the state update and the renormalizing lanes' words in lane
+    order (past the end: the last word). Without rule_ids, the meta rule:
+    every slot active, row = slot. Returns (out [R, W] uint8, final states
+    [N], words consumed)."""
+    r_pl = R // N
+    mask = (1 << sb) - 1
+    x = [int(v) for v in init]
+    flag, ln, ds = [0] * N, [0] * N, [0] * N
+    out = np.zeros((R, W), np.uint8)
+    ptr = 0
+    for rd in range(r_pl):
+        for i in range(W):
+            if rule_ids:
+                s = int(slot_words[i])
+                ctx, kind, arg = s & 0xFF, (s >> 8) & 0xF, s >> 12
+            else:
+                ctx, kind, arg = i, tids.SLOT_FLAG, 0
+            syms = []
+            for n in range(N):
+                act = n * r_pl + rd < n_valid
+                if kind == tids.SLOT_DELTA:
+                    act = act and flag[n] == 0
+                elif kind == tids.SLOT_MAG:
+                    d = (ds[n] >> (4 * (arg >> 2))) & 0xF
+                    act = act and flag[n] == 0 and (
+                        0 if d < 3 else 1 << ((d - 3) >> 1)) > (arg & 3)
+                elif kind in (tids.SLOT_LEN0, tids.SLOT_LEN1):
+                    act = act and flag[n] > 0
+                elif kind == tids.SLOT_BYTE:
+                    act = act and flag[n] > 0 and ln[n] > arg
+                slot = x[n] & mask
+                f, c, sym = 1 << sb, 0, 0
+                if act:
+                    row = table[ctx]
+                    k = 0
+                    for h in (128, 64, 32, 16, 8, 4, 2, 1):
+                        k = k + h if row[k + h] <= slot else k
+                    sym, c, f = k, int(row[k]), int(row[k + 1] - row[k])
+                x[n] = (f * (x[n] >> sb) + slot - c) & 0xFFFFFFFF
+                if kind == tids.SLOT_FLAG:
+                    flag[n] = sym
+                elif kind == tids.SLOT_DELTA:
+                    ds[n] = (ds[n] & ~(0xF << (4 * arg))) | (
+                        min(sym, 8) << (4 * arg))
+                elif kind == tids.SLOT_LEN0:
+                    ln[n] = sym
+                elif kind == tids.SLOT_LEN1:
+                    ln[n] = min(ln[n] | sym << 8, M)
+                syms.append(sym)
+            for n in range(N):
+                if x[n] < 1 << 16:
+                    x[n] = ((x[n] << 16) | int(words[min(ptr,
+                                                         len(words) - 1)]))
+                    ptr += 1
+                out[n * r_pl + rd, i] = syms[n]
+    return out, np.array(x, np.int64), ptr
+
+
+def _k4_staged(b):
+    """The batch's K4 inputs: (cdf table [N_CTX, 257] int32, slot words
+    [w_all] int32)."""
+    cfg = b["tcfg"]
+    return (tids._ctx_cdfs(cfg, torch.from_numpy(b["model"])).to(
+        torch.int32), tids.k4_slots(cfg))
+
+
+@pytest.mark.parametrize("codec", ["v2", "v1"])
+def test_k4_staged_inputs_equal_the_reference(id_batch, id_batch_v1, codec):
+    """K4's table is the reference's cdf of every context (model_cdf_masked
+    under v2, model_cdf under v1), its slot words hold the contexts of
+    the reference's id_modeling, and their kinds, through the kernel's
+    rule, give its active plane on the decoded planes; the plain scan
+    (id_decode_scan_plain) gives the reference decoder's grid, states and
+    words consumed, and so does the kernel's arithmetic emulated lane by
+    lane on the staged inputs."""
+    b = id_batch if codec == "v2" else id_batch_v1
+    jcfg, cfg, model = b["jcfg"], b["tcfg"], b["model"]
+    table, slots = _k4_staged(b)
+    ctx = jnp.arange(jids.N_CTX)
+    want = (jax.jit(jmodels.model_cdf_masked, static_argnums=3)(
+        jnp.asarray(model), jnp.asarray(jids._alpha_lut_np()), ctx,
+        cfg.scale_bits) if codec == "v2" else jax.jit(
+        jmodels.model_cdf, static_argnums=2)(jnp.asarray(model), ctx,
+                                             cfg.scale_bits))
+    assert table.dtype == torch.int32
+    np.testing.assert_array_equal(table.numpy(), np.asarray(want))
+    jdec = b["jdec"]
+    # one compiled call (the operations one by one take seconds)
+    jctx, _, _, _, jact = jax.device_get(jax.jit(
+        jids.id_modeling, static_argnums=0)(
+        jcfg, jnp.asarray(model), *(jnp.asarray(a) for a in jdec[:5]),
+        jnp.int32(N_VALID)))
+    sw = slots.numpy()
+    assert sw.shape == (cfg.w_all,)
+    np.testing.assert_array_equal(sw & 0xFF, np.asarray(jctx)[0])
+    # the planes as one [R, w_all] grid, the length as its two bytes
+    el = np.asarray(jdec[4]).astype(np.int64)
+    jgrid = np.concatenate(
+        [np.asarray(jdec[0])[:, None], np.asarray(jdec[1]),
+         np.asarray(jdec[2]).reshape(R, -1), (el & 0xFF)[:, None],
+         (el >> 8)[:, None], np.asarray(jdec[3])], axis=1).astype(np.int64)
+    nv = N_VALID if codec == "v2" else R
+    grid, x, ptr = tids.id_decode_scan_plain(
+        cfg, table, R, torch.from_numpy(b["w"]).to(torch.int32),
+        torch.from_numpy(b["st"]), n_valid=N_VALID)
+    assert grid.dtype == torch.uint8 and tuple(grid.shape) == (R, cfg.w_all)
+    np.testing.assert_array_equal(grid.numpy(), jgrid)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jdec[6]))
+    assert int(ptr) == int(jdec[7]) == b["n"]
+    emu = slot_scan_emulated(table.numpy(), sw, cfg.w_all, N, R, b["w"],
+                             b["st"], cfg.scale_bits, nv, cfg.max_id_len)
+    np.testing.assert_array_equal(emu[0], jgrid)
+    np.testing.assert_array_equal(emu[1], np.asarray(jdec[6]))
+    assert emu[2] == b["n"]
+    # the kinds through the kernel's rule: the reference's active plane
+    act = np.zeros((R, cfg.w_all), bool)
+    for r in range(R):
+        flag, ds, ln = jgrid[r, 0], jgrid[r, 1:1 + cfg.n_fields], el[r]
+        for i, s in enumerate(sw):
+            kind, arg = (s >> 8) & 0xF, s >> 12
+            act[r, i] = r < nv and (
+                kind == tids.SLOT_FLAG
+                or (kind == tids.SLOT_DELTA and flag == 0)
+                or (kind == tids.SLOT_MAG and flag == 0
+                    and tids._NB_LUT[min(ds[arg >> 2], 8)] > (arg & 3))
+                or (kind in (tids.SLOT_LEN0, tids.SLOT_LEN1) and flag > 0)
+                or (kind == tids.SLOT_BYTE and flag > 0 and ln > arg))
+    np.testing.assert_array_equal(act, np.asarray(jact))
+
+
+@pytest.mark.parametrize("codec_v,n_pad,short", [(2, 5, False),
+                                                 (1, 0, False),
+                                                 (2, 0, True)])
+def test_k4_emulated_equals_plain_scan_on_encoded_batches(codec_v, n_pad,
+                                                          short):
+    """utils/id_batches' encoded batches (F = 12, escapes up to M = 300,
+    whose lengths take both bytes; zero rows and zero-width steps; padding
+    rows; words cut short, so reads past the end clamp): the kernel's
+    arithmetic emulated on the staged inputs equals the plain scan, which
+    decodes the encoded planes where the words suffice."""
+    from fqsqueezer_tpu_torch.utils.id_batches import id_scan_inputs
+
+    cfg, table, R_, words, init, nv = id_scan_inputs(
+        40 + codec_v + short, 4, 2, 12, 300, codec_v=codec_v, n_pad=n_pad,
+        short=short)
+    assert cfg.w_all == 1 + 12 * 5 + 2 + 300
+    grid, x, ptr = tids.id_decode_scan_plain(cfg, table, R_, words, init,
+                                             nv)
+    emu = slot_scan_emulated(table.numpy(), tids.k4_slots(cfg).numpy(),
+                             cfg.w_all, 4, R_, words.numpy(), init.numpy(),
+                             cfg.scale_bits,
+                             nv if codec_v >= 2 else R_, cfg.max_id_len)
+    np.testing.assert_array_equal(emu[0], grid.numpy())
+    np.testing.assert_array_equal(emu[1], x.numpy())
+    assert emu[2] == int(ptr)
+    g = grid.numpy().astype(np.int64)
+    if not short:
+        assert (g[:, 0] > 0).any() and (g[:, 0] == 0).any()
+        assert ((g[:, 61] | g[:, 62] << 8) > 255).any()   # both bytes
+    if n_pad:
+        assert not g[R_ - n_pad:].any()
+
+
+def _refuse_build(monkeypatch):
+    from fqsqueezer_tpu_torch.ops import _build
+
+    def refuse():
+        raise AssertionError("the kernel build was reached")
+
+    monkeypatch.setattr(_build, "kernels", refuse)
+
+
+def test_check_k4_refuses_bad_shapes_before_any_build(id_batch,
+                                                      monkeypatch):
+    """K4's wrapper checks every argument before it builds or launches:
+    (on CPU tensors, which reach the wrapper only here) each bad argument
+    raises ValueError, and good ones get as far as the build."""
+    import dataclasses
+
+    _refuse_build(monkeypatch)
+    cfg = id_batch["tcfg"]
+    table, _ = _k4_staged(id_batch)
+    words = torch.from_numpy(id_batch["w"]).to(torch.int32)
+    init = torch.from_numpy(id_batch["st"])
+    good = (cfg, table, R, words, init, N_VALID)
+
+    def bad(k, v):
+        a = list(good)
+        a[k] = v
+        return a
+
+    before = tids.K4_LAUNCHES
+    for args in (bad(2, R - 1),                            # R % N != 0
+                 bad(0, dataclasses.replace(cfg, n_lanes=4096)),
+                 bad(0, dataclasses.replace(cfg, scale_bits=17)),
+                 bad(0, dataclasses.replace(cfg, n_fields=tids.F_CAP + 1)),
+                 bad(2, (1 << 31) // cfg.w_all // N * N + N),  # R * W
+                 bad(3, words[:0]),                        # no words
+                 bad(3, words.long()),                     # wrong dtype
+                 bad(1, table.long()),
+                 bad(1, table[:-1]),                       # wrong shape
+                 bad(1, table.t().contiguous().t()),       # not contiguous
+                 bad(4, init[:-1]),
+                 bad(4, init.int())):
+        with pytest.raises(ValueError):
+            tids._id_decode_scan_cuda(*args)
+    with pytest.raises(AssertionError, match="build was reached"):
+        tids._id_decode_scan_cuda(*good)
+    assert tids.K4_LAUNCHES == before
+
+
+def test_id_decode_on_the_cpu_never_builds(id_batch, monkeypatch):
+    """On CPU tensors id_decode_batch runs the plain scan and never
+    reaches the kernel build; a device that is neither the CPU nor CUDA
+    is refused."""
+    _refuse_build(monkeypatch)
+    before = tids.K4_LAUNCHES
+    got = tids.id_decode_batch(
+        id_batch["tcfg"], torch.from_numpy(id_batch["model"]), R,
+        torch.from_numpy(id_batch["w"]), torch.from_numpy(id_batch["st"]),
+        n_valid=N_VALID)
+    for g, w in zip(got, id_batch["tdec"]):
+        assert torch.equal(g, w)
+    assert tids.K4_LAUNCHES == before
+    table, _ = _k4_staged(id_batch)
+    with pytest.raises(ValueError, match="no scan for device meta"):
+        tids.id_decode_scan(id_batch["tcfg"], table.to("meta"), R,
+                            torch.zeros(4, dtype=torch.int32, device="meta"),
+                            torch.zeros(N, dtype=torch.int64, device="meta"))
